@@ -1,0 +1,113 @@
+"""Built-in schedule backends: the paper's collectives behind the registry.
+
+Port of ``repro/fabric/backends.py:38-190`` (psum, vote_psum and
+packed_a2a).  Backends are codec-parametric and all fusable: besides the
+per-leaf ``aggregate`` they implement ``aggregate_flat`` over a
+(ranks, N) bucket payload, one collective per bucket.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.lowbit import fp32_allreduce, lowbit_packed_a2a, lowbit_vote_psum
+from ..core.modes import Schedule
+from .codecs import get_codec, resolve_leaf_gate_mask, ring_wire_bytes
+from .registry import AggregationContext, register_schedule
+
+
+@register_schedule(Schedule.PSUM, "fp32")
+class Fp32AllreduceBackend:
+    """Mean transport — the paper's bypass / calibration path.
+
+    The payload is ``codec.encode(g)``, the all-reduce averages it, and
+    ``codec.decode`` runs on the mean (both identity for fp32/identity).
+    """
+
+    name = "psum"
+    fusable = True
+    threads_ef = False
+
+    def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
+        codec = get_codec(policy.mode)
+        return codec.decode(ctx, fp32_allreduce(codec.encode(ctx, g),
+                                                ctx.group)), ef
+
+    def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
+                       gate=None):
+        return codec.decode(ctx, fp32_allreduce(codec.encode(ctx, flat),
+                                                ctx.group))
+
+    def wire_bytes_per_device(self, n_elements: int, mode,
+                              num_workers: int) -> float:
+        return ring_wire_bytes(get_codec(mode).payload_bytes(n_elements),
+                               num_workers)
+
+
+@register_schedule(Schedule.VOTE_PSUM)
+class VotePsumBackend:
+    """Dense sign votes + one integer all-reduce (uses no kernel)."""
+
+    name = "vote_psum"
+    fusable = True
+    threads_ef = True
+
+    def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
+        codec = get_codec(policy.mode)
+        mask = resolve_leaf_gate_mask(codec, g.shape[1:], policy.gate_phase)
+        gate = None if mask is None else \
+            torch.from_numpy(mask).to(g.device, g.dtype).reshape(g.shape[1:])
+        return lowbit_vote_psum(
+            g, ctx.group, ctx.num_workers, ternary=codec.gated,
+            gate_phase=policy.gate_phase, gate=gate, ef=ef)
+
+    def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
+                       gate=None):
+        gv = None if gate is None else gate.vector(torch.float32,
+                                                   device=flat.device)
+        u, _ = lowbit_vote_psum(flat, ctx.group, ctx.num_workers,
+                                ternary=codec.gated, gate=gv)
+        return u
+
+    def wire_bytes_per_device(self, n_elements: int, mode,
+                              num_workers: int) -> float:
+        # the paper's logical 1-byte vote; the realization sums int32
+        return ring_wire_bytes(1.0 * n_elements, num_workers)
+
+
+def _vote_kernels(codec):
+    ks = codec.kernel_set()
+    return ks if ks is not None and ks.votes else None
+
+
+@register_schedule(Schedule.PACKED_A2A)
+class PackedA2ABackend:
+    """The controller schedule: pack -> all_to_all -> PopCount -> gather."""
+
+    name = "packed_a2a"
+    fusable = True
+    threads_ef = True
+
+    def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
+        codec = get_codec(policy.mode)
+        return lowbit_packed_a2a(
+            g, ctx.group, ctx.num_workers, ternary=codec.gated,
+            gate_phase=policy.gate_phase,
+            gate_mask=resolve_leaf_gate_mask(codec, g.shape[1:],
+                                             policy.gate_phase),
+            ef=ef, kernels=_vote_kernels(codec))
+
+    def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
+                       gate=None):
+        # the packed schedule packs the host mask into gate words
+        u, _ = lowbit_packed_a2a(flat, ctx.group, ctx.num_workers,
+                                 ternary=codec.gated,
+                                 gate_mask=None if gate is None
+                                 else gate.mask(),
+                                 kernels=_vote_kernels(codec))
+        return u
+
+    def wire_bytes_per_device(self, n_elements: int, mode,
+                              num_workers: int) -> float:
+        # all_to_all of packed signs + all_gather of sign+mask words
+        return (ring_wire_bytes(n_elements / 8.0, num_workers, trips=1.0)
+                + ring_wire_bytes(n_elements / 4.0, num_workers, trips=1.0))

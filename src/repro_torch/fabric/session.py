@@ -1,0 +1,349 @@
+"""The Fabric session: one control surface over the aggregation fabric.
+
+Port of ``repro/fabric/session.py``.  A :class:`Fabric` owns the worker
+group, group assignment, policy resolution, error-feedback state,
+schedule dispatch (by default through fused 32 MiB buckets, one
+collective per bucket) and the train step.
+
+Gradients reach the session with the group's local ranks on their
+leading axis — for the :class:`~repro_torch.core.collectives.VirtualGroup`
+all W workers, ``(W, *shape)`` per leaf — and aggregates leave it
+replicated, ``(*shape)``.  Error-feedback trees hold ``(W, *shape)``
+residuals where EF is on and a scalar 0 sentinel elsewhere, as the
+reference's global EF tree does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..core import tree as T
+from ..core.buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan,
+                            BucketLayout, GroupRules, dtype_name,
+                            group_sizes, plan_buckets, resolve_policies)
+from ..core.collectives import VirtualGroup
+from ..core.lowbit import _ef_update
+from ..core.modes import wire_schedule
+from .codecs import get_codec
+from .registry import AggregationContext, get_schedule
+
+
+# ---------------------------------------------------------------------------
+# leaf- and tree-level aggregation (registry-dispatched)
+# ---------------------------------------------------------------------------
+
+def aggregate_leaf(ctx: AggregationContext, g: torch.Tensor, policy,
+                   ef: torch.Tensor | None = None):
+    """Aggregate one gradient leaf under its policy: ``(u, new_ef)``."""
+    backend = get_schedule(wire_schedule(policy.mode, policy.schedule))
+    return backend.aggregate(ctx, g, policy, ef)
+
+
+def _leaf_uses_ef(pol, e) -> bool:
+    """The policy flag, a real residual (not the sentinel), and a codec
+    that consumes EF — the same gate on the per-leaf and fused paths."""
+    return (pol.error_feedback and e is not None and e.dim() > 0
+            and get_codec(pol.mode).threads_ef)
+
+
+def _tree_parts(grads, policies, ef_states):
+    g_items = T.flatten(grads)
+    p_leaves = T.leaves(policies)
+    e_leaves = ([None] * len(g_items) if ef_states is None
+                else T.leaves(ef_states))
+    if not len(p_leaves) == len(e_leaves) == len(g_items):
+        raise ValueError("gradient, policy and EF trees disagree")
+    return g_items, p_leaves, e_leaves
+
+
+def aggregate_tree(ctx: AggregationContext, grads: Any, policies: Any,
+                   ef_states: Any | None = None):
+    """Aggregate a gradient tree leaf by leaf: ``(aggregates, new_ef)``."""
+    g_items, p_leaves, e_leaves = _tree_parts(grads, policies, ef_states)
+    agg, new_ef = [], []
+    for (path, g), pol, e in zip(g_items, p_leaves, e_leaves):
+        use_ef = _leaf_uses_ef(pol, e)
+        u, ef_out = aggregate_leaf(ctx, g, pol, ef=e if use_ef else None)
+        agg.append((path, u))
+        new_ef.append((path, ef_out if use_ef else e))
+    if ef_states is None:
+        return T.unflatten(agg), None
+    return T.unflatten(agg), T.unflatten(new_ef)
+
+
+# ---------------------------------------------------------------------------
+# bucketed (fused) tree aggregation
+# ---------------------------------------------------------------------------
+
+def _registry_fusable(schedule: str) -> bool:
+    """Layout-planner predicate: does this wire schedule's backend fuse?"""
+    try:
+        return bool(getattr(get_schedule(schedule), "fusable", False))
+    except KeyError:
+        return False        # the per-leaf path raises the registry error
+
+
+def layout_kernel_stats(layout: BucketLayout, num_workers: int) -> dict:
+    """Modeled kernel-launch and device-memory accounting for one layout.
+
+    Sums over every collective launch the launches and modeled bytes of
+    the launch codec's :class:`~repro_torch.kernels.fused.KernelSet`
+    under the fused and the staged chain.  Launches whose codec brings no
+    vote kernel set on ``packed_a2a`` count under ``unkernelized``.
+    """
+    stats = {"launches_fused": 0, "launches_unfused": 0,
+             "hbm_bytes_fused": 0.0, "hbm_bytes_unfused": 0.0,
+             "collectives": 0, "unkernelized": 0}
+    for key, n in layout.launches():
+        stats["collectives"] += 1
+        try:
+            codec = get_codec(key.mode)
+        except KeyError:
+            stats["unkernelized"] += 1
+            continue
+        ks = codec.kernel_set()
+        if ks is None or not (ks.votes and key.schedule == "packed_a2a"):
+            stats["unkernelized"] += 1
+            continue
+        ef = key.error_feedback and codec.threads_ef
+        for path, fused in (("fused", True), ("unfused", False)):
+            stats[f"launches_{path}"] += ks.launches(
+                fused=fused, distributed=num_workers > 1, ef=ef)
+            stats[f"hbm_bytes_{path}"] += ks.hbm_bytes(
+                n, num_workers=num_workers, fused=fused,
+                distributed=num_workers > 1, ef=ef)
+    return stats
+
+
+def aggregate_tree_bucketed(ctx: AggregationContext, grads: Any,
+                            policies: Any, ef_states: Any | None = None, *,
+                            layout: BucketLayout | None = None,
+                            bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+    """Aggregate a gradient tree through fused flat buckets.
+
+    Bit-identical to :func:`aggregate_tree` but one collective per bucket:
+    compatible leaves are flattened and concatenated per worker, the
+    backend's ``aggregate_flat`` runs on the bucket, and results are cut
+    back to leaf shapes.  Error feedback is injected (``g + e``) and
+    updated (``beta = mean|g_eff|`` is a per-leaf statistic) per leaf
+    around the fused collective.
+    """
+    g_items, p_leaves, e_leaves = _tree_parts(grads, policies, ef_states)
+    if layout is None:
+        layout = plan_buckets(_per_worker_like(grads), policies,
+                              bucket_bytes=bucket_bytes,
+                              fusable=_registry_fusable)
+    if layout.num_leaves != len(g_items):
+        raise ValueError(f"bucket layout planned for {layout.num_leaves} "
+                         f"leaves applied to a {len(g_items)}-leaf tree")
+    g_leaves = [g for _, g in g_items]
+    agg: list = [None] * len(g_items)
+    new_ef = list(e_leaves)
+
+    for uf in layout.unfused:
+        g, pol, e = g_leaves[uf.leaf], p_leaves[uf.leaf], e_leaves[uf.leaf]
+        use_ef = _leaf_uses_ef(pol, e)
+        u, ef_out = aggregate_leaf(ctx, g, pol, ef=e if use_ef else None)
+        agg[uf.leaf] = u
+        if use_ef:
+            new_ef[uf.leaf] = ef_out
+
+    for bucket in layout.buckets:
+        backend = get_schedule(bucket.key.schedule)
+        codec = get_codec(bucket.key.mode)
+        threads_ef = getattr(backend, "threads_ef", False) and codec.threads_ef
+        flats, g_effs = [], {}
+        for slot in bucket.slots:
+            g = g_leaves[slot.leaf]
+            g = g.reshape(g.shape[0], -1)
+            e, pol = e_leaves[slot.leaf], p_leaves[slot.leaf]
+            if threads_ef and pol.error_feedback and e is not None \
+                    and e.dim() > 0:
+                g = g + e.reshape(e.shape[0], -1).to(g.dtype)
+                g_effs[slot.leaf] = g
+            flats.append(g)
+        flat = flats[0] if len(flats) == 1 else torch.cat(flats, dim=1)
+        u_flat = backend.aggregate_flat(ctx, flat, codec, gate=bucket.gate())
+        for slot in bucket.slots:
+            agg[slot.leaf] = u_flat[slot.offset:slot.offset + slot.size] \
+                .reshape(slot.shape)
+            if slot.leaf in g_effs:
+                g_eff = g_effs[slot.leaf]
+                new_ef[slot.leaf] = _ef_update(
+                    g_eff.reshape(g_eff.shape[:1] + slot.shape),
+                    e_leaves[slot.leaf])
+
+    paths = [p for p, _ in g_items]
+    aggregates = T.unflatten(list(zip(paths, agg)))
+    if ef_states is None:
+        return aggregates, None
+    return aggregates, T.unflatten(list(zip(paths, new_ef)))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """Shape and dtype of one leaf (what the layout planner reads)."""
+    shape: tuple
+    dtype: Any
+
+
+def _per_worker_like(grads: Any) -> dict:
+    """Stacked (W, *shape) gradients -> per-worker leaf specs."""
+    return T.map_leaves(lambda g: LeafSpec(tuple(g.shape[1:]), g.dtype),
+                        grads)
+
+
+# ---------------------------------------------------------------------------
+# train state and the session
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainState:
+    model: Any                 # the model; its parameters are updated in place
+    opt: Any                   # optimizer state (moments updated in place)
+    ef: Any                    # error-feedback residuals (sentinel tree)
+    step: int = 0
+
+
+class Fabric:
+    """Aggregation-fabric session over one worker group.
+
+    ``Fabric(num_workers=W)`` runs W virtual data-parallel workers on one
+    device (the reference's ``Fabric(dp_axes=("w",), num_workers=W)``
+    under ``vmap``).  The host-local session of the reference (no
+    data-parallel axes) needs the ``vote_pipeline`` kernel and is still to
+    port.
+    """
+
+    def __init__(self, num_workers: int = 1, *,
+                 rules: GroupRules | None = None,
+                 bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                 fused: bool = True):
+        self.group = VirtualGroup(num_workers)
+        self.num_workers = self.group.size
+        self.rules = rules or GroupRules()
+        self.bucket_bytes = int(bucket_bytes)
+        self.fused = bool(fused)
+        self._layouts: dict[tuple, BucketLayout] = {}
+
+    @property
+    def context(self) -> AggregationContext:
+        return AggregationContext(group=self.group,
+                                  num_workers=self.num_workers)
+
+    def resolve(self, params_like: Any, plan: AdmissionPlan) -> dict:
+        """Params tree -> LeafPolicy tree."""
+        return resolve_policies(params_like, plan, rules=self.rules)
+
+    def group_sizes(self, params_like: Any) -> dict[str, int]:
+        return group_sizes(params_like, self.rules)
+
+    def init_ef(self, params: Any, policies: Any,
+                dtype=torch.float32) -> dict:
+        """EF tree: ``(W, *shape)`` zeros where EF is on, scalar 0 else."""
+        def make(p, pol):
+            shape = (self.num_workers, *p.shape) if pol.error_feedback else ()
+            return torch.zeros(shape, dtype=dtype, device=p.device)
+        return T.map_leaves(make, params, policies)
+
+    def layout_for(self, params_like: Any,
+                   plan: AdmissionPlan | Any) -> BucketLayout:
+        """Bucket layout for a (tree, plan) pair, cached: it is a pure
+        function of leaf order/shapes/dtypes, policies and bucket_bytes."""
+        policies = (self.resolve(params_like, plan)
+                    if isinstance(plan, AdmissionPlan) else plan)
+        key = (tuple((p, tuple(x.shape), dtype_name(x.dtype))
+                     for p, x in T.flatten(params_like)),
+               tuple(T.leaves(policies)), self.bucket_bytes)
+        if key not in self._layouts:
+            self._layouts[key] = plan_buckets(
+                params_like, policies, bucket_bytes=self.bucket_bytes,
+                fusable=_registry_fusable)
+        return self._layouts[key]
+
+    def aggregate(self, grads: Any, plan: AdmissionPlan | Any,
+                  ef: Any | None = None, *, fused: bool | None = None):
+        """Aggregate per-worker gradients (``(W, *shape)`` leaves) under a
+        plan or a resolved policy tree: ``(aggregates, new_ef)``."""
+        like = _per_worker_like(grads)
+        policies = (self.resolve(like, plan)
+                    if isinstance(plan, AdmissionPlan) else plan)
+        if self.fused if fused is None else fused:
+            return aggregate_tree_bucketed(
+                self.context, grads, policies, ef_states=ef,
+                layout=self.layout_for(like, policies))
+        return aggregate_tree(self.context, grads, policies, ef_states=ef)
+
+    # -- step builder ---------------------------------------------------
+
+    def worker_grads(self, params: dict, batch: dict,
+                     loss: Callable[[dict, dict], torch.Tensor]):
+        """Each worker's gradients on its shard of the global batch.
+
+        Returns ``(grads, loss)``: a tree of ``(W, *shape)`` gradients
+        and the loss averaged over workers.
+        """
+        w = self.num_workers
+        items = T.flatten(params)
+        leaves = [p for _, p in items]
+        grads = [torch.empty((w, *p.shape), dtype=p.dtype, device=p.device)
+                 for p in leaves]
+        losses = []
+        for k, shard in enumerate(_split_batch(batch, w)):
+            lval = loss(params, shard)
+            for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):
+                buf[k].copy_(g)
+            losses.append(lval.detach())
+        gtree = T.unflatten([(p, g) for (p, _), g in zip(items, grads)])
+        return gtree, self.group.all_reduce_mean(torch.stack(losses))
+
+    def build_step(self, optimizer, plan: AdmissionPlan, params_like: Any,
+                   loss: Callable[[dict, dict], torch.Tensor]) -> Callable:
+        """One data-parallel train step under ``plan``.
+
+        The step computes each virtual worker's loss and gradients on its
+        shard of the batch (``loss(params, batch)``), aggregates them
+        through the bucket layout, and applies the optimizer once to the
+        one replicated parameter copy.  The loss is the mean over
+        workers, as ``pmean`` gives.  Returns ``step(state, batch) ->
+        (state, metrics, aggregates)``.
+        """
+        policies = self.resolve(params_like, plan)
+        layout = self.layout_for(params_like, policies) if self.fused else None
+        ctx = self.context
+
+        def step(state: TrainState, batch: dict):
+            params = state.model.tree()
+            gtree, lval = self.worker_grads(params, batch, loss)
+            if layout is not None:
+                agg, new_ef = aggregate_tree_bucketed(
+                    ctx, gtree, policies, ef_states=state.ef, layout=layout)
+            else:
+                agg, new_ef = aggregate_tree(ctx, gtree, policies,
+                                             ef_states=state.ef)
+            del gtree
+            gn = torch.sqrt(sum(torch.sum(x.to(torch.float32) ** 2)
+                                for x in T.leaves(agg)))
+            with torch.no_grad():
+                opt = optimizer.apply(params, agg, state.opt)
+            metrics = {"loss": lval, "agg_norm": gn}
+            return (TrainState(model=state.model, opt=opt, ef=new_ef,
+                               step=state.step + 1), metrics, agg)
+
+        step.layout = layout
+        step.policies = policies
+        return step
+
+
+def _split_batch(batch: dict, w: int) -> list[dict]:
+    """The global batch cut into W equal worker shards along dim 0."""
+    b = next(iter(batch.values())).shape[0]
+    if b % w:
+        raise ValueError(f"global batch {b} does not split evenly over "
+                         f"{w} workers")
+    n = b // w
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(w)]
+

@@ -1,0 +1,252 @@
+"""Codec-owned fused kernels: the packed sign-vote chain of a bucket.
+
+Port of ``repro/kernels/fused.py``.  This slice carries the chain the
+``packed_a2a`` schedule runs on every low-bit bucket:
+
+    sign_pack -> all_to_all -> vote_combine -> all_gather -> unpack_ternary
+
+with :func:`vote_combine` a hand-written Hopper kernel
+(``csrc/vote_combine.cu``, replacing the Pallas ``_vote_combine_kernel``).
+The gate helpers, the bucket-level entry point :func:`fused_packed_vote` and
+the :class:`KernelSet` / :class:`VoteKernelSet` accounting are here too.
+
+Still to port (ROADMAP queue 2): the host-local ``vote_pipeline`` kernel,
+``encode_pack_ef`` and ``ef_residual_plane`` (the schedules inject and
+update error feedback in plain torch around the chain, which the
+reference holds bit-identical), and the int4 / top-k kernels.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import build, ref
+from .apply_update import unpack_ternary
+from .ref import ALL_ONES, LANE, PACK
+from .ref import vote_combine as vote_combine_plain  # the plain twin
+from .sign_pack import sign_pack
+
+
+# ---------------------------------------------------------------------------
+# gate-word helpers
+# ---------------------------------------------------------------------------
+
+def local_gate_words(num_words: int, *, ternary: bool, gate_phase: int = 0,
+                     gate_mask=None, device="cpu") -> torch.Tensor:
+    """Packed zero gate for an un-routed (num_words, LANE) word plane."""
+    if gate_mask is not None:
+        return ref.gate_words_from_mask(gate_mask, pad_words=num_words,
+                                        device=device)
+    if ternary:
+        return ref.ternary_gate_words(num_words * PACK, phase=gate_phase,
+                                      device=device)
+    return torch.full((num_words, LANE), ALL_ONES, dtype=torch.int32,
+                      device=device)
+
+
+def shard_gate_words(ranks, rows_per_shard: int, *, ternary: bool,
+                     gate_phase: int = 0, gate_mask=None,
+                     total_rows: int | None = None,
+                     device="cpu") -> torch.Tensor:
+    """Packed zero gates of the owner shards ``ranks``: (len(ranks), rw, LANE).
+
+    Owner ``k`` holds word rows ``[k * rw, (k + 1) * rw)`` of the plane
+    after the all_to_all.  ``gate_mask`` (host flat keep vector) overrides
+    the flat-index 2-of-3 pattern; ``total_rows`` right-pads its packed
+    words to the collective's row padding (dropped on unpack).
+    """
+    rw = rows_per_shard
+    ranks = list(ranks)
+    if not ternary:
+        return torch.full((len(ranks), rw, LANE), ALL_ONES,
+                          dtype=torch.int32, device=device)
+    if gate_mask is not None:
+        full = ref.gate_words_from_mask(gate_mask, pad_words=total_rows,
+                                        device=device)
+        return torch.stack([full[k * rw:(k + 1) * rw] for k in ranks])
+    # the 2-of-3 pattern repeats every 3 elements: build the three phase
+    # rotations once and pick by each shard's flat element offset
+    gates = [ref.ternary_gate_words(rw * PACK, phase=p, device=device)
+             for p in range(3)]
+    return torch.stack([gates[(k * rw * PACK * LANE + gate_phase) % 3]
+                        for k in ranks])
+
+
+# ---------------------------------------------------------------------------
+# the combine kernel
+# ---------------------------------------------------------------------------
+
+def vote_combine(routed: torch.Tensor, gate_words: torch.Tensor, *,
+                 num_workers: int):
+    """Routed words (W, R, LANE) or (B, W, R, LANE) + gate (R or B, R, LANE)
+    -> ternary packed pair, each shaped like the gate.
+
+    One kernel for popcount + majority + gate; the int32 counts never
+    reach device memory.  The owner (B) and worker (W) axes may have any
+    stride, so the transposed view a virtual all_to_all returns is taken
+    as it is.
+    """
+    if routed.shape[-3] != num_workers:
+        raise ValueError(f"routed words carry {routed.shape[-3]} workers, "
+                         f"num_workers={num_workers}")
+    if build.on_cpu(routed, gate_words):
+        return vote_combine_plain(routed, num_workers, gate_words)
+    r4 = routed if routed.dim() == 4 else routed.unsqueeze(0)
+    g3 = gate_words if gate_words.dim() == 3 else gate_words.unsqueeze(0)
+    b, w, r, lane = r4.shape
+    if lane != LANE or g3.shape != (b, r, LANE):
+        raise ValueError(f"vote_combine shapes disagree: routed "
+                         f"{tuple(routed.shape)}, gate "
+                         f"{tuple(gate_words.shape)}")
+    if r4.dtype != torch.int32 or g3.dtype != torch.int32:
+        raise TypeError("vote_combine takes int32 words")
+    if r4.stride(3) != 1 or r4.stride(2) != LANE or not g3.is_contiguous():
+        raise ValueError("vote_combine needs rows and lanes contiguous")
+    sign = torch.empty((b, r, LANE), dtype=torch.int32, device=r4.device)
+    mask = torch.empty_like(sign)
+    fn = build.bind("vote_combine", "vote_combine_u32", 4, 5)
+    build.check(fn(r4.data_ptr(), g3.data_ptr(), sign.data_ptr(),
+                   mask.data_ptr(), b, w, r, r4.stride(0), r4.stride(1),
+                   build.stream_ptr(r4.device)), "vote_combine")
+    vote_combine.launches += 1
+    return sign.reshape(gate_words.shape), mask.reshape(gate_words.shape)
+
+
+vote_combine.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bucket-level entry point: packed_a2a on the fused kernels
+# ---------------------------------------------------------------------------
+
+def fused_packed_vote(g: torch.Tensor, group, num_workers: int, *,
+                      ternary: bool = False, gate_phase: int = 0,
+                      ef: torch.Tensor | None = None, gate_mask=None):
+    """The ``packed_a2a`` vote schedule on the fused kernels.
+
+    ``g`` carries the group's local ranks on its leading axis; the result
+    ``u`` (in {-1, 0, +1}, dtype of ``g``) is replicated and has no such
+    axis.  Three launches: pack every local plane, combine every local
+    owner shard, decode the gathered pair.  Returns ``(u, None)``.
+    """
+    if group is None:
+        raise NotImplementedError(
+            "host-local packed vote needs the vote_pipeline kernel, still "
+            "to port (ROADMAP queue 2, vote_pipeline)")
+    if ef is not None:
+        raise NotImplementedError(
+            "in-kernel error feedback needs encode_pack_ef / "
+            "ef_residual_plane, still to port (ROADMAP queue 2); inject EF "
+            "around the vote as core.lowbit does")
+    w = num_workers
+    lead = g.shape[0]
+    n = g[0].numel()
+    plane = ref.to_plane(g.reshape(lead, n))
+    words = sign_pack(plane)                                 # (L, R, LANE)
+    r = words.shape[1]
+    pad_r = (-r) % w
+    if pad_r:
+        words = torch.nn.functional.pad(words, (0, 0, 0, pad_r))
+    rw = (r + pad_r) // w
+    routed = group.all_to_all(words.reshape(lead, w, rw, LANE))
+    gate = shard_gate_words(group.rank(), rw, ternary=ternary,
+                            gate_phase=gate_phase, gate_mask=gate_mask,
+                            total_rows=r + pad_r, device=g.device)
+    sw, mw = vote_combine(routed, gate, num_workers=w)
+    sw_all = group.all_gather(sw)[:r]
+    mw_all = group.all_gather(mw)[:r]
+    u_plane = unpack_ternary(sw_all, mw_all)
+    u = ref.from_plane(u_plane, n).reshape(g.shape[1:]).to(g.dtype)
+    return u, None
+
+
+# ---------------------------------------------------------------------------
+# KernelSet protocol + the vote set
+# ---------------------------------------------------------------------------
+
+# modeled device-memory bytes per element of a bucket, by representation
+_F32 = 4.0          # one float32
+_WORDS = 1 / 8.0    # packed sign bits
+_PAIR = 1 / 4.0     # ternary packed (sign, mask) pair
+_COUNTS = 4.0       # int32 vote counts
+
+
+class KernelSet:
+    """Protocol for a codec's fused kernels.
+
+    ``votes`` sets realize the packed sign-vote chain: the ``packed_a2a``
+    backend hands them the whole bucket through :meth:`packed_vote`.
+    ``launches`` / ``hbm_bytes`` are the modeled accounting (launches and
+    device-memory bytes per bucket) of the fused chain and of the staged
+    four-kernel chain, as in the reference.
+    """
+    name = "kernelset"
+    votes = False
+
+    def signature(self) -> str:
+        return self.name
+
+    def launches(self, *, fused: bool, distributed: bool = True,
+                 ef: bool = False) -> int:
+        raise NotImplementedError
+
+    def hbm_bytes(self, n: int, *, num_workers: int, fused: bool,
+                  distributed: bool = True, ef: bool = False) -> float:
+        raise NotImplementedError
+
+    def packed_vote(self, g, group, num_workers, *, ternary, gate_phase,
+                    ef, gate_mask=None):
+        raise NotImplementedError
+
+
+class VoteKernelSet(KernelSet):
+    """Fused sign-vote chain for ``gbinary`` / ``gternary``."""
+    name = "vote"
+    votes = True
+
+    def signature(self) -> str:
+        return "vote:v1"
+
+    def packed_vote(self, g, group, num_workers, *, ternary, gate_phase,
+                    ef, gate_mask=None):
+        return fused_packed_vote(g, group, num_workers, ternary=ternary,
+                                 gate_phase=gate_phase, ef=ef,
+                                 gate_mask=gate_mask)
+
+    def launches(self, *, fused: bool, distributed: bool = True,
+                 ef: bool = False) -> int:
+        # staged: pack, popcount, majority, decode; fused: encode /
+        # combine / decode around the collectives, or one kernel when
+        # nothing separates the stages
+        if not fused:
+            return 4
+        return 3 if distributed else 1
+
+    def hbm_bytes(self, n: int, *, num_workers: int, fused: bool,
+                  distributed: bool = True, ef: bool = False) -> float:
+        w = num_workers
+        if distributed:
+            enc = n * (_F32 + _WORDS)                       # read g, write words
+            if ef:
+                enc += n * (2 * _F32 + _F32) if not fused else n * (2 * _F32)
+            dec = n * (_PAIR + _F32)                        # read pair, write u
+            if fused:
+                comb = n * (w * _WORDS + _WORDS + _PAIR)    # stack+gate -> pair
+                return enc + comb + dec
+            pop = n * (w * _WORDS + _COUNTS)                # stack -> counts
+            maj = n * (_COUNTS + _WORDS + _PAIR)            # counts+gate -> pair
+            return enc + pop + maj + dec
+        if fused:
+            return n * (w * _F32 + _WORDS + _F32)           # stacks+gate -> u
+        pack = w * n * (_F32 + _WORDS)
+        pop = n * (w * _WORDS + _COUNTS)
+        maj = n * (_COUNTS + _WORDS + _PAIR)
+        dec = n * (_PAIR + _F32)
+        return pack + pop + maj + dec
+
+
+@functools.cache
+def vote_kernel_set() -> VoteKernelSet:
+    """Shared instance: gbinary/gternary differ only in the gate operand."""
+    return VoteKernelSet()

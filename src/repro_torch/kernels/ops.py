@@ -1,0 +1,30 @@
+"""Public entry points of the controller-datapath kernels, and the dispatch.
+
+Every wrapper dispatches on where its operands lie: a CPU tensor goes to
+the plain twin in :mod:`repro_torch.kernels.ref`, a CUDA tensor to the
+hand-written Hopper kernel (built at first use by
+:mod:`repro_torch.kernels.build`).  There is no third mode and no
+fallback: a kernel that fails to build or launch raises.  Counterpart of
+``repro/kernels/ops.py``, whose ``interpret`` switch has no analogue
+here.
+"""
+from __future__ import annotations
+
+from .apply_update import unpack_ternary
+from .fused import vote_combine
+from .ref import (LANE, PACK, from_plane, gate_words_from_mask, padded_len,
+                  ternary_gate_words, to_plane)
+from .sign_pack import sign_pack as pack_signs
+
+__all__ = [
+    "LANE", "PACK", "from_plane", "gate_words_from_mask", "kernel_wrappers",
+    "pack_signs", "padded_len", "ternary_gate_words", "to_plane",
+    "unpack_ternary", "vote_combine",
+]
+
+
+def kernel_wrappers() -> dict:
+    """name -> wrapper, for every kernel of this slice (each carries an
+    integer ``launches`` count, bumped only where it launches)."""
+    return {"sign_pack": pack_signs, "vote_combine": vote_combine,
+            "unpack_ternary": unpack_ternary}

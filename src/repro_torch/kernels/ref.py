@@ -1,0 +1,194 @@
+"""Plain PyTorch versions of the controller-datapath kernels (the twins).
+
+Same wire format as the reference package's ``kernels/ref.py``:
+
+    flat gradient bucket of N elements
+      -> zero-padded to a multiple of LANE * 32
+      -> reshaped to (M, LANE) with M a multiple of 32     ("value plane")
+      -> sign words of shape (M // 32, LANE)                ("word plane")
+
+Bit ``b`` of word ``w[r, l]`` holds the sign of value ``v[32 * r + b, l]``
+(1 = strictly positive, 0 = non-positive, NaN included).
+
+Words are held as ``torch.int32`` bit patterns: PyTorch on the CPU has no
+shifts on ``uint32``.  Words are built in int64 and narrowed; every right
+shift is masked afterwards, because ``>>`` on int32 is arithmetic.  Tests
+compare words as ``np.uint32`` views.
+
+Each function here runs on any device.  The dispatching wrappers
+(:mod:`repro_torch.kernels.ops`) call them only for CPU tensors; a CUDA
+tensor goes to the hand-written kernel, and ``chip_smoke.py`` calls these
+twins directly on the card to hold each kernel against them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LANE = 128          # words per row; canonical last dim
+PACK = 32           # sign bits per 32-bit word
+TILE = LANE * PACK  # elements covered by one word row
+
+ALL_ONES = -1       # 0xFFFFFFFF as an int32 bit pattern
+
+
+def padded_len(n: int) -> int:
+    """Canonical padded length for an N-element bucket."""
+    return ((n + TILE - 1) // TILE) * TILE
+
+
+def to_plane(flat: torch.Tensor) -> torch.Tensor:
+    """Flat (..., N) -> canonical value plane (..., M, LANE), zero padded."""
+    n = flat.shape[-1]
+    p = padded_len(n)
+    if p != n:
+        flat = torch.nn.functional.pad(flat, (0, p - n))
+    return flat.reshape(*flat.shape[:-1], p // LANE, LANE)
+
+
+def from_plane(plane: torch.Tensor, n: int) -> torch.Tensor:
+    """Canonical value plane (..., M, LANE) -> flat (..., N), padding dropped."""
+    return plane.reshape(*plane.shape[:-2], -1)[..., :n]
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(PACK, dtype=torch.int64, device=device)
+
+
+def _narrow(words64: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensors with the same bits."""
+    return torch.where(words64 >= 2 ** 31, words64 - 2 ** 32,
+                       words64).to(torch.int32)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """{0,1} plane (..., 32R, LANE) -> int32 word plane (..., R, LANE)."""
+    *lead, m, lane = bits.shape
+    b = bits.to(torch.int64).reshape(*lead, m // PACK, PACK, lane)
+    sh = _shifts(bits.device).reshape(PACK, 1)
+    return _narrow(torch.sum(b << sh, dim=-2))
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """Word plane (..., R, LANE) -> {0,1} int32 bit plane (..., 32R, LANE)."""
+    *lead, r, lane = words.shape
+    sh = _shifts(words.device).reshape(PACK, 1)
+    bits = (words.to(torch.int64)[..., :, None, :] >> sh) & 1
+    return bits.reshape(*lead, r * PACK, lane).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the vote stages
+# ---------------------------------------------------------------------------
+
+def sign_pack(plane: torch.Tensor) -> torch.Tensor:
+    """Value plane (..., M, LANE) -> sign words (..., M//32, LANE) int32.
+
+    Bit b of word [r, l] = 1 iff plane[32*r + b, l] > 0.  Leading axes
+    (e.g. W stacked workers) pack independently.
+    """
+    if plane.shape[-2] % PACK:
+        raise ValueError(f"rows {plane.shape[-2]} not a multiple of {PACK}")
+    return _pack_bits(plane > 0)
+
+
+def popcount_stack(packed: torch.Tensor) -> torch.Tensor:
+    """(W, R, LANE) sign words -> per-element vote counts (32R, LANE) int32."""
+    return unpack_bits(packed).sum(dim=0, dtype=torch.int32)
+
+
+def majority_decode(counts: torch.Tensor, num_workers: int,
+                    gate_words: torch.Tensor | None = None):
+    """Vote counts (..., M, LANE) -> ternary packed pair of word planes.
+
+    a_i = 2 c_i - W; sign bit = a_i > 0; mask bit = a_i != 0, and'ed with
+    ``gate_words`` when given.
+    """
+    a = 2 * counts.to(torch.int32) - num_workers
+    sign_words = _pack_bits(a > 0)
+    mask_words = _pack_bits(a != 0)
+    if gate_words is not None:
+        mask_words = mask_words & gate_words
+    return sign_words, mask_words
+
+
+# ---------------------------------------------------------------------------
+# zero gates (paper: fixed 2-of-3 pattern over flattened elements)
+# ---------------------------------------------------------------------------
+
+def gate_words_from_mask(keep, pad_words: int | None = None,
+                         device="cpu") -> torch.Tensor:
+    """Flat host keep mask (N,) -> packed gate word plane (int32).
+
+    Elements beyond N (canonical padding) keep = 1; ``pad_words``
+    right-pads the word plane with all-ones rows to that row count (the
+    all_to_all row padding; dropped on unpack).
+    """
+    keep = np.asarray(keep, bool).reshape(-1)
+    n = keep.shape[0]
+    full = np.ones(padded_len(n), np.uint64)
+    full[:n] = keep
+    rows = full.shape[0] // LANE
+    full = full.reshape(rows // PACK, PACK, LANE)
+    words = np.sum(full << np.arange(PACK, dtype=np.uint64).reshape(1, PACK, 1),
+                   axis=1, dtype=np.uint64).astype(np.uint32)
+    if pad_words is not None and pad_words > words.shape[0]:
+        pad = np.full((pad_words - words.shape[0], LANE), 0xFFFFFFFF,
+                      np.uint32)
+        words = np.concatenate([words, pad], axis=0)
+    return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def ternary_gate_words(num_rows: int, phase: int = 0,
+                       device="cpu") -> torch.Tensor:
+    """Packed 2-of-3 zero gate for a (num_rows, LANE) value plane.
+
+    Element i (row-major over the plane) is gated to zero when
+    (i + phase) % 3 == 2.
+    """
+    if num_rows % PACK:
+        raise ValueError(f"rows {num_rows} not a multiple of {PACK}")
+    keep = ((np.arange(num_rows * LANE, dtype=np.int64) + phase) % 3) != 2
+    return gate_words_from_mask(keep, device=device)
+
+
+# ---------------------------------------------------------------------------
+# decode and the fused-stage references
+# ---------------------------------------------------------------------------
+
+def unpack_ternary(sign_words: torch.Tensor,
+                   mask_words: torch.Tensor) -> torch.Tensor:
+    """Ternary packed pair -> float32 value plane of {-1, 0, +1}."""
+    s = unpack_bits(sign_words)
+    m = unpack_bits(mask_words)
+    return ((2 * s - 1) * m).to(torch.float32)
+
+
+def vote_combine(routed: torch.Tensor, num_workers: int,
+                 gate_words: torch.Tensor):
+    """(..., W, R, LANE) routed sign words + gate (..., R, LANE) -> pair.
+
+    Composition of :func:`popcount_stack` and :func:`majority_decode`;
+    leading axes are independent owner shards.
+    """
+    counts = unpack_bits(routed).sum(dim=-3, dtype=torch.int32)
+    return majority_decode(counts, num_workers, gate_words=gate_words)
+
+
+# ---------------------------------------------------------------------------
+# end-to-end oracles (paper Section 2, all workers -> aggregate values)
+# ---------------------------------------------------------------------------
+
+def gbinary_aggregate_dense(grads: torch.Tensor) -> torch.Tensor:
+    """(W, N) worker gradients -> (N,) G-Binary aggregate in {-1, 0, +1}."""
+    w = grads.shape[0]
+    c = torch.sum((grads > 0).to(torch.int32), dim=0)
+    return torch.sign(2 * c - w).to(torch.float32)
+
+
+def gternary_aggregate_dense(grads: torch.Tensor,
+                             phase: int = 0) -> torch.Tensor:
+    """(W, N) worker gradients -> (N,) G-Ternary aggregate (2-of-3 gate)."""
+    u = gbinary_aggregate_dense(grads)
+    idx = torch.arange(grads.shape[1], device=grads.device)
+    return u * (((idx + phase) % 3) != 2).to(torch.float32)

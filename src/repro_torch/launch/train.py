@@ -1,0 +1,100 @@
+"""Training launcher of the port: ``python -m repro_torch.launch.train``.
+
+Same flags as ``python -m repro.launch.train``.  ``--mesh W,1`` (or
+``P,D,1``) runs W (= P*D) virtual data-parallel workers on the one
+device; a model axis other than 1 raises, since tensor parallelism is
+still to port.  ``--device`` picks the device (``cuda`` by default).
+Example, on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
+      --smoke --device cpu --mesh 4,1 --steps 2 --plan gbin_packed
+
+The flags of parts still to port (controllers, autotuning,
+checkpointing, forced host device counts) are accepted and raise when
+set.
+"""
+import argparse
+import logging
+
+#: the plan presets this port carries (repro_torch.fabric.plan_presets)
+_PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
+                 "gter_backbone", "gter_vote", "lowbit_all",
+                 "gbin_packed_all", "gbin_packed_embed"]
+
+#: flags of the reference launcher whose machinery is still to port
+_NOT_PORTED = ("controller", "autotune", "autotune_out", "ckpt_dir",
+               "device_count")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config")
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model (or pod,data,model) mesh shape; the "
+                         "model axis must be 1")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--plan", default="gbin_backbone", choices=_PLAN_CHOICES)
+    ap.add_argument("--controller", default=None,
+                    help="admission controller (still to port)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="plan autotuning (still to port)")
+    ap.add_argument("--autotune-topology", default="ici_ring")
+    ap.add_argument("--autotune-strategy", default="grid")
+    ap.add_argument("--autotune-out", default=None)
+    ap.add_argument("--warmup-steps", type=int, default=20,
+                    help="FP32 calibration window of the paper controller")
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgdm"])
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (still to port)")
+    ap.add_argument("--ckpt-interval", type=int, default=100)
+    ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device-count", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (cuda or cpu)")
+    args = ap.parse_args(argv)
+
+    for name in _NOT_PORTED:
+        if getattr(args, name):
+            ap.error(f"--{name.replace('_', '-')} is not ported to "
+                     f"repro_torch yet (see ROADMAP.md queue 1)")
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    if len(shape) not in (2, 3) or shape[-1] != 1:
+        ap.error(f"--mesh {args.mesh}: the port runs data parallelism only; "
+                 f"give data,1 or pod,data,1")
+    workers = 1
+    for s in shape[:-1]:
+        workers *= s
+
+    from ..configs import get_config
+    from ..data import SyntheticLMStream
+    from ..fabric import Fabric, plan_presets
+    from ..optim import AdamW, SgdMomentum
+    from ..runtime import Trainer
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=args.seq_len,
+                             batch=args.global_batch, seed=args.seed)
+    opt_cls = AdamW if args.optimizer == "adamw" else SgdMomentum
+    optimizer = opt_cls(peak_lr=args.lr, total_steps=args.steps)
+    plan = plan_presets(error_feedback=args.error_feedback)[args.plan]
+    trainer = Trainer(cfg, optimizer, data, plan=plan,
+                      fabric=Fabric(num_workers=workers), seed=args.seed,
+                      device=args.device)
+    history = trainer.run(args.steps)
+    last = history[-1]
+    print(f"final: step={last['step']} loss={last['loss']:.4f} "
+          f"traffic={last['traffic_ratio']:.4f} workers={workers} "
+          f"device={trainer.device}")
+    return history
+
+
+if __name__ == "__main__":
+    main()
