@@ -6,21 +6,35 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases (any failure exits non-zero before the result line):
   1. require CUDA; print the card's name and power limit;
-  2. build every kernel of the main path from ``src/repro_torch/csrc``
-     (one ``nvcc`` per source, in parallel) into ``build/kernels``;
-  3. hold each kernel (sign_pack, vote_combine, unpack_ternary) against
-     its plain PyTorch twin on the card, byte for byte: ragged sizes,
-     W in {1, 3, 4, 31, 128, 256}, G-Binary and G-Ternary gates, float32
-     and bfloat16 planes, and the main path's largest bucket
-     (88,080,384 bf16 elements, W = 4), where each kernel is timed
-     against its twin and its memory bound;
+  2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+     source, in parallel) into ``build/kernels``;
+  3. hold each of the seven kernels (sign_pack, vote_combine,
+     unpack_ternary, encode_pack_ef, ef_residual, popcount_stack,
+     majority_decode) against its plain PyTorch twin on the card, byte
+     for byte: ragged sizes, W in {1, 3, 4, 31, 128, 256}, G-Binary and
+     G-Ternary gates, strided owner views, float32 and bfloat16 planes,
+     +-0, NaN, +-inf and operands whose exponents lie far apart; then
+     time each at the main path's largest leaf (88,080,384 elements,
+     W = 4, bf16 gradients, f32 residuals) against its twin and its bound;
   4. train the full qwen3-0.6B (28 layers, d 1024, vocab 151,936, bf16,
-     remat) for 5 AdamW steps with W = 4 virtual data-parallel workers
-     under the ``gbin_packed`` plan, global batch 16 x 128 tokens, and
-     check: finite losses, backbone aggregates in {-1, 0, +1}, every
-     kernel launched once per low-bit bucket per step, and one step's
-     aggregates equal to the plain twins' on the same per-worker grads;
-  5. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+     remat) with W = 4 virtual data-parallel workers, AdamW, global batch
+     16 x 128 tokens, in three runs, each checking finite losses,
+     backbone aggregates in {-1, 0, +1} and its own table of kernel
+     launches per step (one per low-bit bucket or leaf):
+       gbin_packed  5 steps, bucketed, fused kernels: sign_pack,
+                    vote_combine, unpack_ternary; one step's aggregates
+                    equal to the plain twins' on the same grads;
+       A. per-leaf EF  3 steps, ``Fabric(fused=False)``, gbin_packed with
+                    error feedback: encode_pack_ef, vote_combine,
+                    unpack_ternary, ef_residual; residuals updated every
+                    step; one step's aggregates and residuals equal to
+                    the twin chain's on the same grads, residuals and beta;
+       B. staged    2 steps, ``Fabric(fused_kernels=False)``, a packed
+                    G-Ternary backbone: sign_pack, popcount_stack,
+                    majority_decode, unpack_ternary; one step's
+                    aggregates equal to the fused chain's on the same grads;
+  5. print the kernels line (launches summed over the runs), the card,
+     then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -40,9 +54,21 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, for the operation bound
 OPS_PER_S = 67e12
-MAIN_N = 88_080_384          # w_down / w_gate / w_up bucket of qwen3-0.6B
+MAIN_N = 88_080_384          # w_down / w_gate / w_up leaf of qwen3-0.6B
 MAIN_W = 4
-LOWBIT_BUCKETS = 7           # packed G-Binary buckets of gbin_packed
+LOWBIT_BUCKETS = 7           # packed low-bit buckets (= leaves) per step
+SOURCES = {
+    "sign_pack": ("sign_pack.cu", "src/repro/kernels/sign_pack.py:26"),
+    "vote_combine": ("vote_combine.cu", "src/repro/kernels/fused.py:110"),
+    "unpack_ternary": ("unpack_ternary.cu",
+                       "src/repro/kernels/apply_update.py:26"),
+    "encode_pack_ef": ("encode_pack_ef.cu", "src/repro/kernels/fused.py:96"),
+    "ef_residual": ("ef_residual.cu", "src/repro/kernels/fused.py:151"),
+    "popcount_stack": ("popcount_stack.cu",
+                       "src/repro/kernels/popcount_majority.py:38"),
+    "majority_decode": ("majority_decode.cu",
+                        "src/repro/kernels/popcount_majority.py:73"),
+}
 
 
 def fail(msg: str) -> None:
@@ -77,7 +103,8 @@ def rand_words(shape, gen) -> torch.Tensor:
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Byte equality (NaN-safe: compares bit patterns)."""
+    """Byte equality, NaNs included: the kernels and PyTorch's CUDA ops
+    round with the same instructions, so even NaN bits must agree."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
@@ -87,36 +114,56 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+    """Largest |a - b|; NaNs (checked by bit pattern in ``same``) and
+    equal infinities count as no error."""
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    return float(torch.nan_to_num(d, nan=0.0).max())
+
+
+def spread(shape, gen) -> torch.Tensor:
+    """float32 values with exponents 2**-24 .. 2**24 (pairs of them lie
+    far more than 16 binades apart), led by the special values."""
+    x = torch.randn(shape, device="cuda", generator=gen)
+    x = x * torch.exp2(torch.randint(-24, 25, shape, device="cuda",
+                                     generator=gen).to(torch.float32))
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            -float("inf"), 1e-30, -1e-30, 1.0])
+    flat = x.reshape(-1)
+    k = min(flat.numel(), special.numel())
+    flat[:k] = special[:k]
+    return x
+
+
+def free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
 
-def check_kernels() -> dict:
+RAGGED = (1, 4095, 4097, 3 * 4096 + 77, 100_003)
+WORKERS = (1, 3, 4, 31, 128, 256)
+
+
+def check_vote_kernels(gen) -> None:
+    """sign_pack, vote_combine, unpack_ternary: the bucketed vote's."""
     from repro_torch.kernels import fused, ops, ref
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    # ragged sizes and every W, through the wrappers vs the twins
-    for n in (1, 4095, 4097, 3 * 4096 + 77, 100_003):
+    for n in RAGGED:
         for dt in (torch.float32, torch.bfloat16):
-            g = torch.randn((3, n), device="cuda", generator=gen).to(dt)
-            special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
-                                    -float("inf"), 1e-30, -1e-30, 0.0])[:n]
-            g[0, :special.numel()] = special
-            plane = ref.to_plane(g)
+            plane = ref.to_plane(spread((3, n), gen).to(dt))
             if not same(ops.pack_signs(plane), ref.sign_pack(plane)):
                 fail(f"sign_pack differs from its twin (n={n}, {dt})")
-    for w in (1, 3, 4, 31, 128, 256):
+    for w in WORKERS:
         for rows in (1, 2):     # word rows per owner shard
             for ternary in (False, True):
                 routed = rand_words((w, rows * w, 128), gen)
-                gate = (fused.local_gate_words(rows * w, ternary=True,
-                                               gate_phase=w % 3,
-                                               device="cuda")
-                        if ternary else fused.local_gate_words(
-                            rows * w, ternary=False, device="cuda"))
+                gate = fused.local_gate_words(rows * w, ternary=ternary,
+                                              gate_phase=w % 3,
+                                              device="cuda")
                 got = ops.vote_combine(routed, gate, num_workers=w)
                 want = ref.vote_combine(routed, w, gate)
                 # the per-owner view a virtual all_to_all hands the kernel
@@ -133,13 +180,72 @@ def check_kernels() -> dict:
         if not same(ops.unpack_ternary(s, m), ref.unpack_ternary(s, m)):
             fail(f"unpack_ternary differs (rows={rows})")
 
-    # the main path's largest bucket: W = 4 bf16 planes of 88,080,384
+
+def check_ef_and_staged_kernels(gen) -> None:
+    """encode_pack_ef, ef_residual, popcount_stack, majority_decode."""
+    from repro_torch.kernels import fused, ops, ref
+
+    for n in RAGGED:
+        for gdt in (torch.float32, torch.bfloat16):
+            for edt in (torch.float32, torch.bfloat16):
+                g = ref.to_plane(spread((3, n), gen).to(gdt))
+                e = ref.to_plane(spread((3, n), gen).to(edt))
+                got, want = ops.encode_pack_ef(g, e), ref.encode_pack_ef(g, e)
+                if not (same(got[0], want[0]) and same(got[1], want[1])):
+                    fail(f"encode_pack_ef differs (n={n}, g {gdt}, e {edt})")
+        for dt, out in ((torch.float32, torch.float32),
+                        (torch.bfloat16, torch.float32),
+                        (torch.bfloat16, torch.bfloat16)):
+            x = ref.to_plane(spread((3, n), gen).to(dt))
+            beta = torch.tensor([0.75, 3e-5, float("inf")], device="cuda")
+            got = ops.ef_residual_plane(x, beta, out_dtype=out)
+            if not same(got, ref.ef_residual(x, beta).to(out)):
+                fail(f"ef_residual differs (n={n}, {dt} -> {out})")
+    for w in WORKERS:
+        for rows in (1, 2):
+            packed = rand_words((w, rows * w, 128), gen)
+            view = packed.reshape(w, w, rows, 128).transpose(0, 1)
+            for p in (packed, view):
+                counts = ops.popcount_stack(p)
+                if not same(counts, ref.popcount_stack(p)):
+                    fail(f"popcount_stack differs (W={w}, rows={rows}, "
+                         f"shape {tuple(p.shape)})")
+                r = counts.shape[-2] // 32
+                for ternary in (False, True):
+                    gate = fused.local_gate_words(
+                        r * (w if p is view else 1), ternary=ternary,
+                        gate_phase=w % 3, device="cuda")
+                    gate = gate.reshape(counts.shape[:-2] + (r, 128))
+                    got = ops.majority_decode(counts, gate, num_workers=w)
+                    want = ref.majority_decode(counts, w, gate)
+                    if not all(same(a, b) for a, b in zip(got, want)):
+                        fail(f"majority_decode differs (W={w}, rows={rows},"
+                             f" ternary={ternary})")
+
+
+def bound(row: dict) -> None:
+    t_bytes = row.pop("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = row.pop("ops") / OPS_PER_S * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_kernels() -> dict:
+    from repro_torch.kernels import fused, ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    check_vote_kernels(gen)
+    check_ef_and_staged_kernels(gen)
+
+    # the main path's largest leaf: W = 4 bf16 planes of 88,080,384 and
+    # their float32 residuals
     n, w = MAIN_N, MAIN_W
     plane = ref.to_plane(torch.randn((w, n), device="cuda",
                                      generator=gen).to(torch.bfloat16))
+    e_plane = 1e-3 * torch.randn(plane.shape, device="cuda", generator=gen)
     words = ops.pack_signs(plane)
     if not same(words, ref.sign_pack(plane)):
-        fail("sign_pack differs at the main-path bucket")
+        fail("sign_pack differs at the main-path leaf")
     r = words.shape[1]
     rw = r // w
     routed = words.reshape(w, w, rw, 128).transpose(0, 1)
@@ -147,46 +253,87 @@ def check_kernels() -> dict:
     sw, mw = ops.vote_combine(routed, gate, num_workers=w)
     want = ref.vote_combine(routed, w, gate)
     if not (same(sw, want[0]) and same(mw, want[1])):
-        fail("vote_combine differs at the main-path bucket")
+        fail("vote_combine differs at the main-path leaf")
     sw_all, mw_all = sw.reshape(r, 128), mw.reshape(r, 128)
     u = ops.unpack_ternary(sw_all, mw_all)
     u_plain = ref.unpack_ternary(sw_all, mw_all)
     if not same(u, u_plain):
-        fail("unpack_ternary differs at the main-path bucket")
+        fail("unpack_ternary differs at the main-path leaf")
     dense = ref.gbinary_aggregate_dense(ref.from_plane(plane, n))
     if not same(ref.from_plane(u, n), dense):
         fail("packed vote differs from the dense Section-2 oracle")
+    ef_words, g_eff = ops.encode_pack_ef(plane, e_plane)
+    ef_want = ref.encode_pack_ef(plane, e_plane)
+    if not (same(ef_words, ef_want[0]) and same(g_eff, ef_want[1])):
+        fail("encode_pack_ef differs at the main-path leaf")
+    ef_err = max(max_abs_err(ef_words, ef_want[0]),
+                 max_abs_err(g_eff, ef_want[1]))
+    del ef_want
+    beta = g_eff.reshape(w, -1).abs().mean(dim=1)
+    resid = ops.ef_residual_plane(g_eff, beta, out_dtype=torch.float32)
+    resid_plain = ref.ef_residual(g_eff, beta).to(torch.float32)
+    if not same(resid, resid_plain):
+        fail("ef_residual differs at the main-path leaf")
+    counts = ops.popcount_stack(routed)
+    counts_plain = ref.popcount_stack(routed)
+    if not same(counts, counts_plain):
+        fail("popcount_stack differs at the main-path leaf")
+    del counts_plain
+    smw = ops.majority_decode(counts, gate, num_workers=w)
+    smw_plain = ref.majority_decode(counts, w, gate)
+    if not all(same(a, b) for a, b in zip(smw + want, smw_plain + smw)):
+        fail("majority_decode differs at the main-path leaf (or from the "
+             "fused vote_combine)")
     torch.cuda.synchronize()
 
+    bf16, f32 = 2, 4
     rows = {
         "sign_pack": dict(
-            source="src/repro_torch/csrc/sign_pack.cu",
-            replaces="src/repro/kernels/sign_pack.py:26",
             ms=time_ms(lambda: ops.pack_signs(plane)),
             plain_ms=time_ms(lambda: ref.sign_pack(plane), 3, 1),
-            bytes=w * n * 2 + w * n / 8, ops=w * n * 3,
+            bytes=w * n * (bf16 + 1 / 8), ops=w * n * 3,
             err=max_abs_err(words, ref.sign_pack(plane))),
         "vote_combine": dict(
-            source="src/repro_torch/csrc/vote_combine.cu",
-            replaces="src/repro/kernels/fused.py:110",
             ms=time_ms(lambda: ops.vote_combine(routed, gate,
                                                 num_workers=w)),
             plain_ms=time_ms(lambda: ref.vote_combine(routed, w, gate), 3, 1),
             bytes=w * n / 8 + n / 8 + 2 * n / 8, ops=n * (2 * w + 4),
             err=max(max_abs_err(sw, want[0]), max_abs_err(mw, want[1]))),
         "unpack_ternary": dict(
-            source="src/repro_torch/csrc/unpack_ternary.cu",
-            replaces="src/repro/kernels/apply_update.py:26",
             ms=time_ms(lambda: ops.unpack_ternary(sw_all, mw_all)),
             plain_ms=time_ms(lambda: ref.unpack_ternary(sw_all, mw_all), 3, 1),
-            bytes=2 * n / 8 + 4 * n, ops=n * 4,
+            bytes=2 * n / 8 + f32 * n, ops=n * 4,
             err=max_abs_err(u, u_plain)),
+        "encode_pack_ef": dict(
+            ms=time_ms(lambda: ops.encode_pack_ef(plane, e_plane)),
+            plain_ms=time_ms(lambda: ref.encode_pack_ef(plane, e_plane), 3, 1),
+            bytes=w * n * (bf16 + f32 + bf16 + 1 / 8), ops=w * n * 4,
+            err=ef_err),
+        "ef_residual": dict(
+            ms=time_ms(lambda: ops.ef_residual_plane(
+                g_eff, beta, out_dtype=torch.float32)),
+            plain_ms=time_ms(lambda: ref.ef_residual(g_eff, beta)
+                             .to(torch.float32), 3, 1),
+            bytes=w * n * (bf16 + f32), ops=w * n * 4,
+            err=max_abs_err(resid, resid_plain)),
+        "popcount_stack": dict(
+            ms=time_ms(lambda: ops.popcount_stack(routed)),
+            plain_ms=time_ms(lambda: ref.popcount_stack(routed), 3, 1),
+            bytes=w * n / 8 + f32 * n, ops=n * 2 * w,
+            err=max_abs_err(counts, ref.popcount_stack(routed))),
+        "majority_decode": dict(
+            ms=time_ms(lambda: ops.majority_decode(counts, gate,
+                                                   num_workers=w)),
+            plain_ms=time_ms(lambda: ref.majority_decode(counts, w, gate),
+                             3, 1),
+            bytes=f32 * n + n / 8 + 2 * n / 8, ops=n * 5,
+            err=max(max_abs_err(a, b) for a, b in zip(smw, smw_plain))),
     }
     for name, row in rows.items():
-        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = row["ops"] / OPS_PER_S * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        src, replaces = SOURCES[name]
+        row["source"] = f"src/repro_torch/csrc/{src}"
+        row["replaces"] = replaces
+        bound(row)
         print(f"kernel {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
               f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"n={n} W={w}", flush=True)
@@ -194,34 +341,45 @@ def check_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path — a data-parallel qwen3-0.6B training run
+# phase 4: the main path — data-parallel qwen3-0.6B training runs
 # ---------------------------------------------------------------------------
 
-def twin_packed_vote(flat: torch.Tensor) -> torch.Tensor:
+def twin_vote(flat: torch.Tensor) -> torch.Tensor:
     """The packed G-Binary vote of a (W, N) bucket with the plain twins."""
     from repro_torch.kernels import ref
     w, n = flat.shape
     words = ref.sign_pack(ref.to_plane(flat))
+    return twin_combine_decode(words, n).to(flat.dtype)
+
+
+def twin_combine_decode(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(W, R, LANE) sign words -> the decoded flat G-Binary aggregate
+    (n,), with the twins.  Word rows vote independently, so one combine
+    over all rows equals the per-owner combines the all_to_all sets up."""
+    from repro_torch.kernels import ref
+    w = words.shape[0]
     gate = torch.full(words.shape[1:], ref.ALL_ONES, dtype=torch.int32,
-                      device=flat.device)
+                      device=words.device)
     sw, mw = ref.vote_combine(words, w, gate)
-    return ref.from_plane(ref.unpack_ternary(sw, mw), n).to(flat.dtype)
+    return ref.from_plane(ref.unpack_ternary(sw, mw), n)
 
 
-def train(steps: int = 5) -> dict:
+def drive(name: str, fabric, plan, steps: int, expect: dict,
+          on_step=None) -> dict:
+    """Train full qwen3-0.6B ``steps`` steps under ``plan``; check finite
+    losses, backbone aggregates in {-1, 0, +1} and, per step, exactly
+    ``expect[k]`` launches of each kernel k (0 for the others)."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree as T
     from repro_torch.data import SyntheticLMStream
-    from repro_torch.fabric import Fabric, layout_kernel_stats, plan_presets
+    from repro_torch.fabric import layout_kernel_stats
     from repro_torch.kernels import kernel_wrappers
     from repro_torch.optim import AdamW
     from repro_torch.runtime import Trainer
 
     cfg = get_config("qwen3_0p6b")
-    plan = plan_presets()["gbin_packed"]
     data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=16,
                              seed=0, learnable=False)
-    fabric = Fabric(num_workers=MAIN_W)
     trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
                                  total_steps=steps),
                       data, plan=plan, fabric=fabric, seed=0, device="cuda")
@@ -233,65 +391,185 @@ def train(steps: int = 5) -> dict:
     layout = fabric.layout_for(params, plan)
     lowbit = [b for b in layout.buckets if b.key.schedule == "packed_a2a"]
     if len(layout.buckets) != 9 or len(lowbit) != LOWBIT_BUCKETS:
-        fail(f"layout has {len(layout.buckets)} buckets, {len(lowbit)} "
-             f"low-bit; expected 9 and {LOWBIT_BUCKETS}")
+        fail(f"{name}: layout has {len(layout.buckets)} buckets, "
+             f"{len(lowbit)} low-bit; expected 9 and {LOWBIT_BUCKETS}")
     backbone = {s.name for b in lowbit for s in b.slots}
-    print(f"model {cfg.name}: {sum(p.numel() for p in T.leaves(params))} "
-          f"params, {len(layout.buckets)} buckets ({len(lowbit)} packed "
-          f"G-Binary), modeled {layout_kernel_stats(layout, MAIN_W)}",
-          flush=True)
+    print(f"[{name}] model {cfg.name}: "
+          f"{sum(p.numel() for p in T.leaves(params))} params, "
+          f"{len(lowbit)} packed low-bit {'buckets' if fabric.fused else 'leaves'}"
+          f", modeled {layout_kernel_stats(layout, MAIN_W)}", flush=True)
 
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     for k in range(steps):
-        before = {name: fn.launches for name, fn in wrappers.items()}
+        before = {kn: fn.launches for kn, fn in wrappers.items()}
+        ef_before = trainer.state.ef
         trainer.run(k + 1)
         rec = trainer.history[-1]
-        delta = {name: fn.launches - before[name]
-                 for name, fn in wrappers.items()}
-        if any(d != LOWBIT_BUCKETS for d in delta.values()):
-            fail(f"step {k}: kernel launches {delta}, expected "
-                 f"{LOWBIT_BUCKETS} each (one per low-bit bucket)")
+        delta = {kn: fn.launches - before[kn] for kn, fn in wrappers.items()}
+        want = {kn: expect.get(kn, 0) for kn in wrappers}
+        if delta != want:
+            fail(f"{name} step {k}: kernel launches {delta}, expected {want}")
         if not np.isfinite(rec["loss"]):
-            fail(f"step {k}: loss {rec['loss']}")
+            fail(f"{name} step {k}: loss {rec['loss']}")
         for path, u in T.flatten(trainer.last_aggregates):
             if path in backbone:
                 vals = torch.unique(u.to(torch.float32))
                 if not set(vals.tolist()) <= {-1.0, 0.0, 1.0}:
-                    fail(f"step {k}: aggregate {path} holds {vals[:8]}")
-        print(f"step {k}: loss {rec['loss']:.6f} time {rec['step_time_s']:.4f}"
-              f" s traffic_ratio {rec['traffic_ratio']:.6f} "
-              f"launches {delta}", flush=True)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+                    fail(f"{name} step {k}: aggregate {path} holds "
+                         f"{vals[:8]}")
+        if on_step is not None:
+            on_step(k, ef_before, trainer.state.ef)
+        print(f"[{name}] step {k}: loss {rec['loss']:.6f} time "
+              f"{rec['step_time_s']:.4f} s traffic_ratio "
+              f"{rec['traffic_ratio']:.6f} launches "
+              f"{ {kn: d for kn, d in delta.items() if d} }", flush=True)
+    launches = {kn: fn.launches for kn, fn in wrappers.items()}
+    hist = trainer.history
+    batch = {kk: torch.as_tensor(v).cuda()
+             for kk, v in data.batch_at(steps).items()}
+    return {"trainer": trainer, "params": params, "lowbit": lowbit,
+            "batch": batch, "launches": launches, "init_s": init_s,
+            "step_s": [h["step_time_s"] for h in hist],
+            "loss": [h["loss"] for h in hist],
+            "traffic_ratio": hist[-1]["traffic_ratio"]}
 
+
+def report(name: str, run: dict, extra: str = "") -> None:
+    print(f"[{name}] losses {run['loss']}", flush=True)
+    print(f"[{name}] step seconds {run['step_s']} (init {run['init_s']:.2f} "
+          f"s), peak memory {run['peak_gib']:.2f} GiB, traffic ratio "
+          f"{run['traffic_ratio']:.6f}{extra}", flush=True)
+
+
+def run_gbin_packed(steps: int = 5) -> dict:
+    """The main path: bucketed gbin_packed on the fused kernels."""
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, plan_presets
+
+    plan = plan_presets()["gbin_packed"]
+    fabric = Fabric(num_workers=MAIN_W)
+    run = drive("gbin_packed", fabric, plan, steps,
+                dict.fromkeys(("sign_pack", "vote_combine", "unpack_ternary"),
+                              LOWBIT_BUCKETS))
+    trainer = run["trainer"]
     # one step's aggregates against the plain twins on the same grads
-    batch = {k: torch.as_tensor(v).cuda()
-             for k, v in data.batch_at(steps).items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    grads, _ = fabric.worker_grads(params, batch, state.model.loss)
+    grads, _ = fabric.worker_grads(run["params"], run["batch"],
+                                   trainer.state.model.loss)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     agg, _ = fabric.aggregate(grads, plan)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    gl = dict(T.flatten(grads))
-    for bucket in lowbit:
+    gl, al = dict(T.flatten(grads)), dict(T.flatten(agg))
+    for bucket in run["lowbit"]:
         flat = torch.cat([gl[s.name].reshape(MAIN_W, -1)
                           for s in bucket.slots], dim=1)
-        want = twin_packed_vote(flat)
+        want = twin_vote(flat)
         for s in bucket.slots:
-            got = dict(T.flatten(agg))[s.name].reshape(-1)
-            if not same(got, want[s.offset:s.offset + s.size]):
+            if not same(al[s.name].reshape(-1),
+                        want[s.offset:s.offset + s.size]):
                 fail(f"aggregate {s.name} differs from the plain twins")
-    hist = trainer.history
-    return {"launches": launches, "init_s": init_s,
-            "step_s": [h["step_time_s"] for h in hist],
-            "loss": [h["loss"] for h in hist],
-            "traffic_ratio": hist[-1]["traffic_ratio"],
-            "grads_s": t1 - t0, "aggregate_s": t2 - t1,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report("gbin_packed", run, f", worker grads {t1 - t0:.4f} s, bucketed "
+           f"aggregate {t2 - t1:.4f} s")
+    return run
+
+
+def run_per_leaf_ef(steps: int = 3) -> dict:
+    """Run A: per-leaf aggregation with error feedback in the kernels."""
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.kernels import ref
+
+    plan = plan_presets(error_feedback=True)["gbin_packed"]
+    fabric = Fabric(num_workers=MAIN_W, fused=False)
+    ef_paths = set()
+
+    def residuals_updated(k, before, after):
+        moved = {p for (p, a), (_, b) in zip(T.flatten(before),
+                                             T.flatten(after))
+                 if a.dim() and not torch.equal(a, b)}
+        if not moved or moved != {p for p, a in T.flatten(after) if a.dim()}:
+            fail(f"A step {k}: residuals updated on {sorted(moved)} only")
+        ef_paths.update(moved)
+
+    run = drive("A per-leaf EF", fabric, plan, steps,
+                dict.fromkeys(("encode_pack_ef", "vote_combine",
+                               "unpack_ternary", "ef_residual"),
+                              LOWBIT_BUCKETS), on_step=residuals_updated)
+    trainer = run["trainer"]
+    backbone = {s.name for b in run["lowbit"] for s in b.slots}
+    if ef_paths != backbone:
+        fail(f"A: EF on {sorted(ef_paths)}, backbone {sorted(backbone)}")
+    for p, e in T.flatten(trainer.state.ef):
+        if p in backbone and (e.dtype != torch.float32
+                              or e.shape[0] != MAIN_W):
+            fail(f"A: residual {p} is {e.dtype} {tuple(e.shape)}")
+    # one step's aggregates and residuals against the twin chain on the
+    # same grads, the same residuals and the same beta
+    grads, _ = fabric.worker_grads(run["params"], run["batch"],
+                                   trainer.state.model.loss)
+    ef = trainer.state.ef
+    t0 = time.perf_counter()
+    agg, new_ef = fabric.aggregate(grads, plan, ef=ef)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    gl, el = dict(T.flatten(grads)), dict(T.flatten(ef))
+    al, nl = dict(T.flatten(agg)), dict(T.flatten(new_ef))
+    for p in sorted(backbone):
+        g, e = gl[p], el[p]
+        n = g[0].numel()
+        words, geff = ref.encode_pack_ef(ref.to_plane(g.reshape(MAIN_W, n)),
+                                         ref.to_plane(e.reshape(MAIN_W, n)))
+        u = twin_combine_decode(words, n).reshape(g.shape[1:]).to(g.dtype)
+        if not same(al[p], u):
+            fail(f"A: aggregate {p} differs from the twin chain")
+        del words, u
+        beta = ref.from_plane(geff, n).abs().mean(dim=1)
+        resid = ref.from_plane(ref.ef_residual(geff, beta).to(e.dtype), n)
+        if not same(nl[p], resid.reshape(e.shape)):
+            fail(f"A: residual {p} differs from the twin chain")
+        del geff, resid
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report("A per-leaf EF", run, f", per-leaf EF aggregate {agg_s:.4f} s")
+    return run
+
+
+def run_staged(steps: int = 2) -> dict:
+    """Run B: a packed G-Ternary backbone on the staged four-kernel chain."""
+    from repro_torch.core import AdmissionPlan, AggregationMode, Schedule
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric
+
+    plan = AdmissionPlan.lowbit_backbone(AggregationMode.G_TERNARY,
+                                         schedule=Schedule.PACKED_A2A)
+    fabric = Fabric(num_workers=MAIN_W, fused_kernels=False)
+    run = drive("B staged", fabric, plan, steps,
+                dict.fromkeys(("sign_pack", "popcount_stack",
+                               "majority_decode", "unpack_ternary"),
+                              LOWBIT_BUCKETS))
+    trainer = run["trainer"]
+    grads, _ = fabric.worker_grads(run["params"], run["batch"],
+                                   trainer.state.model.loss)
+    t0 = time.perf_counter()
+    staged, _ = fabric.aggregate(grads, plan)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    fused_agg, _ = Fabric(num_workers=MAIN_W).aggregate(grads, plan)
+    gated = 0
+    for (p, a), (_, b) in zip(T.flatten(staged), T.flatten(fused_agg)):
+        if not same(a, b):
+            fail(f"B: staged aggregate {p} differs from the fused chain's")
+        gated += int((a == 0).sum())
+    if not gated:
+        fail("B: no G-Ternary zero in the aggregates")
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report("B staged", run, f", staged bucketed aggregate {agg_s:.4f} s")
+    return run
 
 
 def main() -> None:
@@ -308,17 +586,17 @@ def main() -> None:
 
     rows = check_kernels()
     print("kernel checks: byte-equal to the plain twins", flush=True)
-    run = train()
-    print(f"train: losses {run['loss']}", flush=True)
-    print(f"train: step seconds {run['step_s']} (init {run['init_s']:.2f} s)",
-          flush=True)
-    print(f"train: worker grads {run['grads_s']:.4f} s, bucketed aggregate "
-          f"{run['aggregate_s']:.4f} s, peak memory {run['peak_gib']:.2f} GiB,"
-          f" traffic ratio {run['traffic_ratio']:.6f}", flush=True)
+    free()
+    launches = dict.fromkeys(rows, 0)
+    for fn in (run_gbin_packed, run_per_leaf_ef, run_staged):
+        run = fn()
+        for k, v in run.pop("launches").items():
+            launches[k] += v
+        del run
+        free()
 
     kernels = [{"name": name, "route": "cuda", "source": row["source"],
-                "replaces": row["replaces"],
-                "launches": run["launches"][name],
+                "replaces": row["replaces"], "launches": launches[name],
                 "max_abs_err": row["err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}

@@ -11,13 +11,14 @@ without it.  Semantics (paper Section 2, identical across schedules):
     u_i     = m_i * sgn(2 c_i - W)           (G-Ternary, 2-of-3 zero gate)
 
   * ``vote_psum``  — dense sign votes, one integer all-reduce.
-  * ``packed_a2a`` — the controller schedule on the fused kernels: pack
+  * ``packed_a2a`` — the controller schedule on the Hopper kernels: pack
     sign bits, ``all_to_all`` to the owner of each element range, owner
     PopCount/majority, ``all_gather`` of the packed ternary pair.
 
 FP32 aggregation stays available per bucket (:func:`fp32_allreduce`).
 Optional per-worker error feedback (EF-signSGD) is injected before the
-vote and updated after it, in plain torch.
+vote and updated after it: in the fused kernels on ``packed_a2a`` with a
+kernel set, in plain torch everywhere else.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import dataclasses
 
 import torch
 
+from .. import kernels as K
+from ..kernels import fused as KF
 from .modes import AggregationMode, Schedule
 
 
@@ -102,24 +105,32 @@ def lowbit_packed_a2a(g: torch.Tensor, group, num_workers: int, *,
                       kernels=None):
     """Controller-schedule aggregation of a fully local payload.
 
-    The reference's ``_packed_a2a_local`` on its fused path: the codec's
-    vote :class:`~repro_torch.kernels.fused.KernelSet` runs the
-    pack -> all_to_all -> combine -> all_gather -> decode chain, with EF
-    injected before it and updated after it (bit-identical to the
-    reference's in-kernel EF by its own contract).  ``gate_mask`` (host
-    boolean (N,) array) overrides the flat-index 2-of-3 gate.  The staged
-    four-kernel chain and tensor-parallel leaves are still to port.
+    The reference's ``_packed_a2a_local``.  ``kernels`` (a codec's vote
+    :class:`~repro_torch.kernels.fused.KernelSet`) runs the fused chain,
+    EF included.  Without one (``Fabric(fused_kernels=False)``) the
+    staged four-kernel chain runs: pack -> all_to_all -> PopCount ->
+    majority -> all_gather -> decode, with EF injected before it and
+    updated after it in plain torch; both chains give the same bits.
+    ``gate_mask`` (boolean (N,) keep vector, host array or tensor)
+    overrides the flat-index 2-of-3 gate.  Tensor-parallel leaves are still to port.
     """
-    if kernels is None or not kernels.votes:
-        raise NotImplementedError(
-            "packed_a2a runs on a codec's vote kernel set; the staged "
-            "popcount_stack/majority_decode chain is still to port "
-            "(ROADMAP queue 2)")
+    if kernels is not None and kernels.votes:
+        return kernels.packed_vote(g, group, num_workers, ternary=ternary,
+                                   gate_phase=gate_phase, ef=ef,
+                                   gate_mask=gate_mask)
+    w = num_workers
+    lead = g.shape[0]
+    n = g[0].numel()
     g_eff, ef = _ef_inject(g, ef)
-    u, _ = kernels.packed_vote(g_eff, group, num_workers, ternary=ternary,
-                               gate_phase=gate_phase, ef=None,
-                               gate_mask=gate_mask)
-    return u, _ef_update(g_eff, ef)
+    words = K.pack_signs(K.to_plane(g_eff.reshape(lead, n)))
+    routed, r, rw = KF.route_words(words, group, w)
+    counts = K.popcount_stack(routed)
+    gate = KF.shard_gate_words(group.rank(), rw, ternary=ternary,
+                               gate_phase=gate_phase, gate_mask=gate_mask,
+                               total_rows=rw * w, device=g.device)
+    sw, mw = K.majority_decode(counts, gate, num_workers=w)
+    u = KF.gather_decode(sw, mw, group, r, n)
+    return u.reshape(g.shape[1:]).to(g.dtype), _ef_update(g_eff, ef)
 
 
 # ---------------------------------------------------------------------------

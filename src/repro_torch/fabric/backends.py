@@ -74,9 +74,10 @@ class VotePsumBackend:
         return ring_wire_bytes(1.0 * n_elements, num_workers)
 
 
-def _vote_kernels(codec):
-    ks = codec.kernel_set()
-    return ks if ks is not None and ks.votes else None
+def _codec_kernels(ctx: AggregationContext, codec):
+    """The codec's fused kernel set, or None where the session pinned the
+    staged chain (``fused_kernels=False``) or the codec brings none."""
+    return codec.kernel_set() if ctx.fused_kernels else None
 
 
 @register_schedule(Schedule.PACKED_A2A)
@@ -94,16 +95,19 @@ class PackedA2ABackend:
             gate_phase=policy.gate_phase,
             gate_mask=resolve_leaf_gate_mask(codec, g.shape[1:],
                                              policy.gate_phase),
-            ef=ef, kernels=_vote_kernels(codec))
+            ef=ef, kernels=_codec_kernels(ctx, codec))
 
     def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
                        gate=None):
-        # the packed schedule packs the host mask into gate words
+        # the packed schedule packs the keep vector into gate words, on
+        # the payload's device (a host mask of a full-size bucket took
+        # seconds a step to build and pack)
         u, _ = lowbit_packed_a2a(flat, ctx.group, ctx.num_workers,
                                  ternary=codec.gated,
                                  gate_mask=None if gate is None
-                                 else gate.mask(),
-                                 kernels=_vote_kernels(codec))
+                                 else gate.vector(torch.bool,
+                                                  device=flat.device),
+                                 kernels=_codec_kernels(ctx, codec))
         return u
 
     def wire_bytes_per_device(self, n_elements: int, mode,

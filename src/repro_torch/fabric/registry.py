@@ -24,11 +24,15 @@ from ..core.registry import Registry
 class AggregationContext:
     """Session facts a backend needs to run its collective.
 
-    ``group``       — the worker group (:mod:`repro_torch.core.collectives`);
-    ``num_workers`` — its size, the paper's W.
+    ``group``         — the worker group (:mod:`repro_torch.core.collectives`);
+    ``num_workers``   — its size, the paper's W;
+    ``fused_kernels`` — run codecs' fused kernel sets; False pins the
+                        staged four-kernel chain (the session's
+                        ``fused_kernels=False`` A/B switch; same bits).
     """
     group: Any = None
     num_workers: int = 1
+    fused_kernels: bool = True
 
 
 @runtime_checkable

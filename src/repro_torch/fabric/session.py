@@ -212,26 +212,34 @@ class Fabric:
 
     ``Fabric(num_workers=W)`` runs W virtual data-parallel workers on one
     device (the reference's ``Fabric(dp_axes=("w",), num_workers=W)``
-    under ``vmap``).  The host-local session of the reference (no
-    data-parallel axes) needs the ``vote_pipeline`` kernel and is still to
-    port.
+    under ``vmap``).  ``fused=False`` aggregates leaf by leaf instead of
+    through 32 MiB buckets; a packed leaf with error feedback then runs
+    EF inside the kernels (``encode_pack_ef``, ``ef_residual_plane``).
+    ``fused_kernels=False`` pins the staged four-kernel chain
+    (``sign_pack``, ``popcount_stack``, ``majority_decode``,
+    ``unpack_ternary``) in place of the codecs' fused kernel sets: the
+    reference's A/B check, with the same bits.  The host-local session of
+    the reference (no data-parallel axes) needs the ``vote_pipeline``
+    kernel and is still to port.
     """
 
     def __init__(self, num_workers: int = 1, *,
                  rules: GroupRules | None = None,
                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
-                 fused: bool = True):
+                 fused: bool = True, fused_kernels: bool = True):
         self.group = VirtualGroup(num_workers)
         self.num_workers = self.group.size
         self.rules = rules or GroupRules()
         self.bucket_bytes = int(bucket_bytes)
         self.fused = bool(fused)
+        self.fused_kernels = bool(fused_kernels)
         self._layouts: dict[tuple, BucketLayout] = {}
 
     @property
     def context(self) -> AggregationContext:
         return AggregationContext(group=self.group,
-                                  num_workers=self.num_workers)
+                                  num_workers=self.num_workers,
+                                  fused_kernels=self.fused_kernels)
 
     def resolve(self, params_like: Any, plan: AdmissionPlan) -> dict:
         """Params tree -> LeafPolicy tree."""

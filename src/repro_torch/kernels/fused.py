@@ -1,19 +1,22 @@
 """Codec-owned fused kernels: the packed sign-vote chain of a bucket.
 
-Port of ``repro/kernels/fused.py``.  This slice carries the chain the
-``packed_a2a`` schedule runs on every low-bit bucket:
+Port of ``repro/kernels/fused.py``.  This module carries the chain the
+``packed_a2a`` schedule runs on every low-bit bucket or leaf:
 
-    sign_pack -> all_to_all -> vote_combine -> all_gather -> unpack_ternary
+    encode -> all_to_all -> vote_combine -> all_gather -> unpack_ternary
+           [-> ef_residual]
 
-with :func:`vote_combine` a hand-written Hopper kernel
-(``csrc/vote_combine.cu``, replacing the Pallas ``_vote_combine_kernel``).
-The gate helpers, the bucket-level entry point :func:`fused_packed_vote` and
-the :class:`KernelSet` / :class:`VoteKernelSet` accounting are here too.
+with two hand-written Hopper kernels here: :func:`vote_combine`
+(``csrc/vote_combine.cu``, replacing the Pallas ``_vote_combine_kernel``)
+and, under error feedback (EF), :func:`encode_pack_ef` (EF inject and
+sign pack in one pass, ``csrc/encode_pack_ef.cu``) as the encode and
+:func:`ef_residual_plane` (``csrc/ef_residual.cu``) as the residual
+update.  Without EF the encode is ``sign_pack``.  The gate helpers, the
+bucket-level entry point :func:`fused_packed_vote` and the
+:class:`KernelSet` / :class:`VoteKernelSet` accounting are here too.
 
-Still to port (ROADMAP queue 2): the host-local ``vote_pipeline`` kernel,
-``encode_pack_ef`` and ``ef_residual_plane`` (the schedules inject and
-update error feedback in plain torch around the chain, which the
-reference holds bit-identical), and the int4 / top-k kernels.
+Still to port (ROADMAP queue 2): the host-local ``vote_pipeline`` kernel
+and the int4 / top-k kernels.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import torch
 from . import build, ref
 from .apply_update import unpack_ternary
 from .ref import ALL_ONES, LANE, PACK
-from .ref import vote_combine as vote_combine_plain  # the plain twin
+from .ref import ef_residual as ef_residual_plain        # the plain twins
+from .ref import encode_pack_ef as encode_pack_ef_plain
+from .ref import vote_combine as vote_combine_plain
 from .sign_pack import sign_pack
 
 
@@ -52,9 +57,10 @@ def shard_gate_words(ranks, rows_per_shard: int, *, ternary: bool,
     """Packed zero gates of the owner shards ``ranks``: (len(ranks), rw, LANE).
 
     Owner ``k`` holds word rows ``[k * rw, (k + 1) * rw)`` of the plane
-    after the all_to_all.  ``gate_mask`` (host flat keep vector) overrides
-    the flat-index 2-of-3 pattern; ``total_rows`` right-pads its packed
-    words to the collective's row padding (dropped on unpack).
+    after the all_to_all.  ``gate_mask`` (flat keep vector, host array
+    or tensor) overrides the flat-index 2-of-3 pattern; ``total_rows``
+    right-pads its packed words to the collective's row padding
+    (dropped on unpack).
     """
     rw = rows_per_shard
     ranks = list(ranks)
@@ -117,6 +123,101 @@ vote_combine.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the error-feedback kernels
+# ---------------------------------------------------------------------------
+
+_FLOATS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _float_symbol(stem: str, *dtypes) -> str:
+    for dt in dtypes:
+        if dt not in _FLOATS:
+            raise TypeError(f"{stem} takes float32 or bfloat16, got {dt}")
+    return "_".join([stem, *(_FLOATS[dt] for dt in dtypes)])
+
+
+def encode_pack_ef(g_plane: torch.Tensor, e_plane: torch.Tensor):
+    """Fused EF inject + sign pack: value planes (..., M, LANE) of g and
+    of the residual e -> ``(sign words (..., M // 32, LANE), g_eff plane)``.
+
+    ``g_eff`` is in g's dtype; e (float32 or bfloat16) is rounded to it
+    in registers.  Leading axes (the W workers) go in one launch.
+    """
+    if build.on_cpu(g_plane, e_plane):
+        return encode_pack_ef_plain(g_plane, e_plane)
+    symbol = _float_symbol("encode_pack_ef", g_plane.dtype, e_plane.dtype)
+    if (g_plane.shape != e_plane.shape or g_plane.dim() < 2
+            or g_plane.shape[-1] != LANE or g_plane.shape[-2] % PACK):
+        raise ValueError(f"encode_pack_ef needs two (..., 32k, {LANE}) "
+                         f"planes, got {tuple(g_plane.shape)} and "
+                         f"{tuple(e_plane.shape)}")
+    if not (g_plane.is_contiguous() and e_plane.is_contiguous()):
+        raise ValueError("encode_pack_ef needs contiguous planes")
+    words = torch.empty(g_plane.shape[:-2] + (g_plane.shape[-2] // PACK,
+                                              LANE),
+                        dtype=torch.int32, device=g_plane.device)
+    g_eff = torch.empty_like(g_plane)
+    fn = build.bind("encode_pack_ef", symbol, 4, 1)
+    build.check(fn(g_plane.data_ptr(), e_plane.data_ptr(), words.data_ptr(),
+                   g_eff.data_ptr(), words.numel(),
+                   build.stream_ptr(g_plane.device)), "encode_pack_ef")
+    encode_pack_ef.launches += 1
+    return words, g_eff
+
+
+encode_pack_ef.launches = 0
+
+
+def ef_residual_plane(plane: torch.Tensor, beta: torch.Tensor, *,
+                      out_dtype=None) -> torch.Tensor:
+    """EF residual ``x - beta * sgn(x)`` on value planes (L, M, LANE),
+    ``beta`` one value per plane (L,), in the planes' dtype; the result
+    is stored as ``out_dtype`` (default: the planes' dtype).
+    """
+    out_dtype = out_dtype or plane.dtype
+    if build.on_cpu(plane, beta):
+        return ef_residual_plain(plane, beta).to(out_dtype)
+    symbol = _float_symbol("ef_residual", plane.dtype, out_dtype)
+    if plane.dim() != 3 or plane.shape[-1] != LANE:
+        raise ValueError(f"ef_residual_plane needs (L, M, {LANE}) planes, "
+                         f"got {tuple(plane.shape)}")
+    if beta.shape != plane.shape[:1]:
+        raise ValueError(f"ef_residual_plane needs one beta per plane, "
+                         f"got {tuple(beta.shape)} for {plane.shape[0]}")
+    if not plane.is_contiguous():
+        raise ValueError("ef_residual_plane needs contiguous planes")
+    # beta rounded to the planes' dtype as the twin rounds it, then
+    # widened (exactly) to the float32 the kernel reads
+    b32 = beta.to(plane.dtype).to(torch.float32).contiguous()
+    out = torch.empty(plane.shape, dtype=out_dtype, device=plane.device)
+    fn = build.bind("ef_residual", symbol, 3, 2)
+    build.check(fn(plane.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                   plane.shape[0], plane[0].numel(),
+                   build.stream_ptr(plane.device)), "ef_residual")
+    ef_residual_plane.launches += 1
+    return out
+
+
+ef_residual_plane.launches = 0
+
+
+def ef_update_fused(g_eff: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:
+    """The EF residual update on the kernel, bit-identical to
+    :func:`repro_torch.core.lowbit._ef_update`.
+
+    ``g_eff`` carries the L local ranks on its leading axis.  beta is
+    each rank's mean |g_eff| over the leaf's own elements (the same
+    reduction as the plain update); the elementwise residual runs as one
+    kernel over all L canonical planes and is stored in ``ef``'s dtype.
+    """
+    lead = g_eff.shape[0]
+    flat = g_eff.reshape(lead, -1)
+    beta = flat.abs().mean(dim=1)
+    resid = ef_residual_plane(ref.to_plane(flat), beta, out_dtype=ef.dtype)
+    return ref.from_plane(resid, flat.shape[1]).reshape(g_eff.shape)
+
+
+# ---------------------------------------------------------------------------
 # bucket-level entry point: packed_a2a on the fused kernels
 # ---------------------------------------------------------------------------
 
@@ -125,40 +226,60 @@ def fused_packed_vote(g: torch.Tensor, group, num_workers: int, *,
                       ef: torch.Tensor | None = None, gate_mask=None):
     """The ``packed_a2a`` vote schedule on the fused kernels.
 
-    ``g`` carries the group's local ranks on its leading axis; the result
-    ``u`` (in {-1, 0, +1}, dtype of ``g``) is replicated and has no such
-    axis.  Three launches: pack every local plane, combine every local
-    owner shard, decode the gathered pair.  Returns ``(u, None)``.
+    ``g`` (and ``ef``, when given) carry the group's local ranks on their
+    leading axis; the result ``u`` (in {-1, 0, +1}, dtype of ``g``) is
+    replicated and has no such axis.  Three launches: encode every local
+    plane (:func:`encode_pack_ef` under EF, else ``sign_pack``), combine
+    every local owner shard, decode the gathered pair; under EF a fourth,
+    :func:`ef_update_fused`.  Returns ``(u, new_ef)``.
     """
     if group is None:
         raise NotImplementedError(
             "host-local packed vote needs the vote_pipeline kernel, still "
             "to port (ROADMAP queue 2, vote_pipeline)")
-    if ef is not None:
-        raise NotImplementedError(
-            "in-kernel error feedback needs encode_pack_ef / "
-            "ef_residual_plane, still to port (ROADMAP queue 2); inject EF "
-            "around the vote as core.lowbit does")
     w = num_workers
     lead = g.shape[0]
     n = g[0].numel()
-    plane = ref.to_plane(g.reshape(lead, n))
-    words = sign_pack(plane)                                 # (L, R, LANE)
-    r = words.shape[1]
-    pad_r = (-r) % w
-    if pad_r:
-        words = torch.nn.functional.pad(words, (0, 0, 0, pad_r))
-    rw = (r + pad_r) // w
-    routed = group.all_to_all(words.reshape(lead, w, rw, LANE))
+    if ef is None:
+        words = sign_pack(ref.to_plane(g.reshape(lead, n)))
+    else:
+        words, geff_plane = encode_pack_ef(ref.to_plane(g.reshape(lead, n)),
+                                           ref.to_plane(ef.reshape(lead, n)))
+    routed, r, rw = route_words(words, group, w)
     gate = shard_gate_words(group.rank(), rw, ternary=ternary,
                             gate_phase=gate_phase, gate_mask=gate_mask,
-                            total_rows=r + pad_r, device=g.device)
+                            total_rows=rw * w, device=g.device)
     sw, mw = vote_combine(routed, gate, num_workers=w)
+    u = gather_decode(sw, mw, group, r, n).reshape(g.shape[1:]).to(g.dtype)
+    if ef is None:
+        return u, None
+    g_eff = ref.from_plane(geff_plane, n).reshape(g.shape)
+    return u, ef_update_fused(g_eff, ef)
+
+
+def route_words(words: torch.Tensor, group, num_workers: int):
+    """Local word planes (L, R, LANE) -> the owner shards this group's
+    ranks receive, ``(routed, r, rw)``.
+
+    The rows are zero-padded to a multiple of W and cut into W shards of
+    ``rw`` rows; ``all_to_all`` gives each owner its shard of every
+    worker, (L, W, rw, LANE).  ``r`` is the unpadded row count.
+    """
+    lead, r = words.shape[:2]
+    pad_r = (-r) % num_workers
+    if pad_r:
+        words = torch.nn.functional.pad(words, (0, 0, 0, pad_r))
+    rw = (r + pad_r) // num_workers
+    routed = group.all_to_all(words.reshape(lead, num_workers, rw, LANE))
+    return routed, r, rw
+
+
+def gather_decode(sw: torch.Tensor, mw: torch.Tensor, group, r: int,
+                  n: int) -> torch.Tensor:
+    """Owner pairs -> ``all_gather`` -> the decoded flat aggregate (n,)."""
     sw_all = group.all_gather(sw)[:r]
     mw_all = group.all_gather(mw)[:r]
-    u_plane = unpack_ternary(sw_all, mw_all)
-    u = ref.from_plane(u_plane, n).reshape(g.shape[1:]).to(g.dtype)
-    return u, None
+    return ref.from_plane(unpack_ternary(sw_all, mw_all), n)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +339,9 @@ class VoteKernelSet(KernelSet):
                  ef: bool = False) -> int:
         # staged: pack, popcount, majority, decode; fused: encode /
         # combine / decode around the collectives, or one kernel when
-        # nothing separates the stages
+        # nothing separates the stages.  As in the reference, the EF
+        # residual update is not counted, though here it is a kernel
+        # (ef_residual_plane): a per-leaf EF vote launches 4.
         if not fused:
             return 4
         return 3 if distributed else 1

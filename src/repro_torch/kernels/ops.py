@@ -11,20 +11,26 @@ here.
 from __future__ import annotations
 
 from .apply_update import unpack_ternary
-from .fused import vote_combine
+from .fused import ef_residual_plane, encode_pack_ef, vote_combine
+from .popcount_majority import majority_decode, popcount_stack
 from .ref import (LANE, PACK, from_plane, gate_words_from_mask, padded_len,
                   ternary_gate_words, to_plane)
 from .sign_pack import sign_pack as pack_signs
 
 __all__ = [
-    "LANE", "PACK", "from_plane", "gate_words_from_mask", "kernel_wrappers",
-    "pack_signs", "padded_len", "ternary_gate_words", "to_plane",
-    "unpack_ternary", "vote_combine",
+    "LANE", "PACK", "ef_residual_plane", "encode_pack_ef", "from_plane",
+    "gate_words_from_mask", "kernel_wrappers", "majority_decode",
+    "pack_signs", "padded_len", "popcount_stack", "ternary_gate_words",
+    "to_plane", "unpack_ternary", "vote_combine",
 ]
 
 
 def kernel_wrappers() -> dict:
-    """name -> wrapper, for every kernel of this slice (each carries an
+    """name -> wrapper, for every kernel of the port (each carries an
     integer ``launches`` count, bumped only where it launches)."""
     return {"sign_pack": pack_signs, "vote_combine": vote_combine,
-            "unpack_ternary": unpack_ternary}
+            "unpack_ternary": unpack_ternary,
+            "encode_pack_ef": encode_pack_ef,
+            "ef_residual": ef_residual_plane,
+            "popcount_stack": popcount_stack,
+            "majority_decode": majority_decode}

@@ -93,8 +93,12 @@ def sign_pack(plane: torch.Tensor) -> torch.Tensor:
 
 
 def popcount_stack(packed: torch.Tensor) -> torch.Tensor:
-    """(W, R, LANE) sign words -> per-element vote counts (32R, LANE) int32."""
-    return unpack_bits(packed).sum(dim=0, dtype=torch.int32)
+    """(..., W, R, LANE) sign words -> vote counts (..., 32R, LANE) int32.
+
+    Leading axes are independent owner shards (the (owner, worker) view a
+    virtual all_to_all returns); the count runs over the worker axis.
+    """
+    return unpack_bits(packed).sum(dim=-3, dtype=torch.int32)
 
 
 def majority_decode(counts: torch.Tensor, num_workers: int,
@@ -118,25 +122,26 @@ def majority_decode(counts: torch.Tensor, num_workers: int,
 
 def gate_words_from_mask(keep, pad_words: int | None = None,
                          device="cpu") -> torch.Tensor:
-    """Flat host keep mask (N,) -> packed gate word plane (int32).
+    """Flat keep mask (N,) -> packed gate word plane (int32) on ``device``.
 
-    Elements beyond N (canonical padding) keep = 1; ``pad_words``
-    right-pads the word plane with all-ones rows to that row count (the
-    all_to_all row padding; dropped on unpack).
+    ``keep`` is a host array or a tensor; it is packed where ``device``
+    is, so a mask built on the card never visits the host.  Elements
+    beyond N (canonical padding) keep = 1; ``pad_words`` right-pads the
+    word plane with all-ones rows to that row count (the all_to_all row
+    padding; dropped on unpack).
     """
-    keep = np.asarray(keep, bool).reshape(-1)
-    n = keep.shape[0]
-    full = np.ones(padded_len(n), np.uint64)
+    if not isinstance(keep, torch.Tensor):
+        keep = torch.from_numpy(np.asarray(keep, bool))
+    keep = keep.to(device=device, dtype=torch.bool).reshape(-1)
+    n = keep.numel()
+    full = torch.ones(padded_len(n), dtype=torch.bool, device=device)
     full[:n] = keep
-    rows = full.shape[0] // LANE
-    full = full.reshape(rows // PACK, PACK, LANE)
-    words = np.sum(full << np.arange(PACK, dtype=np.uint64).reshape(1, PACK, 1),
-                   axis=1, dtype=np.uint64).astype(np.uint32)
+    words = _pack_bits(full.reshape(-1, LANE))
     if pad_words is not None and pad_words > words.shape[0]:
-        pad = np.full((pad_words - words.shape[0], LANE), 0xFFFFFFFF,
-                      np.uint32)
-        words = np.concatenate([words, pad], axis=0)
-    return torch.from_numpy(words.view(np.int32)).to(device)
+        pad = torch.full((pad_words - words.shape[0], LANE), ALL_ONES,
+                         dtype=torch.int32, device=device)
+        words = torch.cat([words, pad])
+    return words
 
 
 def ternary_gate_words(num_rows: int, phase: int = 0,
@@ -148,8 +153,8 @@ def ternary_gate_words(num_rows: int, phase: int = 0,
     """
     if num_rows % PACK:
         raise ValueError(f"rows {num_rows} not a multiple of {PACK}")
-    keep = ((np.arange(num_rows * LANE, dtype=np.int64) + phase) % 3) != 2
-    return gate_words_from_mask(keep, device=device)
+    idx = torch.arange(num_rows * LANE, device=device)
+    return _pack_bits((((idx + phase) % 3) != 2).reshape(num_rows, LANE))
 
 
 # ---------------------------------------------------------------------------
@@ -171,8 +176,31 @@ def vote_combine(routed: torch.Tensor, num_workers: int,
     Composition of :func:`popcount_stack` and :func:`majority_decode`;
     leading axes are independent owner shards.
     """
-    counts = unpack_bits(routed).sum(dim=-3, dtype=torch.int32)
+    counts = popcount_stack(routed)
     return majority_decode(counts, num_workers, gate_words=gate_words)
+
+
+def encode_pack_ef(g_plane: torch.Tensor, e_plane: torch.Tensor):
+    """EF inject + sign pack: ``(sign words, g_eff plane)``.
+
+    ``g_eff = g + e`` in g's dtype, the residual rounded to that dtype
+    first (the reference casts ``ef.astype(g.dtype)`` before the add);
+    the words are the packed signs of the rounded ``g_eff``.
+    """
+    g_eff = g_plane + e_plane.to(g_plane.dtype)
+    return sign_pack(g_eff), g_eff
+
+
+def ef_residual(plane: torch.Tensor, beta) -> torch.Tensor:
+    """EF residual ``x - beta * sgn(x)`` on value planes, in x's dtype.
+
+    ``beta`` is a scalar or one value per leading plane (shape (L,) for
+    (L, M, LANE) planes), rounded to the plane's dtype as the reference
+    does (``jnp.asarray(beta, plane.dtype)``).
+    """
+    b = torch.as_tensor(beta, dtype=plane.dtype, device=plane.device)
+    b = b.reshape(b.shape + (1,) * (plane.dim() - b.dim()))
+    return plane - b * torch.sign(plane)
 
 
 # ---------------------------------------------------------------------------

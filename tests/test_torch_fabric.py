@@ -104,8 +104,10 @@ def test_wire_bytes_match_reference(mode, schedule, w):
         j_wire(12345, mode, schedule, w)
 
 
-def _run_reference(grads, efs, jplan, w, fused, error_feedback):
-    jfab = JFabric(dp_axes=("w",), num_workers=w)
+def _run_reference(grads, efs, jplan, w, fused, error_feedback,
+                   fused_kernels=True):
+    jfab = JFabric(dp_axes=("w",), num_workers=w,
+                   fused_kernels=fused_kernels)
 
     @jax.jit
     def run(gs, es):
@@ -121,7 +123,11 @@ def _run_reference(grads, efs, jplan, w, fused, error_feedback):
 @pytest.mark.parametrize("error_feedback", [False, True])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("w", [3, 4])
-def test_aggregate_matches_reference(schedule, error_feedback, fused, w):
+@pytest.mark.parametrize("fused_kernels", [True, False])
+def test_aggregate_matches_reference(schedule, error_feedback, fused, w,
+                                     fused_kernels):
+    """Both sessions with the same ``fused_kernels`` switch: the codecs'
+    fused kernel sets, or the staged four-kernel chain."""
     rng = np.random.RandomState(w + 10 * error_feedback)
     grads = _grads(rng, w)
     jplan, plan = _plans(schedule.value, error_feedback)
@@ -136,11 +142,12 @@ def test_aggregate_matches_reference(schedule, error_feedback, fused, w):
     j_efs = T.map_leaves(lambda e, on: e[:, None] if on else e, efs, ef_on)
     want, want_ef = _run_reference(
         T.map_leaves(jnp.asarray, grads), T.map_leaves(jnp.asarray, j_efs),
-        jplan, w, fused, error_feedback)
+        jplan, w, fused, error_feedback, fused_kernels)
 
     t_efs = T.map_leaves(lambda e, on: torch.from_numpy(e) if on
                          else torch.zeros(()), efs, ef_on)
-    got, got_ef = Fabric(num_workers=w, fused=fused).aggregate(
+    got, got_ef = Fabric(num_workers=w, fused=fused,
+                         fused_kernels=fused_kernels).aggregate(
         T.map_leaves(torch.from_numpy, grads), plan,
         ef=t_efs if error_feedback else None)
 
@@ -172,17 +179,23 @@ def test_aggregate_matches_reference(schedule, error_feedback, fused, w):
 
 
 def test_fused_equals_per_leaf_bit_for_bit():
+    """Bucketed and per-leaf, each on the fused kernel sets and on the
+    staged chain: four paths, one set of bits (EF states included).  On
+    ``packed_a2a`` per leaf, EF runs inside the kernels with the fused
+    sets and in plain torch on the staged chain."""
     rng = np.random.RandomState(5)
     grads = T.map_leaves(torch.from_numpy, _grads(rng, 4))
     for schedule in (Schedule.VOTE_PSUM, Schedule.PACKED_A2A):
         _, plan = _plans(schedule, True)
         fab = Fabric(num_workers=4)
+        staged = Fabric(num_workers=4, fused_kernels=False)
         ef = fab.init_ef(T.map_leaves(lambda g: g[0], grads),
                          fab.resolve(T.map_leaves(lambda g: g[0], grads),
                                      plan))
         ef = T.map_leaves(lambda e: e + 0.25 if e.dim() else e, ef)
         a, ea = fab.aggregate(grads, plan, ef=ef, fused=True)
-        b, eb = fab.aggregate(grads, plan, ef=ef, fused=False)
-        for (_, x), (_, y) in zip(T.flatten(a) + T.flatten(ea),
-                                  T.flatten(b) + T.flatten(eb)):
-            assert torch.equal(x, y)
+        for f, fused in ((fab, False), (staged, True), (staged, False)):
+            b, eb = f.aggregate(grads, plan, ef=ef, fused=fused)
+            for (_, x), (_, y) in zip(T.flatten(a) + T.flatten(ea),
+                                      T.flatten(b) + T.flatten(eb)):
+                assert torch.equal(x, y)

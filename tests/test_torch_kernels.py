@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import apply_update as j_apply  # noqa: E402
 from repro.kernels import fused as j_fused  # noqa: E402
+from repro.kernels import popcount_majority as j_pm  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import sign_pack as j_sign  # noqa: E402
 from repro_torch.core.collectives import VirtualGroup  # noqa: E402
@@ -47,6 +48,20 @@ def rand_words(rng, *shape) -> np.ndarray:
 
 def words_t(w: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int32).copy())
+
+
+def bits(t) -> np.ndarray:
+    """Float values of either package as their unsigned bit patterns."""
+    a = t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32) \
+        .numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return a.view(np.uint16 if a.itemsize == 2 else np.uint32)
+
+
+def spread(rng, n: int) -> np.ndarray:
+    """Values whose exponents span 2**-24 .. 2**24, so that pairs of them
+    differ in exponent by far more than bfloat16's 8-bit mantissa."""
+    return (rng.randn(n) * 2.0 ** rng.randint(-24, 25, size=n)) \
+        .astype(np.float32)
 
 
 def gate_pair(rows: int, ternary: bool, phase: int = 0):
@@ -116,9 +131,10 @@ def test_gate_words_match_reference(phase):
         u32(ref.ternary_gate_words(64, phase)),
         u32(j_ref.ternary_gate_words(64, phase)))
     keep = rng.rand(5000) > 0.4
-    np.testing.assert_array_equal(
-        u32(ref.gate_words_from_mask(keep, pad_words=4)),
-        u32(j_ref.gate_words_from_mask(keep, pad_words=4)))
+    for mask in (keep, torch.from_numpy(keep)):   # host array or tensor
+        np.testing.assert_array_equal(
+            u32(ref.gate_words_from_mask(mask, pad_words=4)),
+            u32(j_ref.gate_words_from_mask(keep, pad_words=4)))
     for ternary, mask in ((False, None), (True, None), (True, keep)):
         np.testing.assert_array_equal(
             u32(fused.local_gate_words(2, ternary=ternary, gate_phase=phase,
@@ -204,6 +220,105 @@ def test_unpack_ternary_matches_reference_and_pallas(rows):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), u32(pallas))
 
 
+@pytest.mark.parametrize("w", WORKERS + (4,))
+@pytest.mark.parametrize("ternary", [False, True])
+def test_popcount_majority_match_reference_and_pallas(w, ternary):
+    """The staged chain's two wrappers (CPU -> twins) against the Pallas
+    kernels in interpret mode, owner by owner of the all_to_all view."""
+    rng = np.random.RandomState(w)
+    rw = 1 if w > 31 else 2     # the twins unpack to int64: keep rows few
+    words = rand_words(rng, w, w * rw, 128)
+    if w > 1:
+        words[: w // 2, 0] = 0xFFFFFFFF     # a tie (or W odd: a majority)
+        words[w // 2:, 0] = 0
+    view = VirtualGroup(w).all_to_all(words_t(words).reshape(w, w, rw, 128))
+    counts = ops.popcount_stack(view)
+    assert counts.shape == (w, rw * 32, 128) and counts.dtype == torch.int32
+    jg, _ = gate_pair(rw, ternary, phase=w % 3)
+    gate = np.tile(np.asarray(jg), (w, 1))              # one per owner
+    sw, mw = ops.majority_decode(counts, words_t(gate).reshape(w, rw, 128),
+                                 num_workers=w)
+    # rows are independent, so the jitted reference over the whole
+    # (W, W*rw, LANE) stack gives every owner's shard in order
+    want = jax.jit(j_ref.popcount_stack)(jnp.asarray(words))
+    np.testing.assert_array_equal(counts.reshape(-1, 128).numpy(),
+                                  np.asarray(want))
+    pair = jax.jit(j_ref.majority_decode, static_argnums=1)(
+        want, w, jnp.asarray(gate))
+    np.testing.assert_array_equal(u32(sw.reshape(-1, 128)), u32(pair[0]))
+    np.testing.assert_array_equal(u32(mw.reshape(-1, 128)), u32(pair[1]))
+    # and the Pallas kernels, owner by owner (first, middle, last: the
+    # interpreted kernel unrolls its W loop, slow to run for every owner)
+    for k in sorted({0, w // 2, w - 1}):
+        seg = jnp.asarray(words[:, k * rw:(k + 1) * rw])
+        c = j_pm.popcount_stack(seg, interpret=True)
+        np.testing.assert_array_equal(counts[k].numpy(), np.asarray(c))
+        sk, mk = j_pm.majority_decode(c, jg, num_workers=w, interpret=True)
+        np.testing.assert_array_equal(u32(sw[k]), u32(sk))
+        np.testing.assert_array_equal(u32(mw[k]), u32(mk))
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_pack_ef_matches_reference_and_pallas(n, dtype):
+    """g in its dtype and float32 residuals: the port rounds e to g's
+    dtype inside the encode, the reference before it; words and g_eff
+    byte for byte, except that NaNs in g_eff are compared by position:
+    each framework writes its own NaN bits when it rounds a NaN to
+    bfloat16 (torch's CPU path 0xFFFF, XLA's 0x7FC0)."""
+    rng = np.random.RandomState(n)
+    g, e = spread(rng, n), spread(rng, n)
+    g[:6] = [0.0, -0.0, np.nan, np.inf, -np.inf, 1.0][:n]
+    e[:6] = [-0.0, -0.0, 1.0, 1.0, 2.0, 2.0 ** -20][:n]
+    jg, tg = both(g, dtype)
+    je, _ = both(e, dtype)
+    jgp, jep = jax.jit(j_ref.to_plane)(jg), jax.jit(j_ref.to_plane)(je)
+    words, g_eff = ops.encode_pack_ef(ref.to_plane(tg),
+                                      ref.to_plane(torch.from_numpy(e)))
+    assert g_eff.dtype == tg.dtype
+    for want in (jax.jit(j_ref.encode_pack_ef)(jgp, jep),
+                 j_fused.encode_pack_ef(jgp, jep, interpret=True)):
+        np.testing.assert_array_equal(u32(words), u32(want[0]))
+        nan = np.isnan(np.asarray(want[1].astype(jnp.float32)))
+        np.testing.assert_array_equal(
+            torch.isnan(g_eff.to(torch.float32)).numpy(), nan)
+        np.testing.assert_array_equal(bits(g_eff)[~nan], bits(want[1])[~nan])
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("dtype,out", [("float32", "float32"),
+                                       ("bfloat16", "bfloat16"),
+                                       ("bfloat16", "float32")])
+def test_ef_residual_matches_reference_and_pallas(n, dtype, out):
+    """x - beta * sgn(x) given the same beta, byte for byte, except at
+    -0.0 and NaN, which are compared by value and by position: there the
+    frameworks' sign functions differ (torch.sign gives +0 for -0.0 and
+    for NaN, jnp.sign gives -0.0 and NaN), so -0.0 comes out as -0.0 in
+    the port and +0.0 in the reference, and NaN stays NaN in both."""
+    rng = np.random.RandomState(n)
+    x = spread(rng, 2 * n).reshape(2, n)
+    x[0, :6] = [0.0, -0.0, np.nan, np.inf, -np.inf, 1e-30][:n]
+    beta = np.abs(np.nan_to_num(x, nan=0, posinf=0, neginf=0)).mean(axis=1)
+    jx, tx = both(x, dtype)
+    tplane = ref.to_plane(tx)
+    got = ops.ef_residual_plane(tplane, torch.from_numpy(beta),
+                                out_dtype=getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and got.shape == tplane.shape
+    for k in range(2):
+        jplane = jax.jit(j_ref.to_plane)(jx[k])
+        for want in (jax.jit(j_ref.ef_residual)(jplane, beta[k]),
+                     j_fused.ef_residual_plane(jplane, beta[k],
+                                               interpret=True)):
+            want = np.asarray(want.astype(out))
+            mine = got[k].numpy() if out == "float32" else \
+                got[k].to(torch.float32).numpy()
+            odd = np.isnan(want) | (want == 0)
+            np.testing.assert_array_equal(bits(got[k])[~odd],
+                                          bits(want)[~odd])
+            np.testing.assert_array_equal(mine[odd],
+                                          want[odd].astype(np.float32))
+
+
 @pytest.mark.parametrize("w", [1, 3, 4, 31])
 def test_dense_oracles_match_reference(w):
     rng = np.random.RandomState(w)
@@ -225,34 +340,73 @@ def test_dense_oracles_match_reference(w):
 @pytest.mark.parametrize("w", [3, 4])
 @pytest.mark.parametrize("ternary", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_packed_vote_matches_reference(w, ternary, dtype):
+@pytest.mark.parametrize("ef", [False, True])
+def test_fused_packed_vote_matches_reference(w, ternary, dtype, ef):
+    """u byte for byte; under EF the new float32 residuals to 1e-6 * beta,
+    since beta = mean|g_eff| is summed in another order in each package."""
     rng = np.random.RandomState(w)
     n = 3 * 4096 + 5
     g = rng.randn(w, n).astype(np.float32)
+    e = rng.randn(w, n).astype(np.float32) if ef else None
     jg, tg = both(g, dtype)
-    want = jax.jit(jax.vmap(
-        lambda x: j_fused.fused_packed_vote(x, ("w",), w, ternary=ternary,
-                                            gate_phase=1, interpret=True)[0],
-        axis_name="w"))(jg)
-    got, _ = fused.fused_packed_vote(tg, VirtualGroup(w), w, ternary=ternary,
-                                     gate_phase=1)
+
+    def one(x, r):
+        return j_fused.fused_packed_vote(x, ("w",), w, ternary=ternary,
+                                         gate_phase=1, ef=r, interpret=True)
+    if ef:
+        want, want_ef = jax.jit(jax.vmap(one, axis_name="w"))(
+            jg, jnp.asarray(e))
+    else:
+        want = jax.jit(jax.vmap(lambda x: one(x, None)[0],
+                                axis_name="w"))(jg)
+    got, got_ef = fused.fused_packed_vote(
+        tg, VirtualGroup(w), w, ternary=ternary, gate_phase=1,
+        ef=torch.from_numpy(e) if ef else None)
     assert got.dtype == tg.dtype and got.shape == (n,)
     for k in range(w):
         np.testing.assert_array_equal(got.to(torch.float32).numpy(),
                                       np.asarray(want[k], np.float32))
-    dense = (ref.gternary_aggregate_dense if ternary
-             else ref.gbinary_aggregate_dense)
-    oracle = dense(tg, 1) if ternary else dense(tg)
+    if not ef:
+        assert got_ef is None
+        dense = (ref.gternary_aggregate_dense if ternary
+                 else ref.gbinary_aggregate_dense)
+        oracle = dense(tg, 1) if ternary else dense(tg)
+        np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                      oracle.numpy())
+        return
+    assert got_ef.dtype == torch.float32 and got_ef.shape == (w, n)
+    g_eff = tg + torch.from_numpy(e).to(tg.dtype)
+    beta = g_eff.abs().to(torch.float64).mean(dim=1, keepdim=True).numpy()
+    err = np.abs(got_ef.numpy() - np.asarray(want_ef))
+    assert (err <= 1e-6 * beta).all()
+    assert not np.array_equal(got_ef.numpy(), e)
+    # the dense oracle on the votes' input, g + e in g's dtype
     np.testing.assert_array_equal(got.to(torch.float32).numpy(),
-                                  oracle.numpy())
+                                  (ref.gternary_aggregate_dense(g_eff, 1)
+                                   if ternary else
+                                   ref.gbinary_aggregate_dense(g_eff))
+                                  .numpy())
 
 
 def test_fused_packed_vote_raises_for_unported_branches():
     g = torch.zeros((2, 10))
     with pytest.raises(NotImplementedError, match="vote_pipeline"):
         fused.fused_packed_vote(g, None, 2)
-    with pytest.raises(NotImplementedError, match="encode_pack_ef"):
-        fused.fused_packed_vote(g, VirtualGroup(2), 2, ef=torch.zeros_like(g))
+    with pytest.raises(NotImplementedError, match="vote_pipeline"):
+        fused.fused_packed_vote(g, None, 2, ef=torch.zeros_like(g))
+
+
+def test_ef_update_fused_equals_plain_update():
+    """The kernel path's residual update against the plain one that the
+    bucketed and staged paths run: the same bits, f32 and bf16 g_eff."""
+    from repro_torch.core.lowbit import _ef_update
+    rng = np.random.RandomState(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        g_eff = torch.from_numpy(spread(rng, 3 * 70 * 61)
+                                 .reshape(3, 70, 61)).to(dtype)
+        ef = torch.zeros((3, 70, 61))
+        assert torch.equal(fused.ef_update_fused(g_eff, ef),
+                           _ef_update(g_eff, ef))
 
 
 @pytest.mark.parametrize("fused_path", [True, False])
@@ -276,3 +430,23 @@ def test_wrappers_reject_other_devices_and_mixed_operands():
     with pytest.raises(ValueError, match="workers"):
         ops.vote_combine(torch.zeros((3, 1, 128), dtype=torch.int32), words,
                          num_workers=4)
+    plane = torch.zeros((32, 128))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.popcount_stack(words.reshape(1, 1, 128).to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.majority_decode(plane.to(torch.int32).to("meta"),
+                            words.to("meta"), num_workers=2)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.encode_pack_ef(plane, plane.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ef_residual_plane(plane.to("meta"), torch.ones(1).to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        ops.ef_residual_plane(plane.to("meta"), torch.ones(1))
+
+
+def test_kernel_wrappers_list_every_ported_kernel():
+    wrappers = ops.kernel_wrappers()
+    assert sorted(wrappers) == sorted([
+        "sign_pack", "vote_combine", "unpack_ternary", "encode_pack_ef",
+        "ef_residual", "popcount_stack", "majority_decode"])
+    assert all(isinstance(fn.launches, int) for fn in wrappers.values())

@@ -19,12 +19,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.core import AdmissionPlan as JPlan  # noqa: E402
+from repro.core import AggregationMode as JMode  # noqa: E402
+from repro.core import init_ef_states as j_init_ef  # noqa: E402
 from repro.fabric import Fabric as JFabric  # noqa: E402
 from repro.fabric.control import plan_presets as j_plan_presets  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import loss_fn as j_loss_fn  # noqa: E402
 from repro.optim import AdamW as JAdamW  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import AdmissionPlan, AggregationMode, Schedule  # noqa: E402
 from repro_torch.core import tree as T  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.fabric import Fabric, TrainState, plan_presets  # noqa: E402
@@ -110,42 +114,77 @@ def test_worker_losses_and_grads_match_reference(setup):
                                    err_msg=p)
 
 
-def _reference_step(jcfg, jplan):
-    jfab = JFabric(dp_axes=("w",), num_workers=W)
+# The configurations the port's step runs, each with its reference:
+#   gbin_packed  — the main path: bucketed, fused kernel sets, no EF;
+#   per_leaf_ef  — leaf by leaf with error feedback, EF inside the kernels;
+#   staged       — a packed G-Ternary backbone on the staged chain.
+CONFIGS = {
+    "gbin_packed": dict(
+        plan=lambda: plan_presets()["gbin_packed"],
+        jplan=lambda: j_plan_presets()["gbin_packed"], fabric={}),
+    "per_leaf_ef": dict(
+        plan=lambda: plan_presets(error_feedback=True)["gbin_packed"],
+        jplan=lambda: j_plan_presets(error_feedback=True)["gbin_packed"],
+        fabric=dict(fused=False)),
+    "staged": dict(
+        plan=lambda: AdmissionPlan.lowbit_backbone(
+            AggregationMode.G_TERNARY, schedule=Schedule.PACKED_A2A),
+        jplan=lambda: JPlan.lowbit_backbone(JMode.G_TERNARY,
+                                            schedule="packed_a2a"),
+        fabric=dict(fused_kernels=False)),
+}
+
+
+def _reference_step(jcfg, jplan, fused=True, fused_kernels=True):
+    """vmapped grads -> vmapped reference Fabric aggregate (EF threaded
+    per worker) -> reference AdamW, under jit."""
+    jfab = JFabric(dp_axes=("w",), num_workers=W,
+                   fused_kernels=fused_kernels)
     opt = JAdamW(**OPT)
 
     @jax.jit
-    def step(params, state, shards):
-        def one(b):
+    def step(params, state, ef, shards):
+        def one(b, e):
             lval, g = jax.value_and_grad(
                 lambda p: j_loss_fn(p, jcfg, b))(params)
-            agg, _ = jfab.aggregate(g, jplan)
-            return jax.lax.pmean(lval, "w"), agg, g
-        lval, agg, g = jax.vmap(one, axis_name="w")(shards)
+            agg, new_e = jfab.aggregate(g, jplan, ef=e, fused=fused)
+            return jax.lax.pmean(lval, "w"), agg, g, new_e
+        lval, agg, g, new_ef = jax.vmap(one, axis_name="w")(shards, ef)
         agg0 = jax.tree.map(lambda x: x[0], agg)
         new_p, new_s = opt.apply(params, agg0, state)
-        return new_p, new_s, lval[0], agg0, g
+        return new_p, new_s, lval[0], agg0, g, new_ef
 
-    return step, opt
+    return step, opt, jfab
 
 
-def test_train_steps_match_reference(setup):
-    """Three gbin_packed steps, port vs reference.
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_train_steps_match_reference(setup, config):
+    """Three steps of each configuration, port vs reference.
 
     The exception: an element of a low-bit aggregate may come out with
-    another sign (or zero) when some worker's gradient there is below
-    1e-6 of that worker's largest: float32 gradients summed in another
-    order differ in the last bits, which can flip such a worker's vote
-    and with it the majority.  At most 1e-4 of the backbone may flip;
-    flipped elements are left out of the parameter comparison from then
-    on, since their update legitimately differs.
+    another sign (or zero) when some worker's vote input there (the
+    gradient, plus the residual under EF) is below 1e-6 of that worker's
+    largest: float32 gradients summed in another order differ in the last
+    bits, which can flip such a worker's vote and with it the majority.
+    At most 1e-4 of the backbone may flip; flipped elements are left out
+    of the parameter comparison from then on, since their update
+    legitimately differs.  Under EF the residuals follow the reference to
+    the parameters' tolerance wherever no worker's vote input was that
+    small, and are updated every step.
     """
     jcfg, cfg, jparams, host, data = setup
-    step_fn, jopt = _reference_step(jcfg, j_plan_presets()["gbin_packed"])
+    spec = CONFIGS[config]
+    plan, jplan = spec["plan"](), spec["jplan"]()
+    fabric = Fabric(num_workers=W, **spec["fabric"])
+    step_fn, jopt, jfab = _reference_step(
+        jcfg, jplan, fused=fabric.fused, fused_kernels=fabric.fused_kernels)
     jstate = jopt.init(jparams)
+    jpol = jfab.resolve(jparams, jplan)
+    # per-worker residuals: (1, *shape) each in the reference, (W, *shape)
+    # in the port; scalar sentinels where EF is off
+    jef = jax.tree.map(lambda e: jnp.broadcast_to(e, (W,) + e.shape),
+                       j_init_ef(jparams, jpol))
 
-    fabric = Fabric(num_workers=W)
-    plan = plan_presets()["gbin_packed"]
     model = Transformer(cfg, params=params_from_jax(host, device="cpu"),
                         device="cpu")
     opt = AdamW(**OPT)
@@ -154,29 +193,49 @@ def test_train_steps_match_reference(setup):
     state = TrainState(model=model, opt=opt.init(params),
                        ef=fabric.init_ef(params, policies))
     step = fabric.build_step(opt, plan, params, model.loss)
-    lowbit = {s.name for b in step.layout.buckets
+    assert (step.layout is None) == (not fabric.fused)
+    lowbit = {s.name for b in fabric.layout_for(params, plan).buckets
               if b.key.schedule == "packed_a2a" for s in b.slots}
     assert lowbit and "embed/tok" not in lowbit
+    ef_leaves = {p for p, e in T.flatten(state.ef) if e.dim() > 0}
+    assert ef_leaves == (lowbit if config == "per_leaf_ef" else set())
+    for p in ef_leaves:
+        e = dict(T.flatten(state.ef))[p]
+        assert e.dtype == torch.float32
+        assert e.shape == (W, *dict(T.flatten(params))[p].shape)
     flipped = {p: np.zeros(t.shape, bool) for p, t in T.flatten(params)}
     backbone_size = sum(flipped[p].size for p in lowbit)
 
     for k in range(3):
         batch = data.batch_at(k)
-        jparams, jstate, jl, jagg, jg = step_fn(jparams, jstate,
-                                                _shards(batch))
+        ef_in = dict(T.flatten(jax.tree.map(np.asarray, jef)))
+        jparams, jstate, jl, jagg, jg, jef = step_fn(jparams, jstate, jef,
+                                                     _shards(batch))
         tb = {n: torch.from_numpy(v) for n, v in batch.items()}
+        ef_before = state.ef
         state, metrics, agg = step(state, tb)
         np.testing.assert_allclose(float(metrics["loss"]), float(jl),
                                    rtol=1e-5)
         jagg = dict(T.flatten(jax.tree.map(np.asarray, jagg)))
         jg = dict(T.flatten(jax.tree.map(np.asarray, jg)))
+        new_ef = dict(T.flatten(jax.tree.map(np.asarray, jef)))
         for p, u in T.flatten(agg):
             if p in lowbit:
+                x = jg[p] + ef_in[p].reshape(W, *jg[p].shape[1:]) \
+                    if p in ef_leaves else jg[p]
                 diff = u.numpy() != jagg[p]
-                g = np.abs(jg[p]).reshape(W, -1)
-                tiny = (g < 1e-6 * g.max(axis=1, keepdims=True)).any(axis=0)
-                assert not (diff.reshape(-1) & ~tiny).any(), p
+                x = np.abs(x).reshape(W, -1)
+                small = x < 1e-6 * x.max(axis=1, keepdims=True)
+                assert not (diff.reshape(-1) & ~small.any(axis=0)).any(), p
                 flipped[p] |= diff
+                if p in ef_leaves:
+                    e = dict(T.flatten(state.ef))[p].numpy().reshape(W, -1)
+                    keep = ~small
+                    np.testing.assert_allclose(
+                        e[keep], new_ef[p].reshape(W, -1)[keep], rtol=1e-5,
+                        atol=1e-6, err_msg=f"step {k}: EF {p}")
+                    assert not torch.equal(dict(T.flatten(state.ef))[p],
+                                           dict(T.flatten(ef_before))[p])
             else:
                 np.testing.assert_allclose(u.numpy(), jagg[p], rtol=1e-5,
                                            atol=1e-7, err_msg=p)
