@@ -8,31 +8,42 @@ Phases (any failure exits non-zero before the result line):
   1. require CUDA; print the card's name and power limit;
   2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, in parallel) into ``build/kernels``;
-  3. hold each of the seven kernels (sign_pack, vote_combine,
-     unpack_ternary, encode_pack_ef, ef_residual, popcount_stack,
-     majority_decode) against its plain PyTorch twin on the card, byte
-     for byte: ragged sizes, W in {1, 3, 4, 31, 128, 256}, G-Binary and
-     G-Ternary gates, strided owner views, float32 and bfloat16 planes,
-     +-0, NaN, +-inf and operands whose exponents lie far apart; then
-     time each at the main path's largest leaf (88,080,384 elements,
-     W = 4, bf16 gradients, f32 residuals) against its twin and its bound;
+  3. hold each of the eleven kernels against its plain PyTorch twin on
+     the card, byte for byte: ragged sizes, W in {1, 3, 4, 31, 128, 256},
+     G-Binary and G-Ternary gates, strided owner views, float32 and
+     bfloat16 planes, +-0, NaN, +-inf, operands whose exponents lie far
+     apart, int4 .5 ties, zero / NaN / inf planes and top-k ties at the
+     threshold; then time each at the main path's largest leaf
+     (88,080,384 elements) against its twin and its bound;
   4. train the full qwen3-0.6B (28 layers, d 1024, vocab 151,936, bf16,
      remat) with W = 4 virtual data-parallel workers, AdamW, global batch
-     16 x 128 tokens, in three runs, each checking finite losses,
-     backbone aggregates in {-1, 0, +1} and its own table of kernel
-     launches per step (one per low-bit bucket or leaf):
+     16 x 128 tokens, in five runs, each checking finite losses, its
+     low-bit aggregates ({-1, 0, +1} for the votes, finite for the means)
+     and its own table of kernel launches per step (one per low-bit
+     bucket or leaf; int4_quant counts its two launches):
        gbin_packed  5 steps, bucketed, fused kernels: sign_pack,
                     vote_combine, unpack_ternary; one step's aggregates
                     equal to the plain twins' on the same grads;
        A. per-leaf EF  3 steps, ``Fabric(fused=False)``, gbin_packed with
                     error feedback: encode_pack_ef, vote_combine,
-                    unpack_ternary, ef_residual; residuals updated every
-                    step; one step's aggregates and residuals equal to
-                    the twin chain's on the same grads, residuals and beta;
+                    unpack_ternary, ef_residual; one step's aggregates and
+                    residuals equal to the twin chain's;
        B. staged    2 steps, ``Fabric(fused_kernels=False)``, a packed
                     G-Ternary backbone: sign_pack, popcount_stack,
-                    majority_decode, unpack_ternary; one step's
-                    aggregates equal to the fused chain's on the same grads;
+                    majority_decode, unpack_ternary; equal to the fused
+                    chain's aggregates;
+       C. int4      3 steps of ``int4_backbone``: int4_quant; one step's
+                    bucket means equal to the twin chain's (per-worker
+                    twin encode, then the same mean) and, on the same
+                    kernels, to ``Fabric(fused_kernels=False)``'s;
+       D. top-k     3 steps of ``topk_backbone``: threshold_mask; the same
+                    check, and each bucket's nonzeros within W * k plus
+                    the ties at the thresholds;
+     then E. host-local: one worker's gradients (4 x 128 tokens) through
+     ``Fabric(group=LocalGroup())`` under gbin_packed, a packed G-Ternary
+     backbone and per-leaf gbin_packed with EF: one vote_pipeline launch
+     per low-bit bucket or leaf (plus ef_residual under EF), equal to the
+     three-kernel chain of ``Fabric(num_workers=1)`` and the staged chain;
   5. print the kernels line (launches summed over the runs), the card,
      then ``{"ok": true, "device": {...}}`` last.
 """
@@ -56,7 +67,7 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 MAIN_N = 88_080_384          # w_down / w_gate / w_up leaf of qwen3-0.6B
 MAIN_W = 4
-LOWBIT_BUCKETS = 7           # packed low-bit buckets (= leaves) per step
+LOWBIT_BUCKETS = 7           # low-bit buckets (= leaves) per step
 SOURCES = {
     "sign_pack": ("sign_pack.cu", "src/repro/kernels/sign_pack.py:26"),
     "vote_combine": ("vote_combine.cu", "src/repro/kernels/fused.py:110"),
@@ -68,6 +79,11 @@ SOURCES = {
                        "src/repro/kernels/popcount_majority.py:38"),
     "majority_decode": ("majority_decode.cu",
                         "src/repro/kernels/popcount_majority.py:73"),
+    "vote_pipeline": ("vote_pipeline.cu", "src/repro/kernels/fused.py:131"),
+    "apply_sign_update": ("apply_sign_update.cu",
+                          "src/repro/kernels/apply_update.py:59"),
+    "int4_quant": ("int4_quant.cu", "src/repro/kernels/fused.py:158"),
+    "threshold_mask": ("threshold_mask.cu", "src/repro/kernels/fused.py:185"),
 }
 
 
@@ -236,6 +252,7 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_vote_kernels(gen)
     check_ef_and_staged_kernels(gen)
+    check_slice3_kernels(gen)
 
     # the main path's largest leaf: W = 4 bf16 planes of 88,080,384 and
     # their float32 residuals
@@ -329,6 +346,11 @@ def check_kernels() -> dict:
             bytes=f32 * n + n / 8 + 2 * n / 8, ops=n * 5,
             err=max(max_abs_err(a, b) for a, b in zip(smw, smw_plain))),
     }
+    finish_rows(rows, f"n={n} W={w}")
+    return rows
+
+
+def finish_rows(rows: dict, shape: str) -> None:
     for name, row in rows.items():
         src, replaces = SOURCES[name]
         row["source"] = f"src/repro_torch/csrc/{src}"
@@ -336,7 +358,146 @@ def check_kernels() -> dict:
         bound(row)
         print(f"kernel {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
               f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"n={n} W={w}", flush=True)
+              f"{row.pop('shape', shape)}", flush=True)
+
+
+def int4_planes(gen) -> torch.Tensor:
+    """float32 planes, one int4 scale each: random magnitudes, exact
+    scales (absmax 7 * 2**e) holding .5 ties, +-0.0 and 1e-30, a zero
+    plane, a plane with a NaN and one with an inf."""
+    base = torch.randn(3 * 4096, device="cuda", generator=gen)
+    planes = [base * 10.0 ** e for e in (-30, -3, 0, 4)]
+    ties = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 6.5, -6.5, 7.0,
+                         -0.0, 0.0, 1e-30], device="cuda")
+    for e in (-20, 3):
+        x = base.clamp(-6.9, 6.9) * 2.0 ** e
+        x[:ties.numel()] = ties * 2.0 ** e
+        planes.append(x)
+    planes.append(torch.zeros_like(base))
+    for special in (float("nan"), float("inf")):
+        x = base * 30
+        x[7] = special
+        planes.append(x)
+    return torch.stack(planes)
+
+
+def check_slice3_kernels(gen) -> None:
+    """vote_pipeline, int4_quant, threshold_mask, apply_sign_update."""
+    from repro_torch.kernels import fused, ops, ref
+
+    for w in WORKERS:
+        for n in ((4000,) if w > 31 else (4000, 3 * 4096 + 77)):
+            for dt in (torch.float32, torch.bfloat16):
+                stack = ref.to_plane(spread((w, n), gen).to(dt))
+                for ternary in (False, True):
+                    gate = fused.local_gate_words(
+                        stack.shape[1] // 32, ternary=ternary,
+                        gate_phase=w % 3, device="cuda")
+                    if not same(ops.vote_pipeline(stack, gate, num_workers=w),
+                                ref.vote_pipeline_dense(stack, w, gate)):
+                        fail(f"vote_pipeline differs (W={w}, n={n}, {dt}, "
+                             f"ternary={ternary})")
+    planes = ref.to_plane(int4_planes(gen))
+    if not same(ops.int4_quant_plane(planes), ref.int4_quant_plane(planes)):
+        fail("int4_quant differs from its twin")
+    for p in range(planes.shape[0]):
+        if not same(ops.int4_quant_plane(planes[p]),
+                    ref.int4_quant_plane(planes[p])):
+            fail(f"int4_quant differs on plane {p} alone")
+    for n in RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            x = spread((3, n), gen)
+            if n >= 12:
+                x[:, 8:12] = torch.tensor([0.75, -0.75, 0.75, 1.5])  # ties
+            planes = ref.to_plane(x.to(dt))
+            thresh = torch.tensor([0.75, 1.5, 0.0], device="cuda")
+            if not same(ops.threshold_mask_plane(planes, thresh),
+                        ref.threshold_mask_plane(planes, thresh.to(dt))):
+                fail(f"threshold_mask differs (n={n}, {dt})")
+            param = ref.to_plane(spread((n,), gen).to(dt))
+            r = param.shape[0] // 32
+            sw, mw = rand_words((r, 128), gen), rand_words((r, 128), gen)
+            for scale in (1e-3, -0.37):
+                if not same(ops.apply_sign_update(param, sw, mw, scale),
+                            ref.apply_sign_update(param, sw, mw, scale)):
+                    fail(f"apply_sign_update differs (n={n}, {dt}, "
+                         f"scale={scale})")
+
+
+def time_slice3_kernels(gen) -> dict:
+    """The four kernels of the third slice at the main path's largest
+    leaf: vote_pipeline on one worker's bf16 plane (run E's shape), int4
+    on W = 4 float32 planes and threshold_mask on W = 4 bf16 planes (runs
+    C and D), apply_sign_update on a bf16 and a float32 parameter plane."""
+    from repro_torch.kernels import fused, ops, ref
+
+    n, w, bf16, f32 = MAIN_N, MAIN_W, 2, 4
+    rows = {}
+    one = ref.to_plane(torch.randn((1, n), device="cuda",
+                                   generator=gen).to(torch.bfloat16))
+    gate = fused.local_gate_words(one.shape[1] // 32, ternary=False,
+                                  device="cuda")
+    u = ops.vote_pipeline(one, gate, num_workers=1)
+    u_plain = ref.vote_pipeline_dense(one, 1, gate)
+    if not same(u, u_plain):
+        fail("vote_pipeline differs at the main-path leaf")
+    rows["vote_pipeline"] = dict(
+        ms=time_ms(lambda: ops.vote_pipeline(one, gate, num_workers=1)),
+        plain_ms=time_ms(lambda: ref.vote_pipeline_dense(one, 1, gate), 3, 1),
+        bytes=n * (bf16 + 1 / 8 + f32), ops=n * 6,
+        err=max_abs_err(u, u_plain), shape=f"n={n} W=1 bf16")
+    del one, gate, u, u_plain
+
+    planes = ref.to_plane(torch.randn((w, n), device="cuda", generator=gen)
+                          .to(torch.bfloat16).to(torch.float32))
+    q = ops.int4_quant_plane(planes)
+    q_plain = ref.int4_quant_plane(planes)
+    if not same(q, q_plain):
+        fail("int4_quant differs at the main-path leaf")
+    rows["int4_quant"] = dict(
+        ms=time_ms(lambda: ops.int4_quant_plane(planes)),
+        plain_ms=time_ms(lambda: ref.int4_quant_plane(planes), 3, 1),
+        bytes=w * n * 3 * f32, ops=w * n * 8,
+        err=max_abs_err(q, q_plain), shape=f"n={n} W={w} f32, 2 launches")
+    del planes, q, q_plain
+
+    planes = ref.to_plane(torch.randn((w, n), device="cuda", generator=gen)
+                          .to(torch.bfloat16))
+    thresh = torch.full((w,), 1.862, device="cuda").to(torch.bfloat16)
+    m = ops.threshold_mask_plane(planes, thresh)
+    m_plain = ref.threshold_mask_plane(planes, thresh)
+    if not same(m, m_plain):
+        fail("threshold_mask differs at the main-path leaf")
+    rows["threshold_mask"] = dict(
+        ms=time_ms(lambda: ops.threshold_mask_plane(planes, thresh)),
+        plain_ms=time_ms(lambda: ref.threshold_mask_plane(planes, thresh),
+                         3, 1),
+        bytes=w * n * 2 * bf16, ops=w * n * 2,
+        err=max_abs_err(m, m_plain), shape=f"n={n} W={w} bf16")
+    del planes, m, m_plain
+
+    r = n // 4096
+    sw, mw = rand_words((r, 128), gen), rand_words((r, 128), gen)
+    for dt in (torch.float32, torch.bfloat16):
+        param = ref.to_plane(torch.randn((n,), device="cuda", generator=gen)
+                             .to(dt))
+        a = ops.apply_sign_update(param, sw, mw, 1e-3)
+        a_plain = ref.apply_sign_update(param, sw, mw, 1e-3)
+        if not same(a, a_plain):
+            fail(f"apply_sign_update differs at the main-path leaf ({dt})")
+        size = param.element_size()
+        row = dict(
+            ms=time_ms(lambda: ops.apply_sign_update(param, sw, mw, 1e-3)),
+            plain_ms=time_ms(lambda: ref.apply_sign_update(param, sw, mw,
+                                                           1e-3), 3, 1),
+            bytes=n * (2 * size + 1 / 4), ops=n * 6,
+            err=max_abs_err(a, a_plain), shape=f"n={n} {dt}")
+        if dt == torch.float32:     # printed, and kept in PERF.md
+            finish_rows({"apply_sign_update": row}, "")
+        else:
+            rows["apply_sign_update"] = row
+        del param, a, a_plain
+    finish_rows(rows, "")
     return rows
 
 
@@ -367,12 +528,14 @@ def twin_combine_decode(words: torch.Tensor, n: int) -> torch.Tensor:
 def drive(name: str, fabric, plan, steps: int, expect: dict,
           on_step=None) -> dict:
     """Train full qwen3-0.6B ``steps`` steps under ``plan``; check finite
-    losses, backbone aggregates in {-1, 0, +1} and, per step, exactly
-    ``expect[k]`` launches of each kernel k (0 for the others)."""
+    losses, the low-bit aggregates ({-1, 0, +1} for a vote codec, finite
+    for a mean codec) and, per step, exactly ``expect[k]`` launches of
+    each kernel k (0 for the others)."""
     from repro_torch.configs import get_config
+    from repro_torch.core import codec_name
     from repro_torch.core import tree as T
     from repro_torch.data import SyntheticLMStream
-    from repro_torch.fabric import layout_kernel_stats
+    from repro_torch.fabric import get_codec, layout_kernel_stats
     from repro_torch.kernels import kernel_wrappers
     from repro_torch.optim import AdamW
     from repro_torch.runtime import Trainer
@@ -389,15 +552,17 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
     init_s = time.perf_counter() - t0
     params = state.model.tree()
     layout = fabric.layout_for(params, plan)
-    lowbit = [b for b in layout.buckets if b.key.schedule == "packed_a2a"]
+    lowbit = [b for b in layout.buckets if codec_name(b.key.mode) != "fp32"]
     if len(layout.buckets) != 9 or len(lowbit) != LOWBIT_BUCKETS:
         fail(f"{name}: layout has {len(layout.buckets)} buckets, "
              f"{len(lowbit)} low-bit; expected 9 and {LOWBIT_BUCKETS}")
+    votes = get_codec(lowbit[0].key.mode).reduction == "vote"
     backbone = {s.name for b in lowbit for s in b.slots}
     print(f"[{name}] model {cfg.name}: "
           f"{sum(p.numel() for p in T.leaves(params))} params, "
-          f"{len(lowbit)} packed low-bit {'buckets' if fabric.fused else 'leaves'}"
-          f", modeled {layout_kernel_stats(layout, MAIN_W)}", flush=True)
+          f"{len(lowbit)} low-bit {lowbit[0].key.schedule} "
+          f"{'buckets' if fabric.fused else 'leaves'}, modeled "
+          f"{layout_kernel_stats(layout, MAIN_W)}", flush=True)
 
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
@@ -414,11 +579,13 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
         if not np.isfinite(rec["loss"]):
             fail(f"{name} step {k}: loss {rec['loss']}")
         for path, u in T.flatten(trainer.last_aggregates):
-            if path in backbone:
+            if path in backbone and votes:
                 vals = torch.unique(u.to(torch.float32))
                 if not set(vals.tolist()) <= {-1.0, 0.0, 1.0}:
                     fail(f"{name} step {k}: aggregate {path} holds "
                          f"{vals[:8]}")
+            elif path in backbone and not bool(torch.isfinite(u).all()):
+                fail(f"{name} step {k}: aggregate {path} is not finite")
         if on_step is not None:
             on_step(k, ef_before, trainer.state.ef)
         print(f"[{name}] step {k}: loss {rec['loss']:.6f} time "
@@ -572,6 +739,170 @@ def run_staged(steps: int = 2) -> dict:
     return run
 
 
+def run_mean_codec(name: str, preset: str, kernel: str,
+                   steps: int = 3) -> dict:
+    """Runs C and D: a mean codec on the backbone's ``psum`` buckets."""
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, get_codec, plan_presets
+    from repro_torch.kernels import kernel_wrappers, ref
+
+    plan = plan_presets()[preset]
+    fabric = Fabric(num_workers=MAIN_W)
+    per_bucket = 2 if kernel == "int4_quant" else 1     # int4: two launches
+    run = drive(name, fabric, plan, steps,
+                {kernel: per_bucket * LOWBIT_BUCKETS})
+    trainer = run["trainer"]
+    # one step's bucket means against the twin chain on the same grads:
+    # each worker's twin encode, then the session's own mean
+    grads, _ = fabric.worker_grads(run["params"], run["batch"],
+                                   trainer.state.model.loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg, _ = fabric.aggregate(grads, plan)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    # the kernel switch off: a mean codec has no staged chain, so the
+    # same kernels run and give the same bits
+    wrapper = kernel_wrappers()[kernel]
+    wrapper.launches = 0
+    pinned, _ = Fabric(num_workers=MAIN_W,
+                       fused_kernels=False).aggregate(grads, plan)
+    if wrapper.launches != per_bucket * LOWBIT_BUCKETS:
+        fail(f"{name}: fused_kernels=False launched {kernel} "
+             f"{wrapper.launches} times")
+    for (p, a), (_, b) in zip(T.flatten(pinned), T.flatten(agg)):
+        if not same(a, b):
+            fail(f"{name}: fused_kernels=False changed aggregate {p}")
+    del pinned
+    codec = get_codec(run["lowbit"][0].key.mode)
+    gl, al = dict(T.flatten(grads)), dict(T.flatten(agg))
+    topk_s = 0.0
+    for bucket in run["lowbit"]:
+        flat = torch.cat([gl[s.name].reshape(MAIN_W, -1)
+                          for s in bucket.slots], dim=1)
+        n = flat.shape[1]
+        if kernel == "int4_quant":
+            enc = ref.from_plane(ref.int4_quant_plane(
+                ref.to_plane(flat.to(torch.float32))), n).to(flat.dtype)
+        else:
+            k = max(1, int(n * codec.fraction))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            thresh = torch.topk(flat.to(torch.float32).abs(), k,
+                                dim=1).values[:, -1].to(flat.dtype)
+            torch.cuda.synchronize()
+            topk_s += time.perf_counter() - t1
+            enc = ref.from_plane(ref.threshold_mask_plane(
+                ref.to_plane(flat), thresh), n)
+            ties = int((flat.abs() == thresh[:, None]).sum())
+        want = fabric.group.all_reduce_mean(enc.to(torch.float32))
+        for s in bucket.slots:
+            if not same(al[s.name].reshape(-1),
+                        want[s.offset:s.offset + s.size]):
+                fail(f"{name}: aggregate {s.name} differs from the twin "
+                     f"chain")
+        if kernel == "threshold_mask":
+            nz = int((want != 0).sum())
+            if not 0 < nz <= MAIN_W * k + ties:
+                fail(f"{name}: bucket of {n} holds {nz} nonzeros, more than "
+                     f"W * k = {MAIN_W * k} plus {ties} ties")
+        del flat, enc, want
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    extra = f", bucketed aggregate {agg_s:.4f} s"
+    if kernel == "threshold_mask":
+        extra += f" (torch.topk alone, timed apart: {topk_s:.4f} s)"
+    report(name, run, extra)
+    return run
+
+
+def run_host_local() -> dict:
+    """Run E: one worker's gradients through the host-local session."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (AdmissionPlan, AggregationMode, LocalGroup,
+                                  Schedule, codec_name)
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.models import Transformer
+
+    cfg = get_config("qwen3_0p6b")
+    model = Transformer(cfg, device="cuda", seed=0)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=4,
+                             seed=0, learnable=False)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch_at(0).items()}
+    params = model.tree()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, loss = Fabric(group=LocalGroup()).worker_grads(params, batch,
+                                                          model.loss)
+    torch.cuda.synchronize()
+    print(f"[E host-local] one worker's gradients on 4 x 128 tokens: loss "
+          f"{float(loss):.6f}, {time.perf_counter() - t0:.4f} s", flush=True)
+    like = T.map_leaves(lambda g: g[0], grads)
+    ternary = AdmissionPlan.lowbit_backbone(AggregationMode.G_TERNARY,
+                                            schedule=Schedule.PACKED_A2A)
+    cases = (("gbin_packed", plan_presets()["gbin_packed"], True),
+             ("packed G-Ternary", ternary, True),
+             ("gbin_packed EF, per leaf",
+              plan_presets(error_feedback=True)["gbin_packed"], False))
+    wrappers = kernel_wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    for label, plan, fused in cases:
+        fabric = Fabric(group=LocalGroup(), fused=fused)
+        lowbit = [b for b in fabric.layout_for(like, plan).buckets
+                  if codec_name(b.key.mode) != "fp32"]
+        backbone = {s.name for b in lowbit for s in b.slots}
+        if len(lowbit) != LOWBIT_BUCKETS or len(backbone) != LOWBIT_BUCKETS:
+            fail(f"E {label}: {len(lowbit)} low-bit buckets")
+        ef = None if fused else fabric.init_ef(like,
+                                               fabric.resolve(like, plan))
+        expect = dict.fromkeys(wrappers, 0)
+        expect["vote_pipeline"] = LOWBIT_BUCKETS
+        if ef is not None:
+            expect["ef_residual"] = LOWBIT_BUCKETS
+        for rnd in range(1 if ef is None else 2):   # EF: zero, then moved
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agg, new_ef = fabric.aggregate(grads, plan, ef=ef)
+            torch.cuda.synchronize()
+            agg_s = time.perf_counter() - t0
+            got = {kn: fn.launches for kn, fn in wrappers.items()}
+            if got != expect:
+                fail(f"E {label}: kernel launches {got}, expected {expect}")
+            for kn, v in got.items():
+                launches[kn] += v
+            al = dict(T.flatten(agg))
+            for p in backbone:
+                vals = set(torch.unique(al[p].to(torch.float32)).tolist())
+                if not vals <= {-1.0, 0.0, 1.0}:
+                    fail(f"E {label}: aggregate {p} holds {sorted(vals)[:8]}")
+            for other, chain in (
+                    (Fabric(num_workers=1, fused=fused), "three-kernel"),
+                    (Fabric(group=LocalGroup(), fused=fused,
+                            fused_kernels=False), "staged")):
+                b_agg, b_ef = other.aggregate(grads, plan, ef=ef)
+                bl = dict(T.flatten(b_agg))
+                be = {} if ef is None else dict(T.flatten(b_ef))
+                ne = {} if ef is None else dict(T.flatten(new_ef))
+                for p in backbone:
+                    if not same(al[p], bl[p]) or (
+                            ef is not None and not same(ne[p], be[p])):
+                        fail(f"E {label}: {p} differs from the {chain} "
+                             f"chain")
+                del b_agg, b_ef
+            print(f"[E host-local] {label}{' round ' + str(rnd) if ef else ''}"
+                  f": aggregate {agg_s:.4f} s, launches "
+                  f"{ {k: v for k, v in got.items() if v} }, equal to the "
+                  f"three-kernel and staged chains", flush=True)
+            ef = new_ef
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[E host-local] peak memory {peak:.2f} GiB", flush=True)
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -585,10 +916,18 @@ def main() -> None:
     print(f"built {built} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     rows = check_kernels()
+    free()
+    rows.update(time_slice3_kernels(torch.Generator(device="cuda")
+                                    .manual_seed(1)))
     print("kernel checks: byte-equal to the plain twins", flush=True)
     free()
     launches = dict.fromkeys(rows, 0)
-    for fn in (run_gbin_packed, run_per_leaf_ef, run_staged):
+    runs = (run_gbin_packed, run_per_leaf_ef, run_staged,
+            lambda: run_mean_codec("C int4", "int4_backbone", "int4_quant"),
+            lambda: run_mean_codec("D top-k", "topk_backbone",
+                                   "threshold_mask"),
+            run_host_local)
+    for fn in runs:
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v

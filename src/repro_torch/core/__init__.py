@@ -3,7 +3,7 @@ from .buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan, Bucket, BucketGate,
                       BucketKey, BucketLayout, BucketSlot, GroupPolicy,
                       GroupRules, UnfusedLeaf, assign_groups, group_sizes,
                       leaf_bucket_key, plan_buckets, resolve_policies)
-from .collectives import VirtualGroup
+from .collectives import LocalGroup, VirtualGroup
 from .device import resolve_device
 from .lowbit import (LeafPolicy, fp32_allreduce, lowbit_packed_a2a,
                      lowbit_vote_psum)
@@ -14,7 +14,8 @@ from .traffic import payload_bytes, plan_traffic_ratio, wire_bytes_per_device
 __all__ = [
     "DEFAULT_BUCKET_BYTES", "AdmissionPlan", "AggregationMode", "Bucket",
     "BucketGate", "BucketKey", "BucketLayout", "BucketSlot", "GroupPolicy",
-    "GroupRules", "LeafPolicy", "Schedule", "UnfusedLeaf", "VirtualGroup",
+    "GroupRules", "LeafPolicy", "LocalGroup", "Schedule", "UnfusedLeaf",
+    "VirtualGroup",
     "assign_groups", "bits_per_element", "codec_name", "fp32_allreduce",
     "group_sizes", "leaf_bucket_key", "lowbit_packed_a2a", "lowbit_vote_psum",
     "payload_bytes", "plan_buckets", "plan_traffic_ratio", "resolve_device",

@@ -13,7 +13,11 @@ A group is seen by the schedules through one interface:
 
 :class:`VirtualGroup` holds all W workers on one device, so its local
 ranks are ``0..W-1`` and its collectives are sums, views and reshapes.
-A ``torch.distributed``/NCCL group with one local rank per process fits
+:class:`LocalGroup` is the host-local session of one worker (the
+reference's ``Fabric()`` with no data-parallel axes): every collective is
+the identity on a leading local-rank axis of one, and ``host_local``
+tells the schedules that no collective separates their stages.  A
+``torch.distributed``/NCCL group with one local rank per process fits
 the same interface (ROADMAP queue 1), without touching the schedules.
 """
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch
 
 class VirtualGroup:
     """W virtual data-parallel workers held on one device."""
+
+    host_local = False
 
     def __init__(self, num_workers: int):
         if num_workers < 1:
@@ -62,3 +68,26 @@ class VirtualGroup:
 
     def __repr__(self) -> str:
         return f"VirtualGroup({self.size})"
+
+
+class LocalGroup(VirtualGroup):
+    """The host-local group: one worker, no data-parallel axis.
+
+    Inputs still carry a leading local-rank axis of one; reductions hand
+    back its single entry unchanged (no sum is taken, so even -0.0 and
+    NaN bits pass through, as ``psum`` over no axes gives them).
+    """
+
+    host_local = True
+
+    def __init__(self):
+        super().__init__(1)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._local(x)[0]
+
+    def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
+        return self._local(x)[0]
+
+    def __repr__(self) -> str:
+        return "LocalGroup()"

@@ -111,6 +111,8 @@ def lowbit_packed_a2a(g: torch.Tensor, group, num_workers: int, *,
     staged four-kernel chain runs: pack -> all_to_all -> PopCount ->
     majority -> all_gather -> decode, with EF injected before it and
     updated after it in plain torch; both chains give the same bits.
+    On a host-local group the fused chain is one ``vote_pipeline``
+    launch, and the staged chain runs with identity collectives.
     ``gate_mask`` (boolean (N,) keep vector, host array or tensor)
     overrides the flat-index 2-of-3 gate.  Tensor-parallel leaves are still to port.
     """

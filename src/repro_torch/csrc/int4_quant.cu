@@ -1,0 +1,98 @@
+// int4_quant: float32 value planes (L, M, 128) -> absmax int4 fake-quant
+//   (L, M, 128), one scale per plane, in two launches.
+//
+// Replaces the TPU kernel repro/kernels/fused.py::_int4_quant_kernel
+// (pallas_call at fused.py:330).  The TPU runs one launch on grid
+// (2, nblocks): phase 0 walks the plane in order keeping the absmax in
+// SMEM, phase 1 quantizes with it.  Blocks of a Hopper grid run in no
+// order, so the max across blocks is taken in a first launch instead:
+// |x| is a non-negative float, whose bit pattern orders as an unsigned
+// int, so each block reduces its share in registers and shared memory
+// and does one atomicMax on the plane's 32-bit slot (zeroed by the
+// caller).  A NaN (sign cleared) orders above +inf, so it wins, as it
+// does in jnp.max.  The second launch, per element:
+//   s    = absmax * (1 / levels)    (the reciprocal rounded to float32,
+//                                    then one rounded product: the
+//                                    reference's arithmetic, since XLA
+//                                    folds its division by the constant
+//                                    levels into this product)
+//   safe = s > 0 ? s : 1            (a zero or NaN scale becomes 1)
+//   q    = rint(x / safe)           (IEEE division, half to even; -0 kept)
+//   q    = clip(q, -levels, levels) by comparisons, so NaN stays NaN
+//   out  = q * safe
+// Built without --use_fast_math: every division and rounding is IEEE
+// and subnormals are kept.
+//
+// Bound on an H100: memory.  The plane is read twice (absmax, quantize)
+// and written once: 12 bytes an element, the reference's own accounting
+// (Int4KernelSet.hbm_bytes).  Design: the absmax launch runs a bounded
+// grid of blocks per plane with a grid-stride loop (few atomics per
+// plane); the quantize launch is one thread per element, blockIdx.y the
+// plane.  The scales stay on the card: nothing is read back.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kMaxAbsmaxBlocks = 1024;   // per plane
+
+__global__ void absmax_bits_kernel(const float* __restrict__ x,
+                                   unsigned int* __restrict__ amax_bits,
+                                   long long per_plane) {
+  __shared__ unsigned int warp_max[kThreads / 32];
+  const float* p = x + (long long)blockIdx.y * per_plane;
+  unsigned int m = 0u;
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < per_plane; i += stride) {
+    m = max(m, __float_as_uint(p[i]) & 0x7fffffffu);
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) warp_max[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < kThreads / 32 ? warp_max[lane] : 0u;
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (lane == 0) atomicMax(amax_bits + blockIdx.y, m);
+  }
+}
+
+__global__ void quantize_kernel(const float* __restrict__ x,
+                                const unsigned int* __restrict__ amax_bits,
+                                float* __restrict__ out,
+                                long long per_plane, float levels) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= per_plane) return;
+  long long off = (long long)blockIdx.y * per_plane + i;
+  float scale = __fmul_rn(__uint_as_float(amax_bits[blockIdx.y]),
+                          __fdiv_rn(1.0f, levels));
+  float safe = scale > 0.0f ? scale : 1.0f;
+  float q = rintf(__fdiv_rn(x[off], safe));
+  q = q < -levels ? -levels : (q > levels ? levels : q);
+  out[off] = __fmul_rn(q, safe);
+}
+
+}  // namespace
+
+// amax_bits: one zeroed uint32 per plane; it holds the planes' absmax
+// bit patterns after the call.
+extern "C" int int4_quant_f32(const void* x, void* amax_bits, void* out,
+                              long long planes, long long per_plane,
+                              float levels, void* stream) {
+  if (planes <= 0 || per_plane <= 0) return (int)cudaSuccess;
+  if (planes > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = (cudaStream_t)stream;
+  long long blocks = (per_plane + kThreads - 1) / kThreads;
+  long long scan = blocks < kMaxAbsmaxBlocks ? blocks : kMaxAbsmaxBlocks;
+  absmax_bits_kernel<<<dim3((unsigned)scan, (unsigned)planes), kThreads, 0,
+                       s>>>((const float*)x, (unsigned int*)amax_bits,
+                            per_plane);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  quantize_kernel<<<dim3((unsigned)blocks, (unsigned)planes), kThreads, 0,
+                    s>>>((const float*)x, (const unsigned int*)amax_bits,
+                         (float*)out, per_plane, levels);
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,6 @@
 """The aggregation fabric of the PyTorch port: sessions, codecs, schedules."""
 from . import backends  # noqa: F401  (registers the built-in schedules)
+from . import extra_codecs  # noqa: F401  (registers int4 / topk)
 from .codecs import (Codec, GradientCodec, MaskGate, available_codecs,
                      get_codec, register_codec, unregister_codec)
 from .control import plan_presets

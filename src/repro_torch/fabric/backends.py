@@ -3,7 +3,9 @@
 Port of ``repro/fabric/backends.py:38-190`` (psum, vote_psum and
 packed_a2a).  Backends are codec-parametric and all fusable: besides the
 per-leaf ``aggregate`` they implement ``aggregate_flat`` over a
-(ranks, N) bucket payload, one collective per bucket.
+(ranks, N) bucket payload, one collective per bucket.  A codec's kernel
+set runs the packed vote (``packed_a2a``) or the encode around the mean
+(``psum``, the int4 and top-k kernels).
 """
 from __future__ import annotations
 
@@ -13,6 +15,15 @@ from ..core.lowbit import fp32_allreduce, lowbit_packed_a2a, lowbit_vote_psum
 from ..core.modes import Schedule
 from .codecs import get_codec, resolve_leaf_gate_mask, ring_wire_bytes
 from .registry import AggregationContext, register_schedule
+
+
+def _codec_kernels(ctx: AggregationContext, codec):
+    """The codec's kernel set, or None where the codec brings none or the
+    session pinned the staged chain (``fused_kernels=False``) of a vote
+    set.  A mean set always runs: its encode has no staged kernels to
+    fall back on, so the switch leaves it on its kernels."""
+    ks = codec.kernel_set()
+    return ks if ks is None or ks.means or ctx.fused_kernels else None
 
 
 @register_schedule(Schedule.PSUM, "fp32")
@@ -29,11 +40,21 @@ class Fp32AllreduceBackend:
 
     def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
         codec = get_codec(policy.mode)
+        ks = _codec_kernels(ctx, codec)
+        if ks is not None and ks.means:
+            u = self.aggregate_flat(ctx, g.reshape(g.shape[0], -1), codec)
+            return u.reshape(g.shape[1:]), ef
         return codec.decode(ctx, fp32_allreduce(codec.encode(ctx, g),
                                                 ctx.group)), ef
 
     def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
                        gate=None):
+        ks = _codec_kernels(ctx, codec)
+        if ks is not None and ks.means:
+            # the codec's encode kernel on each rank's flat payload (the
+            # same bits as codec.encode), the mean, then the decodes
+            u = fp32_allreduce(ks.encode_flat(flat), ctx.group)
+            return codec.decode(ctx, ks.decode_apply(u))
         return codec.decode(ctx, fp32_allreduce(codec.encode(ctx, flat),
                                                 ctx.group))
 
@@ -72,12 +93,6 @@ class VotePsumBackend:
                               num_workers: int) -> float:
         # the paper's logical 1-byte vote; the realization sums int32
         return ring_wire_bytes(1.0 * n_elements, num_workers)
-
-
-def _codec_kernels(ctx: AggregationContext, codec):
-    """The codec's fused kernel set, or None where the session pinned the
-    staged chain (``fused_kernels=False``) or the codec brings none."""
-    return codec.kernel_set() if ctx.fused_kernels else None
 
 
 @register_schedule(Schedule.PACKED_A2A)

@@ -11,8 +11,9 @@ The reference's ``pallas_kernels()`` hook is named :meth:`GradientCodec.
 kernel_set` here: it returns the codec's fused
 :class:`~repro_torch.kernels.fused.KernelSet` (hand-written CUDA kernels).
 The port compiles no steps, so it has no ``kernel_signature()`` cache key.
-The simulator lane descriptor and the KV-cache capability belong to
-modules not yet ported.
+Of the KV-cache capability only the ``kv_cache`` flag and the int4
+codec's ``kv_encode`` are here; the rest belongs to the serving engine,
+still to port, as the simulator lane descriptor belongs to ``sim``.
 """
 from __future__ import annotations
 
@@ -138,6 +139,11 @@ class GradientCodec:
     # -- accounting ------------------------------------------------------
     def payload_bytes(self, n_elements: int) -> float:
         return n_elements * self.bits_per_element / 8.0
+
+    # -- KV-cache capability (serving) -----------------------------------
+    #: the codec can represent KV-cache blocks (``kv_encode``); sign-vote
+    #: codecs cannot carry activations and stay False.
+    kv_cache: bool = False
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(name={self.name!r}, "

@@ -2,7 +2,7 @@
 
 Only the presets whose codecs and schedules this port carries are here;
 the admission controllers (paper / static / tuned) and the presets of
-the extension and hop-plan codecs are still to port (ROADMAP queue 1).
+the hop-plan codecs are still to port (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -17,6 +17,9 @@ def plan_presets(error_feedback: bool = False) -> dict[str, AdmissionPlan]:
     pin the packed controller schedule; ``gbin_packed_embed`` also admits
     the embedding table while head and norms stay on FP32.  The
     ``*_backbone`` presets leave the schedule to the codec's default.
+    ``int4_backbone`` / ``topk_backbone`` name the extension codecs
+    (``psum``); they ignore ``error_feedback``, since neither codec
+    threads EF.
     """
     ef = error_feedback
     packed = Schedule.PACKED_A2A
@@ -42,4 +45,6 @@ def plan_presets(error_feedback: bool = False) -> dict[str, AdmissionPlan]:
             {"backbone": GroupPolicy(AggregationMode.G_BINARY, packed, ef),
              "embed": GroupPolicy(AggregationMode.G_BINARY, packed, ef)},
             default=GroupPolicy(AggregationMode.FP32)),
+        "int4_backbone": AdmissionPlan.lowbit_backbone("int4"),
+        "topk_backbone": AdmissionPlan.lowbit_backbone("topk"),
     }

@@ -26,8 +26,8 @@ class AggregationContext:
 
     ``group``         — the worker group (:mod:`repro_torch.core.collectives`);
     ``num_workers``   — its size, the paper's W;
-    ``fused_kernels`` — run codecs' fused kernel sets; False pins the
-                        staged four-kernel chain (the session's
+    ``fused_kernels`` — run vote codecs' fused kernel sets; False pins
+                        the staged four-kernel chain (the session's
                         ``fused_kernels=False`` A/B switch; same bits).
     """
     group: Any = None

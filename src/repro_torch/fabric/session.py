@@ -90,8 +90,9 @@ def layout_kernel_stats(layout: BucketLayout, num_workers: int) -> dict:
 
     Sums over every collective launch the launches and modeled bytes of
     the launch codec's :class:`~repro_torch.kernels.fused.KernelSet`
-    under the fused and the staged chain.  Launches whose codec brings no
-    vote kernel set on ``packed_a2a`` count under ``unkernelized``.
+    under the fused and the staged chain: vote sets on ``packed_a2a``,
+    mean sets on ``psum`` (which never thread EF in a kernel).  Other
+    launches count under ``unkernelized``.
     """
     stats = {"launches_fused": 0, "launches_unfused": 0,
              "hbm_bytes_fused": 0.0, "hbm_bytes_unfused": 0.0,
@@ -104,10 +105,13 @@ def layout_kernel_stats(layout: BucketLayout, num_workers: int) -> dict:
             stats["unkernelized"] += 1
             continue
         ks = codec.kernel_set()
-        if ks is None or not (ks.votes and key.schedule == "packed_a2a"):
+        if ks is not None and ks.votes and key.schedule == "packed_a2a":
+            ef = key.error_feedback and codec.threads_ef
+        elif ks is not None and ks.means and key.schedule == "psum":
+            ef = False
+        else:
             stats["unkernelized"] += 1
             continue
-        ef = key.error_feedback and codec.threads_ef
         for path, fused in (("fused", True), ("unfused", False)):
             stats[f"launches_{path}"] += ks.launches(
                 fused=fused, distributed=num_workers > 1, ef=ef)
@@ -212,22 +216,32 @@ class Fabric:
 
     ``Fabric(num_workers=W)`` runs W virtual data-parallel workers on one
     device (the reference's ``Fabric(dp_axes=("w",), num_workers=W)``
-    under ``vmap``).  ``fused=False`` aggregates leaf by leaf instead of
-    through 32 MiB buckets; a packed leaf with error feedback then runs
-    EF inside the kernels (``encode_pack_ef``, ``ef_residual_plane``).
+    under ``vmap``).  ``Fabric(group=LocalGroup())`` is the host-local
+    session of one worker (the reference's ``Fabric()``, no
+    data-parallel axes): gradients keep a leading axis of one, every
+    collective is the identity, and a packed vote bucket or leaf is one
+    ``vote_pipeline`` launch.  ``fused=False`` aggregates leaf by leaf
+    instead of through 32 MiB buckets; a packed leaf with error feedback
+    then runs EF inside the kernels (``encode_pack_ef``,
+    ``ef_residual_plane``).
     ``fused_kernels=False`` pins the staged four-kernel chain
     (``sign_pack``, ``popcount_stack``, ``majority_decode``,
-    ``unpack_ternary``) in place of the codecs' fused kernel sets: the
-    reference's A/B check, with the same bits.  The host-local session of
-    the reference (no data-parallel axes) needs the ``vote_pipeline``
-    kernel and is still to port.
+    ``unpack_ternary``) in place of the vote codecs' fused kernel sets:
+    the reference's A/B check, with the same bits.  The mean codecs
+    (``int4``, ``topk``) have no staged kernels and run their kernel
+    sets either way.
     """
 
-    def __init__(self, num_workers: int = 1, *,
+    def __init__(self, num_workers: int | None = None, *, group=None,
                  rules: GroupRules | None = None,
                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                  fused: bool = True, fused_kernels: bool = True):
-        self.group = VirtualGroup(num_workers)
+        if group is None:
+            group = VirtualGroup(1 if num_workers is None else num_workers)
+        elif num_workers is not None and num_workers != group.size:
+            raise ValueError(f"num_workers={num_workers} disagrees with "
+                             f"the group's {group.size} workers")
+        self.group = group
         self.num_workers = self.group.size
         self.rules = rules or GroupRules()
         self.bucket_bytes = int(bucket_bytes)

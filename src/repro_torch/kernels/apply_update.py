@@ -1,10 +1,12 @@
-"""Hopper kernel: decode a ternary packed pair to {-1, 0, +1} values.
+"""Hopper kernels: decode a ternary packed pair, and apply it to a plane.
 
-Replaces ``repro/kernels/apply_update.py::unpack_ternary`` (the Pallas
-kernel ``_unpack_ternary_kernel``).  The CUDA source is
-``csrc/unpack_ternary.cu``.  ``apply_sign_update`` (the module's other
-TPU kernel) has no caller on the main path and is still to port (ROADMAP
-queue 2).
+Replaces ``repro/kernels/apply_update.py``: :func:`unpack_ternary` (the
+Pallas kernel ``_unpack_ternary_kernel``, CUDA ``csrc/unpack_ternary.cu``)
+and :func:`apply_sign_update` (``_apply_sign_update_kernel``, CUDA
+``csrc/apply_sign_update.cu``), which reads a parameter plane once and
+writes ``param - scale * u`` without materialising u.  Neither package
+calls ``apply_sign_update`` from its training path; it is here for parity
+with the reference's kernel set.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import torch
 
 from . import build
 from .ref import LANE, PACK
-from .ref import unpack_ternary as unpack_ternary_plain  # the plain twin
+from .ref import apply_sign_update as apply_sign_update_plain  # the twins
+from .ref import unpack_ternary as unpack_ternary_plain
 
 
 def unpack_ternary(sign_words: torch.Tensor,
@@ -39,3 +42,48 @@ def unpack_ternary(sign_words: torch.Tensor,
 
 
 unpack_ternary.launches = 0
+
+
+_PARAM_SYMBOL = {torch.float32: "apply_sign_update_f32",
+                 torch.bfloat16: "apply_sign_update_bf16"}
+
+
+def apply_sign_update(param_plane: torch.Tensor, sign_words: torch.Tensor,
+                      mask_words: torch.Tensor, scale) -> torch.Tensor:
+    """``param - scale * decode(sign, mask)`` over a value plane (M, LANE)
+    of float32 or bfloat16, in float32 and rounded once to the plane's
+    dtype.  ``scale`` is a float or a one-element tensor (float32)."""
+    s = (scale.to(torch.float32) if isinstance(scale, torch.Tensor)
+         else torch.tensor(scale, dtype=torch.float32,
+                           device=param_plane.device))
+    if build.on_cpu(param_plane, sign_words, mask_words, s):
+        return apply_sign_update_plain(param_plane, sign_words, mask_words, s)
+    if param_plane.dtype not in _PARAM_SYMBOL:
+        raise TypeError(f"apply_sign_update takes float32 or bfloat16 "
+                        f"parameters, got {param_plane.dtype}")
+    m = param_plane.shape[0] if param_plane.dim() == 2 else -1
+    if (m < 0 or param_plane.shape[1] != LANE or m % PACK
+            or sign_words.shape != (m // PACK, LANE)
+            or mask_words.shape != sign_words.shape or s.numel() != 1):
+        raise ValueError(f"apply_sign_update shapes disagree: param "
+                         f"{tuple(param_plane.shape)}, words "
+                         f"{tuple(sign_words.shape)} and "
+                         f"{tuple(mask_words.shape)}, scale {tuple(s.shape)}")
+    for t in (param_plane, sign_words, mask_words):
+        if not t.is_contiguous():
+            raise ValueError("apply_sign_update needs contiguous operands")
+    if sign_words.dtype != torch.int32 or mask_words.dtype != torch.int32:
+        raise TypeError("apply_sign_update takes int32 words")
+    s = s.reshape(1).contiguous()
+    out = torch.empty_like(param_plane)
+    fn = build.bind("apply_sign_update", _PARAM_SYMBOL[param_plane.dtype],
+                    5, 1)
+    build.check(fn(param_plane.data_ptr(), sign_words.data_ptr(),
+                   mask_words.data_ptr(), s.data_ptr(), out.data_ptr(),
+                   out.numel(), build.stream_ptr(param_plane.device)),
+                "apply_sign_update")
+    apply_sign_update.launches += 1
+    return out
+
+
+apply_sign_update.launches = 0

@@ -98,12 +98,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, symbol: str, nargs_ptr: int, nargs_int: int):
+def bind(name: str, symbol: str, nargs_ptr: int, nargs_int: int,
+         nargs_float: int = 0):
     """A C function taking ``nargs_ptr`` pointers, then ``nargs_int``
-    64-bit ints, then the stream; returning a CUDA error code."""
+    64-bit ints, then ``nargs_float`` floats, then the stream; returning
+    a CUDA error code."""
     fn = getattr(load(name), symbol)
     fn.argtypes = ([ctypes.c_void_p] * nargs_ptr
-                   + [ctypes.c_longlong] * nargs_int + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * nargs_int
+                   + [ctypes.c_float] * nargs_float + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -1,22 +1,24 @@
-"""Codec-owned fused kernels: the packed sign-vote chain of a bucket.
+"""Codec-owned fused kernels: the per-bucket kernel chains of the codecs.
 
-Port of ``repro/kernels/fused.py``.  This module carries the chain the
-``packed_a2a`` schedule runs on every low-bit bucket or leaf:
+Port of ``repro/kernels/fused.py``.  The packed sign vote that the
+``packed_a2a`` schedule runs on every low-bit bucket or leaf is
 
     encode -> all_to_all -> vote_combine -> all_gather -> unpack_ternary
            [-> ef_residual]
 
-with two hand-written Hopper kernels here: :func:`vote_combine`
-(``csrc/vote_combine.cu``, replacing the Pallas ``_vote_combine_kernel``)
-and, under error feedback (EF), :func:`encode_pack_ef` (EF inject and
-sign pack in one pass, ``csrc/encode_pack_ef.cu``) as the encode and
-:func:`ef_residual_plane` (``csrc/ef_residual.cu``) as the residual
-update.  Without EF the encode is ``sign_pack``.  The gate helpers, the
-bucket-level entry point :func:`fused_packed_vote` and the
-:class:`KernelSet` / :class:`VoteKernelSet` accounting are here too.
-
-Still to port (ROADMAP queue 2): the host-local ``vote_pipeline`` kernel
-and the int4 / top-k kernels.
+with :func:`vote_combine` (``csrc/vote_combine.cu``) and, under error
+feedback (EF), :func:`encode_pack_ef` (``csrc/encode_pack_ef.cu``) as
+the encode and :func:`ef_residual_plane` (``csrc/ef_residual.cu``) as
+the residual update; without EF the encode is ``sign_pack``.  On a
+host-local group no collective separates the stages, and the whole
+chain is one :func:`vote_pipeline` launch (``csrc/vote_pipeline.cu``).
+The mean codecs' kernels are :func:`int4_quant_plane`
+(``csrc/int4_quant.cu``) and :func:`threshold_mask_plane`
+(``csrc/threshold_mask.cu``).  The gate helpers, the bucket-level entry
+point :func:`fused_packed_vote` and the :class:`KernelSet` accounting
+(:class:`VoteKernelSet`, :class:`Int4KernelSet`, :class:`TopKKernelSet`)
+are here too.  Each wrapper runs its plain twin for CPU tensors and
+launches its kernel, or raises, for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ from .apply_update import unpack_ternary
 from .ref import ALL_ONES, LANE, PACK
 from .ref import ef_residual as ef_residual_plain        # the plain twins
 from .ref import encode_pack_ef as encode_pack_ef_plain
+from .ref import int4_quant_plane as int4_quant_plane_plain
+from .ref import threshold_mask_plane as threshold_mask_plane_plain
 from .ref import vote_combine as vote_combine_plain
+from .ref import vote_pipeline_dense as vote_pipeline_plain
 from .sign_pack import sign_pack
 
 
@@ -218,6 +223,119 @@ def ef_update_fused(g_eff: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the host-local vote: the whole chain in one kernel
+# ---------------------------------------------------------------------------
+
+def vote_pipeline(stack: torch.Tensor, gate_words: torch.Tensor, *,
+                  num_workers: int) -> torch.Tensor:
+    """Stacked value planes (W, M, LANE) + gate (M // 32, LANE) -> the
+    decoded float32 plane (M, LANE) of {-1, 0, +1}, in one launch.
+
+    ``stack`` must carry exactly ``num_workers`` planes.  The reference
+    disagrees with itself there (its Pallas call takes W from the stack,
+    its plain path ``num_workers``), so a mismatch raises here.
+    """
+    if stack.dim() != 3 or stack.shape[0] != num_workers:
+        raise ValueError(f"vote_pipeline needs a stack of num_workers="
+                         f"{num_workers} planes, got {tuple(stack.shape)}")
+    if build.on_cpu(stack, gate_words):
+        return vote_pipeline_plain(stack, num_workers, gate_words)
+    symbol = _float_symbol("vote_pipeline", stack.dtype)
+    w, m, lane = stack.shape
+    if lane != LANE or m % PACK or gate_words.shape != (m // PACK, LANE):
+        raise ValueError(f"vote_pipeline shapes disagree: stack "
+                         f"{tuple(stack.shape)}, gate "
+                         f"{tuple(gate_words.shape)}")
+    if gate_words.dtype != torch.int32:
+        raise TypeError("vote_pipeline takes int32 gate words")
+    if not (stack.is_contiguous() and gate_words.is_contiguous()):
+        raise ValueError("vote_pipeline needs contiguous operands")
+    out = torch.empty((m, LANE), dtype=torch.float32, device=stack.device)
+    fn = build.bind("vote_pipeline", symbol, 3, 2)
+    build.check(fn(stack.data_ptr(), gate_words.data_ptr(), out.data_ptr(),
+                   m * LANE, w, build.stream_ptr(stack.device)),
+                "vote_pipeline")
+    vote_pipeline.launches += 1
+    return out
+
+
+vote_pipeline.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the mean codecs' kernels
+# ---------------------------------------------------------------------------
+
+def _planes3(planes: torch.Tensor, what: str) -> torch.Tensor:
+    """(M, LANE) or (L, M, LANE) contiguous planes as (L, M, LANE)."""
+    p3 = planes if planes.dim() == 3 else planes.unsqueeze(0)
+    if p3.dim() != 3 or p3.shape[-1] != LANE:
+        raise ValueError(f"{what} needs (L, M, {LANE}) planes, "
+                         f"got {tuple(planes.shape)}")
+    if not p3.is_contiguous():
+        raise ValueError(f"{what} needs contiguous planes")
+    return p3
+
+
+def int4_quant_plane(planes: torch.Tensor, *,
+                     levels: float = 7.0) -> torch.Tensor:
+    """Absmax int4 fake-quant of float32 value planes (M, LANE) or
+    (L, M, LANE), one scale per plane.
+
+    Two launches, counted as two: the absmax of each plane (an atomic
+    max on the bits of |x|, into a per-plane slot on the card), then the
+    quantize pass.  No scale is read back to the host.
+    """
+    if build.on_cpu(planes):
+        return int4_quant_plane_plain(planes, levels)
+    if planes.dtype != torch.float32:
+        raise TypeError(f"int4_quant_plane takes float32, got {planes.dtype}")
+    p3 = _planes3(planes, "int4_quant_plane")
+    amax_bits = torch.zeros(p3.shape[0], dtype=torch.int32,
+                            device=p3.device)
+    out = torch.empty_like(p3)
+    fn = build.bind("int4_quant", "int4_quant_f32", 3, 2, 1)
+    build.check(fn(p3.data_ptr(), amax_bits.data_ptr(), out.data_ptr(),
+                   p3.shape[0], p3[0].numel(), float(levels),
+                   build.stream_ptr(p3.device)), "int4_quant")
+    int4_quant_plane.launches += 2
+    return out.reshape(planes.shape)
+
+
+int4_quant_plane.launches = 0
+
+
+def threshold_mask_plane(planes: torch.Tensor, thresh) -> torch.Tensor:
+    """Keep x where ``|x| >= t``, else +0, on value planes (M, LANE) or
+    (L, M, LANE); ``thresh`` is one value or one per plane (L,), rounded
+    to the planes' dtype."""
+    if not isinstance(thresh, torch.Tensor):
+        thresh = torch.as_tensor(thresh, device=planes.device)
+    if build.on_cpu(planes, thresh):
+        return threshold_mask_plane_plain(planes, thresh)
+    symbol = _float_symbol("threshold_mask", planes.dtype)
+    p3 = _planes3(planes, "threshold_mask_plane")
+    if thresh.numel() not in (1, p3.shape[0]):
+        raise ValueError(f"threshold_mask_plane needs one threshold or one "
+                         f"per plane, got {tuple(thresh.shape)} for "
+                         f"{p3.shape[0]} planes")
+    # rounded to the planes' dtype as the twin rounds it, then widened
+    # (exactly) to the float32 the kernel compares in
+    t32 = thresh.reshape(-1).to(planes.dtype).to(torch.float32) \
+        .expand(p3.shape[0]).contiguous()
+    out = torch.empty_like(p3)
+    fn = build.bind("threshold_mask", symbol, 3, 2)
+    build.check(fn(p3.data_ptr(), t32.data_ptr(), out.data_ptr(),
+                   p3.shape[0], p3[0].numel(),
+                   build.stream_ptr(p3.device)), "threshold_mask")
+    threshold_mask_plane.launches += 1
+    return out.reshape(planes.shape)
+
+
+threshold_mask_plane.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # bucket-level entry point: packed_a2a on the fused kernels
 # ---------------------------------------------------------------------------
 
@@ -231,15 +349,23 @@ def fused_packed_vote(g: torch.Tensor, group, num_workers: int, *,
     replicated and has no such axis.  Three launches: encode every local
     plane (:func:`encode_pack_ef` under EF, else ``sign_pack``), combine
     every local owner shard, decode the gathered pair; under EF a fourth,
-    :func:`ef_update_fused`.  Returns ``(u, new_ef)``.
+    :func:`ef_update_fused`.  On a host-local group (``group.host_local``,
+    the reference's empty ``dp_axes``) no collective separates the
+    stages: one :func:`vote_pipeline` launch, after ``g + ef`` under EF.
+    Returns ``(u, new_ef)``.
     """
-    if group is None:
-        raise NotImplementedError(
-            "host-local packed vote needs the vote_pipeline kernel, still "
-            "to port (ROADMAP queue 2, vote_pipeline)")
     w = num_workers
     lead = g.shape[0]
     n = g[0].numel()
+    if group.host_local:
+        g_eff = g if ef is None else g + ef.to(g.dtype)
+        plane = ref.to_plane(g_eff.reshape(lead, n))
+        gate = local_gate_words(plane.shape[1] // PACK, ternary=ternary,
+                                gate_phase=gate_phase, gate_mask=gate_mask,
+                                device=g.device)
+        u_plane = vote_pipeline(plane, gate, num_workers=w)
+        u = ref.from_plane(u_plane, n).reshape(g.shape[1:]).to(g.dtype)
+        return u, None if ef is None else ef_update_fused(g_eff, ef)
     if ef is None:
         words = sign_pack(ref.to_plane(g.reshape(lead, n)))
     else:
@@ -298,12 +424,16 @@ class KernelSet:
 
     ``votes`` sets realize the packed sign-vote chain: the ``packed_a2a``
     backend hands them the whole bucket through :meth:`packed_vote`.
-    ``launches`` / ``hbm_bytes`` are the modeled accounting (launches and
-    device-memory bytes per bucket) of the fused chain and of the staged
-    four-kernel chain, as in the reference.
+    ``means`` sets realize encode / decode around a mean collective: the
+    ``psum`` backend calls :meth:`encode_flat` on the (ranks, N) payload
+    and :meth:`decode_apply` on the mean.  ``launches`` / ``hbm_bytes``
+    are the modeled accounting (launches and device-memory bytes per
+    bucket) of the fused chain and of the staged chain, as in the
+    reference.
     """
     name = "kernelset"
     votes = False
+    means = False
 
     def signature(self) -> str:
         return self.name
@@ -316,6 +446,16 @@ class KernelSet:
                   distributed: bool = True, ef: bool = False) -> float:
         raise NotImplementedError
 
+    # --- mean-reduction entry points (means=True sets) ---
+    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """(ranks, N) payload -> each rank's encoded payload, same shape."""
+        raise NotImplementedError
+
+    def decode_apply(self, payload: torch.Tensor) -> torch.Tensor:
+        """The decode on the reduced (mean) payload."""
+        return payload
+
+    # --- vote-reduction entry point (votes=True sets) ---
     def packed_vote(self, g, group, num_workers, *, ternary, gate_phase,
                     ef, gate_mask=None):
         raise NotImplementedError
@@ -367,6 +507,72 @@ class VoteKernelSet(KernelSet):
         maj = n * (_COUNTS + _WORDS + _PAIR)
         dec = n * (_PAIR + _F32)
         return pack + pop + maj + dec
+
+
+class Int4KernelSet(KernelSet):
+    """Absmax int4 fake-quant for the ``int4`` codec, one scale per rank."""
+    name = "int4"
+    means = True
+
+    def __init__(self, levels: float = 7.0):
+        self.levels = float(levels)
+
+    def signature(self) -> str:
+        return f"int4:v1:levels={self.levels:g}"
+
+    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        n = flat.shape[-1]
+        planes = ref.to_plane(flat.to(torch.float32))
+        out = int4_quant_plane(planes, levels=self.levels)
+        return ref.from_plane(out, n).to(flat.dtype)
+
+    def launches(self, *, fused: bool, distributed: bool = True,
+                 ef: bool = False) -> int:
+        # as in the reference: staged absmax reduce + quantize pass, fused
+        # one two-phase kernel.  The port's kernel is two launches (an
+        # absmax pass, then the quantize pass): its counter records 2.
+        return 1 if fused else 2
+
+    def hbm_bytes(self, n: int, *, num_workers: int, fused: bool,
+                  distributed: bool = True, ef: bool = False) -> float:
+        # the plane is read twice (scan, quantize) and written once
+        return n * (2 * _F32 + _F32)
+
+
+class TopKKernelSet(KernelSet):
+    """Magnitude-threshold sparsify for the ``topk`` codec: each rank
+    keeps its ``fraction`` largest |x| (ties at the threshold too)."""
+    name = "topk"
+    means = True
+
+    def __init__(self, fraction: float):
+        self.fraction = float(fraction)
+
+    def signature(self) -> str:
+        return f"topk:v1:f={self.fraction:g}"
+
+    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        # each rank's threshold: its k-th largest |x| (torch.topk, as the
+        # reference's lax.top_k), rounded to the payload's dtype
+        f = flat.to(torch.float32).abs()
+        k = max(1, int(f.shape[-1] * self.fraction))
+        thresh = torch.topk(f, k, dim=-1).values[..., -1].to(flat.dtype)
+        out = threshold_mask_plane(ref.to_plane(flat), thresh)
+        return ref.from_plane(out, flat.shape[-1])
+
+    def launches(self, *, fused: bool, distributed: bool = True,
+                 ef: bool = False) -> int:
+        # staged: |x| pass, top-k select, mask pass; fused: the top-k
+        # select reads |x| on the fly, then one mask kernel
+        return 2 if fused else 3
+
+    def hbm_bytes(self, n: int, *, num_workers: int, fused: bool,
+                  distributed: bool = True, ef: bool = False) -> float:
+        select = n * _F32                                   # top-k scan
+        mask = n * (2 * _F32)                               # read x, write out
+        if fused:
+            return select + mask
+        return n * (2 * _F32) + select + mask               # + |x| round trip
 
 
 @functools.cache

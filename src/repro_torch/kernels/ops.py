@@ -10,18 +10,24 @@ here.
 """
 from __future__ import annotations
 
-from .apply_update import unpack_ternary
-from .fused import ef_residual_plane, encode_pack_ef, vote_combine
+from .apply_update import apply_sign_update, unpack_ternary
+from .fused import (Int4KernelSet, KernelSet, TopKKernelSet, VoteKernelSet,
+                    ef_residual_plane, encode_pack_ef, int4_quant_plane,
+                    threshold_mask_plane, vote_combine, vote_kernel_set,
+                    vote_pipeline)
 from .popcount_majority import majority_decode, popcount_stack
 from .ref import (LANE, PACK, from_plane, gate_words_from_mask, padded_len,
                   ternary_gate_words, to_plane)
 from .sign_pack import sign_pack as pack_signs
 
 __all__ = [
-    "LANE", "PACK", "ef_residual_plane", "encode_pack_ef", "from_plane",
-    "gate_words_from_mask", "kernel_wrappers", "majority_decode",
-    "pack_signs", "padded_len", "popcount_stack", "ternary_gate_words",
-    "to_plane", "unpack_ternary", "vote_combine",
+    "Int4KernelSet", "KernelSet", "LANE", "PACK", "TopKKernelSet",
+    "VoteKernelSet", "apply_sign_update", "ef_residual_plane",
+    "encode_pack_ef", "from_plane", "gate_words_from_mask",
+    "int4_quant_plane", "kernel_wrappers", "majority_decode", "pack_signs",
+    "padded_len", "popcount_stack", "ternary_gate_words",
+    "threshold_mask_plane", "to_plane", "unpack_ternary", "vote_combine",
+    "vote_kernel_set", "vote_pipeline",
 ]
 
 
@@ -33,4 +39,8 @@ def kernel_wrappers() -> dict:
             "encode_pack_ef": encode_pack_ef,
             "ef_residual": ef_residual_plane,
             "popcount_stack": popcount_stack,
-            "majority_decode": majority_decode}
+            "majority_decode": majority_decode,
+            "vote_pipeline": vote_pipeline,
+            "apply_sign_update": apply_sign_update,
+            "int4_quant": int4_quant_plane,
+            "threshold_mask": threshold_mask_plane}

@@ -198,9 +198,68 @@ def ef_residual(plane: torch.Tensor, beta) -> torch.Tensor:
     (L, M, LANE) planes), rounded to the plane's dtype as the reference
     does (``jnp.asarray(beta, plane.dtype)``).
     """
-    b = torch.as_tensor(beta, dtype=plane.dtype, device=plane.device)
-    b = b.reshape(b.shape + (1,) * (plane.dim() - b.dim()))
+    b = _per_plane(beta, plane)
     return plane - b * torch.sign(plane)
+
+
+def _per_plane(value, planes: torch.Tensor) -> torch.Tensor:
+    """A scalar or one value per leading plane, in the planes' dtype and
+    shaped to broadcast over (..., M, LANE)."""
+    v = torch.as_tensor(value, dtype=planes.dtype, device=planes.device)
+    return v.reshape(v.shape + (1,) * (planes.dim() - v.dim()))
+
+
+def vote_pipeline_dense(stack: torch.Tensor, num_workers: int,
+                        gate_words: torch.Tensor) -> torch.Tensor:
+    """(W, M, LANE) value planes + gate (M // 32, LANE) -> the decoded
+    float32 plane (M, LANE) of {-1, 0, +1}.
+
+    The whole local vote datapath, encode -> PopCount -> majority ->
+    gate -> decode, as the composition of the staged twins.
+    """
+    sw, mw = vote_combine(sign_pack(stack), num_workers, gate_words)
+    return unpack_ternary(sw, mw)
+
+
+def int4_quant_plane(planes: torch.Tensor,
+                     levels: float = 7.0) -> torch.Tensor:
+    """Absmax int4 fake-quant, one scale per leading plane.
+
+    ``s = max|x| * float32(1 / levels)`` over each (M, LANE) plane (the
+    reference's jitted arithmetic: XLA folds its division by the constant
+    ``levels`` into this product), ``safe = s`` where ``s > 0`` else 1
+    (so a zero or NaN scale becomes 1), then ``clip(round(x / safe),
+    -levels, levels) * safe`` with a true division and round half to
+    even; NaN stays NaN through the clip.
+    """
+    inv = torch.full((), 1.0 / levels, dtype=torch.float32,
+                     device=planes.device)
+    scale = planes.abs().amax(dim=(-2, -1), keepdim=True) * inv
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(planes / safe), -levels, levels)
+    return q * safe
+
+
+def threshold_mask_plane(planes: torch.Tensor, thresh) -> torch.Tensor:
+    """Magnitude sparsify: keep x where ``|x| >= t``, else +0.
+
+    ``thresh`` is a scalar or one value per leading plane, rounded to
+    the planes' dtype; NaN never passes the compare.
+    """
+    t = _per_plane(thresh, planes)
+    return torch.where(planes.abs() >= t, planes,
+                       torch.zeros((), dtype=planes.dtype,
+                                   device=planes.device))
+
+
+def apply_sign_update(param_plane: torch.Tensor, sign_words: torch.Tensor,
+                      mask_words: torch.Tensor, scale) -> torch.Tensor:
+    """``param - scale * u`` with u decoded from the ternary packed pair,
+    computed in float32 and rounded once to the parameter's dtype."""
+    u = unpack_ternary(sign_words, mask_words)
+    s = torch.as_tensor(scale, dtype=torch.float32,
+                        device=param_plane.device)
+    return (param_plane.to(torch.float32) - s * u).to(param_plane.dtype)
 
 
 # ---------------------------------------------------------------------------

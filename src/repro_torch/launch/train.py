@@ -19,7 +19,8 @@ import logging
 #: the plan presets this port carries (repro_torch.fabric.plan_presets)
 _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
                  "gter_backbone", "gter_vote", "lowbit_all",
-                 "gbin_packed_all", "gbin_packed_embed"]
+                 "gbin_packed_all", "gbin_packed_embed", "int4_backbone",
+                 "topk_backbone"]
 
 #: flags of the reference launcher whose machinery is still to port
 _NOT_PORTED = ("controller", "autotune", "autotune_out", "ckpt_dir",

@@ -11,9 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import LocalGroup  # noqa: E402
 from repro_torch.core import tree as T  # noqa: E402
 from repro_torch.fabric import Fabric, plan_presets  # noqa: E402
-from repro_torch.kernels import kernel_wrappers, ops, ref  # noqa: E402
+from repro_torch.kernels import fused, kernel_wrappers, ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -181,3 +182,145 @@ def test_fabric_kernel_path_matches_cpu_twin_path(cuda, plan, w):
             assert torch.equal(a.cpu(), b), p
         else:   # FP32 means: another summation order on the card
             torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the third slice: vote_pipeline, int4_quant, threshold_mask,
+# apply_sign_update, and the paths they run on
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w", [1, 3, 4, 31, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vote_pipeline_matches_twin(cuda, w, dtype):
+    rng = np.random.RandomState(w)
+    n = 4000 if w > 31 else 3 * 4096 + 77          # ragged sizes
+    stack = ref.to_plane(spread(rng, w, n)).to(dtype).to(cuda)
+    for ternary in (False, True):
+        gate = fused.local_gate_words(stack.shape[1] // 32, ternary=ternary,
+                                      gate_phase=w % 3, device=cuda)
+        got = ops.vote_pipeline(stack, gate, num_workers=w)
+        assert bits_equal(got, ref.vote_pipeline_dense(stack, w, gate))
+    with pytest.raises(ValueError, match="num_workers"):
+        ops.vote_pipeline(stack, gate, num_workers=w + 1)
+
+
+def int4_planes(rng) -> torch.Tensor:
+    """Planes of one scale each: random magnitudes, exact scales with .5
+    ties and +-0.0, a zero plane, a NaN plane and an inf plane."""
+    base = rng.randn(3 * 4096).astype(np.float32)
+    planes = [base * np.float32(10.0 ** e) for e in (-30, -3, 0, 4)]
+    ties = np.array([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 6.5, -6.5, 7.0, -0.0,
+                     0.0, 1e-30], np.float32)
+    for e in (-20, 3):
+        x = np.clip(base, -6.9, 6.9) * np.float32(2.0 ** e)
+        x[:ties.size] = ties * np.float32(2.0 ** e)
+        planes.append(x)
+    planes.append(np.zeros_like(base))
+    planes.append(np.where(np.arange(base.size) == 7, np.nan, base * 30))
+    planes.append(np.where(np.arange(base.size) == 9, np.inf, base))
+    return ref.to_plane(torch.from_numpy(np.stack(planes).astype(np.float32)))
+
+
+def test_int4_quant_matches_twin(cuda):
+    planes = int4_planes(np.random.RandomState(5)).to(cuda)
+    got = ops.int4_quant_plane(planes)
+    assert bits_equal(got, ref.int4_quant_plane(planes))
+    for p in range(planes.shape[0]):         # one plane at a time, too
+        assert bits_equal(ops.int4_quant_plane(planes[p]),
+                          ref.int4_quant_plane(planes[p]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threshold_mask_matches_twin(cuda, dtype):
+    rng = np.random.RandomState(6)
+    x = spread(rng, 3, 5000)
+    x[:, 10:14] = torch.tensor([0.75, -0.75, 0.75, 1.5])     # ties at t
+    planes = ref.to_plane(x).to(dtype).to(cuda)
+    thresh = torch.tensor([0.75, 1.5, 0.0], device=cuda)
+    got = ops.threshold_mask_plane(planes, thresh)
+    assert bits_equal(got, ref.threshold_mask_plane(planes,
+                                                    thresh.to(dtype)))
+    assert bits_equal(ops.threshold_mask_plane(planes[0], 0.75),
+                      ref.threshold_mask_plane(planes[0], 0.75))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_sign_update_matches_twin(cuda, dtype):
+    rng = np.random.RandomState(7)
+    param = ref.to_plane(spread(rng, 5 * 4096)).to(dtype).to(cuda)
+    sw, mw = words(rng, 5, 128).to(cuda), words(rng, 5, 128).to(cuda)
+    for scale in (1e-3, -0.37, torch.tensor(2.0 ** -20, device=cuda)):
+        got = ops.apply_sign_update(param, sw, mw, scale)
+        assert bits_equal(got, ref.apply_sign_update(param, sw, mw, scale))
+
+
+@pytest.mark.parametrize("error_feedback", [False, True])
+def test_host_local_fabric_matches_cpu_twin_path(cuda, error_feedback):
+    """The host-local session on the card and on the CPU twins: one
+    vote_pipeline launch per low-bit leaf (plus ef_residual under EF, per
+    leaf), equal aggregates and residuals."""
+    rng = np.random.RandomState(8)
+    shapes = {"layers": {"wq": (2, 64, 96), "w_up": (2, 64, 130)},
+              "embed": {"tok": (300, 64)}, "final_norm": {"scale": (64,)}}
+    grads = T.map_leaves(
+        lambda s: torch.from_numpy(rng.randn(1, *s).astype(np.float32))
+        .to(torch.bfloat16), shapes)
+    plan = plan_presets(error_feedback=error_feedback)["gbin_packed"]
+    fabric = Fabric(group=LocalGroup(), fused=not error_feedback)
+    like = T.map_leaves(lambda g: g[0], grads)
+    ef = T.map_leaves(lambda e: e + 0.01 if e.dim() else e,
+                      fabric.init_ef(like, fabric.resolve(like, plan)))
+    ef = ef if error_feedback else None
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    got, got_ef = fabric.aggregate(
+        T.map_leaves(lambda g: g.to(cuda), grads), plan,
+        ef=None if ef is None else T.map_leaves(lambda e: e.to(cuda), ef))
+    torch.cuda.synchronize()
+    want, want_ef = fabric.aggregate(grads, plan, ef=ef)
+    lowbit = 2 if error_feedback else len(
+        [b for b in fabric.layout_for(like, plan).buckets
+         if b.key.schedule == "packed_a2a"])
+    expect = {"vote_pipeline": lowbit,
+              "ef_residual": lowbit if error_feedback else 0}
+    assert {k: fn.launches for k, fn in kernel_wrappers().items()} == \
+        {k: expect.get(k, 0) for k in kernel_wrappers()}
+    for (p, a), (_, b) in zip(
+            T.flatten(got) + (T.flatten(got_ef) if ef else []),
+            T.flatten(want) + (T.flatten(want_ef) if ef else [])):
+        assert a.dtype == b.dtype and bits_equal(a.cpu(), b), p
+
+
+@pytest.mark.parametrize("preset", ["int4_backbone", "topk_backbone"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("fused_kernels", [True, False])
+def test_mean_codecs_match_cpu_twin_path(cuda, preset, fused, fused_kernels):
+    """int4 / top-k under W = 4 on the card and on the CPU twins: the
+    encode kernels run once per low-bit bucket or leaf (int4_quant counts
+    its two launches), with the kernel switch on or off (the mean codecs
+    have no staged chain), and the means agree to the FP32 tolerance."""
+    rng = np.random.RandomState(9)
+    w = 4
+    shapes = {"layers": {"wq": (2, 64, 96), "w_up": (2, 64, 130)},
+              "embed": {"tok": (300, 64)}, "final_norm": {"scale": (64,)}}
+    grads = T.map_leaves(
+        lambda s: torch.from_numpy(rng.randn(w, *s).astype(np.float32))
+        .to(torch.bfloat16), shapes)
+    plan = plan_presets()[preset]
+    fabric = Fabric(num_workers=w, fused=fused, fused_kernels=fused_kernels)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    got, _ = fabric.aggregate(T.map_leaves(lambda g: g.to(cuda), grads),
+                              plan)
+    torch.cuda.synchronize()
+    want, _ = fabric.aggregate(grads, plan)
+    n = len([b for b in fabric.layout_for(
+        T.map_leaves(lambda g: g[0], grads), plan).buckets
+        if b.key.mode != "fp32"]) if fused else 2
+    expect = ({"int4_quant": 2 * n} if preset == "int4_backbone"
+              else {"threshold_mask": n})
+    assert {k: fn.launches for k, fn in kernel_wrappers().items()} == \
+        {k: expect.get(k, 0) for k in kernel_wrappers()}
+    for (p, a), (_, b) in zip(T.flatten(got), T.flatten(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)

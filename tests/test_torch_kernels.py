@@ -388,14 +388,6 @@ def test_fused_packed_vote_matches_reference(w, ternary, dtype, ef):
                                   .numpy())
 
 
-def test_fused_packed_vote_raises_for_unported_branches():
-    g = torch.zeros((2, 10))
-    with pytest.raises(NotImplementedError, match="vote_pipeline"):
-        fused.fused_packed_vote(g, None, 2)
-    with pytest.raises(NotImplementedError, match="vote_pipeline"):
-        fused.fused_packed_vote(g, None, 2, ef=torch.zeros_like(g))
-
-
 def test_ef_update_fused_equals_plain_update():
     """The kernel path's residual update against the plain one that the
     bucketed and staged paths run: the same bits, f32 and bf16 g_eff."""
@@ -448,5 +440,6 @@ def test_kernel_wrappers_list_every_ported_kernel():
     wrappers = ops.kernel_wrappers()
     assert sorted(wrappers) == sorted([
         "sign_pack", "vote_combine", "unpack_ternary", "encode_pack_ef",
-        "ef_residual", "popcount_stack", "majority_decode"])
+        "ef_residual", "popcount_stack", "majority_decode", "vote_pipeline",
+        "apply_sign_update", "int4_quant", "threshold_mask"])
     assert all(isinstance(fn.launches, int) for fn in wrappers.values())
