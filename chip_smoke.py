@@ -9,12 +9,18 @@ Phases (any failure exits non-zero before the result line):
   2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, in parallel) into ``build/kernels``;
   3. hold each of the eleven kernels against its plain PyTorch twin on
-     the card, byte for byte: ragged sizes, W in {1, 3, 4, 31, 128, 256},
-     G-Binary and G-Ternary gates, strided owner views, float32 and
-     bfloat16 planes, +-0, NaN, +-inf, operands whose exponents lie far
-     apart, int4 .5 ties, zero / NaN / inf planes and top-k ties at the
-     threshold; then time each at the main path's largest leaf
-     (88,080,384 elements) against its twin and its bound;
+     the card, byte for byte: ragged sizes, W in {1, 3, 4, 31, 128, 256}
+     (vote_combine: W = 2^k - 1, 2^k, 2^k + 1 for k = 1..12 and 65,537,
+     every count-plane width of its dispatch up to 13, and 17), G-Binary
+     and G-Ternary gates, strided owner views, float32 and bfloat16
+     planes and decodes, +-0, NaN, +-inf, operands whose exponents lie
+     far apart, int4 .5 ties, zero / NaN / inf planes and top-k ties at
+     the threshold; then time each at the main path's largest leaf
+     (88,080,384 elements) against its twin and its bound, on the device
+     clock alone (a spin kernel keeps the card busy while the host
+     enqueues the timed launches); vote_combine also cold, after a
+     128 MiB write that flushes L2 before each launch, and unpack_ternary
+     in float32 and bfloat16;
   4. train the full qwen3-0.6B (28 layers, d 1024, vocab 151,936, bf16,
      remat) with W = 4 virtual data-parallel workers, AdamW, global batch
      16 x 128 tokens, in five runs, each checking finite losses, its
@@ -22,8 +28,9 @@ Phases (any failure exits non-zero before the result line):
      and its own table of kernel launches per step (one per low-bit
      bucket or leaf; int4_quant counts its two launches):
        gbin_packed  5 steps, bucketed, fused kernels: sign_pack,
-                    vote_combine, unpack_ternary; one step's aggregates
-                    equal to the plain twins' on the same grads;
+                    vote_combine, unpack_ternary (every decode straight
+                    into the bf16 payload); one step's aggregates equal
+                    to the plain twins' on the same grads;
        A. per-leaf EF  3 steps, ``Fabric(fused=False)``, gbin_packed with
                     error feedback: encode_pack_ef, vote_combine,
                     unpack_ternary, ef_residual; one step's aggregates and
@@ -73,6 +80,8 @@ SOURCES = {
     "vote_combine": ("vote_combine.cu", "src/repro/kernels/fused.py:110"),
     "unpack_ternary": ("unpack_ternary.cu",
                        "src/repro/kernels/apply_update.py:26"),
+    "unpack_ternary_bf16": ("unpack_ternary.cu",
+                            "src/repro/kernels/apply_update.py:26"),
     "encode_pack_ef": ("encode_pack_ef.cu", "src/repro/kernels/fused.py:96"),
     "ef_residual": ("ef_residual.cu", "src/repro/kernels/fused.py:151"),
     "popcount_stack": ("popcount_stack.cu",
@@ -99,18 +108,44 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: GPU clock cycles a spin kernel holds the stream (~1 ms at 1.98 GHz)
+#: while the host enqueues what follows it, so that the events time the
+#: device's work and not the wrappers' host overhead
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * max(1, iters // 10))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn`` after a 128 MiB write has
+    flushed the 50 MB L2; only the call is timed."""
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for k, (start, end) in enumerate(events):
+        flush.fill_(k)
+        torch.cuda._sleep(SPIN_CYCLES // 8)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def rand_words(shape, gen) -> torch.Tensor:
@@ -162,6 +197,11 @@ def free() -> None:
 
 RAGGED = (1, 4095, 4097, 3 * 4096 + 77, 100_003)
 WORKERS = (1, 3, 4, 31, 128, 256)
+#: vote_combine's: every count-plane width P = bit_length(W) up to 13, and
+#: 17, each at W = 2^k - 1, 2^k and 2^k + 1 (the transposed owner view
+#: needs W * rows rows, so it runs at W <= 256 only)
+VOTE_WORKERS = sorted({2 ** k + d for k in range(1, 13) for d in (-1, 0, 1)}
+                      | {65_537})
 
 
 def check_vote_kernels(gen) -> None:
@@ -173,28 +213,38 @@ def check_vote_kernels(gen) -> None:
             plane = ref.to_plane(spread((3, n), gen).to(dt))
             if not same(ops.pack_signs(plane), ref.sign_pack(plane)):
                 fail(f"sign_pack differs from its twin (n={n}, {dt})")
-    for w in WORKERS:
-        for rows in (1, 2):     # word rows per owner shard
+    for w in VOTE_WORKERS:
+        for rows in ((1,) if w > 4097 else (1, 2)):   # word rows an owner
             for ternary in (False, True):
-                routed = rand_words((w, rows * w, 128), gen)
-                gate = fused.local_gate_words(rows * w, ternary=ternary,
+                # one owner, with a tie (W // 2 ones) and a unanimous column
+                routed = rand_words((w, rows, 128), gen)
+                routed[:w // 2, 0, :32] = -1
+                routed[w // 2:, 0, :32] = 0
+                routed[:, 0, 32:36] = -1
+                gate = fused.local_gate_words(rows, ternary=ternary,
                                               gate_phase=w % 3,
                                               device="cuda")
                 got = ops.vote_combine(routed, gate, num_workers=w)
                 want = ref.vote_combine(routed, w, gate)
-                # the per-owner view a virtual all_to_all hands the kernel
-                view = routed.reshape(w, w, rows, 128).transpose(0, 1)
-                g4 = gate.reshape(w, rows, 128)
-                got4 = ops.vote_combine(view, g4, num_workers=w)
-                want4 = ref.vote_combine(view, w, g4)
-                if not all(same(a, b) for a, b in
-                           zip(got + got4, want + want4)):
+                if w <= 256:
+                    # W owners: the view a virtual all_to_all hands the
+                    # kernel
+                    packed = rand_words((w, rows * w, 128), gen)
+                    view = packed.reshape(w, w, rows, 128).transpose(0, 1)
+                    g4 = fused.local_gate_words(
+                        rows * w, ternary=ternary, gate_phase=w % 3,
+                        device="cuda").reshape(w, rows, 128)
+                    got = got + ops.vote_combine(view, g4, num_workers=w)
+                    want = want + ref.vote_combine(view, w, g4)
+                if not all(same(a, b) for a, b in zip(got, want)):
                     fail(f"vote_combine differs (W={w}, rows={rows}, "
                          f"ternary={ternary})")
     for rows in (1, 5, 129):
         s, m = rand_words((rows, 128), gen), rand_words((rows, 128), gen)
-        if not same(ops.unpack_ternary(s, m), ref.unpack_ternary(s, m)):
-            fail(f"unpack_ternary differs (rows={rows})")
+        for dt in (torch.float32, torch.bfloat16):
+            if not same(ops.unpack_ternary(s, m, dtype=dt),
+                        ref.unpack_ternary(s, m, dt)):
+                fail(f"unpack_ternary differs (rows={rows}, {dt})")
 
 
 def check_ef_and_staged_kernels(gen) -> None:
@@ -279,6 +329,11 @@ def check_kernels() -> dict:
     dense = ref.gbinary_aggregate_dense(ref.from_plane(plane, n))
     if not same(ref.from_plane(u, n), dense):
         fail("packed vote differs from the dense Section-2 oracle")
+    # the main path's decode: straight into the bf16 payload's dtype
+    u16 = ops.unpack_ternary(sw_all, mw_all, dtype=torch.bfloat16)
+    u16_plain = ref.unpack_ternary(sw_all, mw_all, torch.bfloat16)
+    if not (same(u16, u16_plain) and same(u16, u.to(torch.bfloat16))):
+        fail("unpack_ternary differs at the main-path leaf (bf16)")
     ef_words, g_eff = ops.encode_pack_ef(plane, e_plane)
     ef_want = ref.encode_pack_ef(plane, e_plane)
     if not (same(ef_words, ef_want[0]) and same(g_eff, ef_want[1])):
@@ -310,9 +365,14 @@ def check_kernels() -> dict:
             plain_ms=time_ms(lambda: ref.sign_pack(plane), 3, 1),
             bytes=w * n * (bf16 + 1 / 8), ops=w * n * 3,
             err=max_abs_err(words, ref.sign_pack(plane))),
+        # ms cold: L2 flushed before each launch, as the ratio to the
+        # bound wants; warm (words left in L2 by the last launch, as
+        # sign_pack leaves them on the path) is printed beside it
         "vote_combine": dict(
-            ms=time_ms(lambda: ops.vote_combine(routed, gate,
-                                                num_workers=w)),
+            ms=time_cold_ms(lambda: ops.vote_combine(routed, gate,
+                                                     num_workers=w)),
+            warm_ms=time_ms(lambda: ops.vote_combine(routed, gate,
+                                                     num_workers=w)),
             plain_ms=time_ms(lambda: ref.vote_combine(routed, w, gate), 3, 1),
             bytes=w * n / 8 + n / 8 + 2 * n / 8, ops=n * (2 * w + 4),
             err=max(max_abs_err(sw, want[0]), max_abs_err(mw, want[1]))),
@@ -320,7 +380,14 @@ def check_kernels() -> dict:
             ms=time_ms(lambda: ops.unpack_ternary(sw_all, mw_all)),
             plain_ms=time_ms(lambda: ref.unpack_ternary(sw_all, mw_all), 3, 1),
             bytes=2 * n / 8 + f32 * n, ops=n * 4,
-            err=max_abs_err(u, u_plain)),
+            err=max_abs_err(u, u_plain), shape=f"n={n} f32"),
+        "unpack_ternary_bf16": dict(
+            ms=time_ms(lambda: ops.unpack_ternary(sw_all, mw_all,
+                                                  dtype=torch.bfloat16)),
+            plain_ms=time_ms(lambda: ref.unpack_ternary(
+                sw_all, mw_all, torch.bfloat16), 3, 1),
+            bytes=2 * n / 8 + bf16 * n, ops=n * 4,
+            err=max_abs_err(u16, u16_plain), shape=f"n={n} bf16"),
         "encode_pack_ef": dict(
             ms=time_ms(lambda: ops.encode_pack_ef(plane, e_plane)),
             plain_ms=time_ms(lambda: ref.encode_pack_ef(plane, e_plane), 3, 1),
@@ -356,9 +423,11 @@ def finish_rows(rows: dict, shape: str) -> None:
         row["source"] = f"src/repro_torch/csrc/{src}"
         row["replaces"] = replaces
         bound(row)
-        print(f"kernel {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
-              f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"{row.pop('shape', shape)}", flush=True)
+        warm = row.pop("warm_ms", None)
+        when = "" if warm is None else f" cold, {warm:.4f} ms warm"
+        print(f"kernel {name}: {row['ms']:.4f} ms{when}, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row.pop('shape', shape)}", flush=True)
 
 
 def int4_planes(gen) -> torch.Tensor:
@@ -567,6 +636,7 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    by_dtype = dict(wrappers["unpack_ternary"].launches_by_dtype)
     for k in range(steps):
         before = {kn: fn.launches for kn, fn in wrappers.items()}
         ef_before = trainer.state.ef
@@ -593,6 +663,11 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
               f"{rec['traffic_ratio']:.6f} launches "
               f"{ {kn: d for kn, d in delta.items() if d} }", flush=True)
     launches = {kn: fn.launches for kn, fn in wrappers.items()}
+    # the decode's launches by output dtype: a row each in the kernels line
+    split = {dt: v - by_dtype[dt] for dt, v in
+             wrappers["unpack_ternary"].launches_by_dtype.items()}
+    launches["unpack_ternary"] = split[torch.float32]
+    launches["unpack_ternary_bf16"] = split[torch.bfloat16]
     hist = trainer.history
     batch = {kk: torch.as_tensor(v).cuda()
              for kk, v in data.batch_at(steps).items()}
@@ -620,6 +695,10 @@ def run_gbin_packed(steps: int = 5) -> dict:
     run = drive("gbin_packed", fabric, plan, steps,
                 dict.fromkeys(("sign_pack", "vote_combine", "unpack_ternary"),
                               LOWBIT_BUCKETS))
+    if (run["launches"]["unpack_ternary_bf16"] != steps * LOWBIT_BUCKETS
+            or run["launches"]["unpack_ternary"]):
+        fail(f"gbin_packed: the bf16 buckets' decodes were not all bf16 "
+             f"launches: {run['launches']}")
     trainer = run["trainer"]
     # one step's aggregates against the plain twins on the same grads
     torch.cuda.synchronize()

@@ -131,8 +131,8 @@ def lowbit_packed_a2a(g: torch.Tensor, group, num_workers: int, *,
                                gate_phase=gate_phase, gate_mask=gate_mask,
                                total_rows=rw * w, device=g.device)
     sw, mw = K.majority_decode(counts, gate, num_workers=w)
-    u = KF.gather_decode(sw, mw, group, r, n)
-    return u.reshape(g.shape[1:]).to(g.dtype), _ef_update(g_eff, ef)
+    u = KF.gather_decode(sw, mw, group, r, n, g.dtype)
+    return u.reshape(g.shape[1:]), _ef_update(g_eff, ef)
 
 
 # ---------------------------------------------------------------------------

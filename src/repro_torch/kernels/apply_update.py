@@ -18,30 +18,44 @@ from .ref import apply_sign_update as apply_sign_update_plain  # the twins
 from .ref import unpack_ternary as unpack_ternary_plain
 
 
-def unpack_ternary(sign_words: torch.Tensor,
-                   mask_words: torch.Tensor) -> torch.Tensor:
-    """Ternary packed pair (..., R, LANE) -> float32 plane (..., 32R, LANE)."""
+_UNPACK_SYMBOL = {torch.float32: "unpack_ternary_f32",
+                  torch.bfloat16: "unpack_ternary_bf16"}
+
+
+def unpack_ternary(sign_words: torch.Tensor, mask_words: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Ternary packed pair (..., R, LANE) -> plane (..., 32R, LANE) of
+    {-1, 0, +1} in ``dtype`` (float32 or bfloat16; both hold the three
+    values exactly, so the bits equal a float32 decode cast to ``dtype``)."""
+    if dtype not in _UNPACK_SYMBOL:
+        raise TypeError(f"unpack_ternary decodes to float32 or bfloat16, "
+                        f"got {dtype}")
     if build.on_cpu(sign_words, mask_words):
-        return unpack_ternary_plain(sign_words, mask_words)
+        return unpack_ternary_plain(sign_words, mask_words, dtype)
     for t in (sign_words, mask_words):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("unpack_ternary takes contiguous int32 words")
+        if t.data_ptr() % 16:
+            raise ValueError("unpack_ternary needs 16-byte aligned words")
     if sign_words.shape != mask_words.shape or sign_words.shape[-1] != LANE:
         raise ValueError(f"unpack_ternary needs two (..., R, {LANE}) word "
                          f"planes, got {tuple(sign_words.shape)} and "
                          f"{tuple(mask_words.shape)}")
     out = torch.empty(sign_words.shape[:-2]
                       + (sign_words.shape[-2] * PACK, LANE),
-                      dtype=torch.float32, device=sign_words.device)
-    fn = build.bind("unpack_ternary", "unpack_ternary_f32", 3, 1)
+                      dtype=dtype, device=sign_words.device)
+    fn = build.bind("unpack_ternary", _UNPACK_SYMBOL[dtype], 3, 1)
     build.check(fn(sign_words.data_ptr(), mask_words.data_ptr(),
-                   out.data_ptr(), out.numel(),
+                   out.data_ptr(), sign_words.numel(),
                    build.stream_ptr(sign_words.device)), "unpack_ternary")
     unpack_ternary.launches += 1
+    unpack_ternary.launches_by_dtype[dtype] += 1
     return out
 
 
 unpack_ternary.launches = 0
+#: the same launches split by output dtype (the two kernels of the source)
+unpack_ternary.launches_by_dtype = dict.fromkeys(_UNPACK_SYMBOL, 0)
 
 
 _PARAM_SYMBOL = {torch.float32: "apply_sign_update_f32",

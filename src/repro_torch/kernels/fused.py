@@ -93,10 +93,11 @@ def vote_combine(routed: torch.Tensor, gate_words: torch.Tensor, *,
     """Routed words (W, R, LANE) or (B, W, R, LANE) + gate (R or B, R, LANE)
     -> ternary packed pair, each shaped like the gate.
 
-    One kernel for popcount + majority + gate; the int32 counts never
-    reach device memory.  The owner (B) and worker (W) axes may have any
-    stride, so the transposed view a virtual all_to_all returns is taken
-    as it is.
+    One kernel for popcount + majority + gate; the counts never reach
+    device memory.  The owner (B) and worker (W) axes may have any stride
+    that is a multiple of 4 words, so the transposed view a virtual
+    all_to_all returns is taken as it is; for CUDA tensors a misaligned
+    pointer or stride raises.
     """
     if routed.shape[-3] != num_workers:
         raise ValueError(f"routed words carry {routed.shape[-3]} workers, "
@@ -114,11 +115,19 @@ def vote_combine(routed: torch.Tensor, gate_words: torch.Tensor, *,
         raise TypeError("vote_combine takes int32 words")
     if r4.stride(3) != 1 or r4.stride(2) != LANE or not g3.is_contiguous():
         raise ValueError("vote_combine needs rows and lanes contiguous")
+    # the kernel moves 4 words (16 bytes) at a time; an axis of one
+    # element is never stepped, so its stride does not matter
+    strides = [r4.stride(d) if r4.shape[d] > 1 else 0 for d in (0, 1)]
+    if (r4.data_ptr() % 16 or g3.data_ptr() % 16
+            or any(s % 4 for s in strides)):
+        raise ValueError(f"vote_combine needs 16-byte aligned words and "
+                         f"owner / worker strides in multiples of 4 words, "
+                         f"got strides {tuple(r4.stride())}")
     sign = torch.empty((b, r, LANE), dtype=torch.int32, device=r4.device)
     mask = torch.empty_like(sign)
     fn = build.bind("vote_combine", "vote_combine_u32", 4, 5)
     build.check(fn(r4.data_ptr(), g3.data_ptr(), sign.data_ptr(),
-                   mask.data_ptr(), b, w, r, r4.stride(0), r4.stride(1),
+                   mask.data_ptr(), b, w, r, *strides,
                    build.stream_ptr(r4.device)), "vote_combine")
     vote_combine.launches += 1
     return sign.reshape(gate_words.shape), mask.reshape(gate_words.shape)
@@ -376,7 +385,7 @@ def fused_packed_vote(g: torch.Tensor, group, num_workers: int, *,
                             gate_phase=gate_phase, gate_mask=gate_mask,
                             total_rows=rw * w, device=g.device)
     sw, mw = vote_combine(routed, gate, num_workers=w)
-    u = gather_decode(sw, mw, group, r, n).reshape(g.shape[1:]).to(g.dtype)
+    u = gather_decode(sw, mw, group, r, n, g.dtype).reshape(g.shape[1:])
     if ef is None:
         return u, None
     g_eff = ref.from_plane(geff_plane, n).reshape(g.shape)
@@ -401,11 +410,14 @@ def route_words(words: torch.Tensor, group, num_workers: int):
 
 
 def gather_decode(sw: torch.Tensor, mw: torch.Tensor, group, r: int,
-                  n: int) -> torch.Tensor:
-    """Owner pairs -> ``all_gather`` -> the decoded flat aggregate (n,)."""
+                  n: int, dtype: torch.dtype) -> torch.Tensor:
+    """Owner pairs -> ``all_gather`` -> the decoded flat aggregate (n,)
+    in ``dtype``.  The kernel writes float32 and bfloat16 itself; any
+    other dtype is a cast of the float32 decode (the values are exact)."""
     sw_all = group.all_gather(sw)[:r]
     mw_all = group.all_gather(mw)[:r]
-    return ref.from_plane(unpack_ternary(sw_all, mw_all), n)
+    out = dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
+    return ref.from_plane(unpack_ternary(sw_all, mw_all, out), n).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -161,12 +161,12 @@ def ternary_gate_words(num_rows: int, phase: int = 0,
 # decode and the fused-stage references
 # ---------------------------------------------------------------------------
 
-def unpack_ternary(sign_words: torch.Tensor,
-                   mask_words: torch.Tensor) -> torch.Tensor:
-    """Ternary packed pair -> float32 value plane of {-1, 0, +1}."""
+def unpack_ternary(sign_words: torch.Tensor, mask_words: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Ternary packed pair -> value plane of {-1, 0, +1} in ``dtype``."""
     s = unpack_bits(sign_words)
     m = unpack_bits(mask_words)
-    return ((2 * s - 1) * m).to(torch.float32)
+    return ((2 * s - 1) * m).to(dtype)
 
 
 def vote_combine(routed: torch.Tensor, num_workers: int,

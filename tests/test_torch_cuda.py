@@ -55,24 +55,70 @@ def test_sign_pack_matches_twin(cuda, dtype):
     assert torch.equal(ops.pack_signs(plane), ref.sign_pack(plane))
 
 
-@pytest.mark.parametrize("w", [1, 3, 4, 31, 128, 256])
+# W = 2^k - 1, 2^k, 2^k + 1 for k = 1..12, and 65,537: every count-plane
+# width P = bit_length(W) from 1 to 13, and 17
+VOTE_WORKERS = sorted({2 ** k + d for k in range(1, 13) for d in (-1, 0, 1)}
+                      | {65_537})
+
+
+@pytest.mark.parametrize("w", VOTE_WORKERS)
 def test_vote_combine_matches_twin(cuda, w):
+    """One owner, (W, rows, 128) words with a tie (W // 2 ones) and a
+    unanimous column, under a ternary gate; at W <= 256 also the
+    transposed all_to_all view of W owners, which needs W * rows rows
+    (the twin unpacks them to int64)."""
     rng = np.random.RandomState(w)
-    routed = words(rng, w, 2 * w, 128).to(cuda)
-    gate = words(rng, 2 * w, 128).to(cuda)
-    for r, g in ((routed, gate),
-                 (routed.reshape(w, w, 2, 128).transpose(0, 1),
-                  gate.reshape(w, 2, 128))):
+    rows = 2 if w <= 4097 else 1
+    routed = words(rng, w, rows, 128)
+    routed[:w // 2, 0, :32] = -1
+    routed[w // 2:, 0, :32] = 0
+    routed[:, 0, 32:36] = -1
+    gate = fused.local_gate_words(rows, ternary=True, gate_phase=w % 3,
+                                  device=cuda)
+    cases = [(routed.to(cuda), gate)]
+    if w <= 256:
+        packed = words(rng, w, w * rows, 128).to(cuda)
+        cases.append((packed.reshape(w, w, rows, 128).transpose(0, 1),
+                      fused.local_gate_words(w * rows, ternary=True,
+                                             gate_phase=w % 3, device=cuda)
+                      .reshape(w, rows, 128)))
+    for r, g in cases:
         for a, b in zip(ops.vote_combine(r, g, num_workers=w),
                         ref.vote_combine(r, w, g)):
             assert torch.equal(a, b)
 
 
-def test_unpack_ternary_matches_twin(cuda):
-    rng = np.random.RandomState(1)
-    s, m = words(rng, 9, 128).to(cuda), words(rng, 9, 128).to(cuda)
-    assert torch.equal(ops.unpack_ternary(s, m).view(torch.int32),
-                       ref.unpack_ternary(s, m).view(torch.int32))
+def test_vote_combine_and_unpack_ternary_raise_on_misaligned_views(cuda):
+    """The kernels move 16 bytes a thread: a pointer or a stride off that
+    grid raises, and nothing falls back to the twin; 16 bytes further on,
+    the same views launch."""
+    buf = torch.zeros(4 * 2 * 128 + 4, dtype=torch.int32, device=cuda)
+    gate = torch.full((2, 128), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.vote_combine(buf[1:1 + 4 * 2 * 128].view(4, 2, 128), gate,
+                         num_workers=4)
+    strided = torch.zeros((4, 257), dtype=torch.int32, device=cuda) \
+        .as_strided((4, 2, 128), (257, 128, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.vote_combine(strided, gate, num_workers=4)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.unpack_ternary(buf[1:129].view(1, 128), gate[:1])
+    before = (ops.vote_combine.launches, ops.unpack_ternary.launches)
+    ops.vote_combine(buf[4:4 + 4 * 2 * 128].view(4, 2, 128), gate,
+                     num_workers=4)
+    ops.unpack_ternary(buf[4:132].view(1, 128), gate[:1])
+    assert (ops.vote_combine.launches, ops.unpack_ternary.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("rows", [1, 9, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpack_ternary_matches_twin(cuda, rows, dtype):
+    rng = np.random.RandomState(rows)
+    s, m = words(rng, rows, 128).to(cuda), words(rng, rows, 128).to(cuda)
+    got = ops.unpack_ternary(s, m, dtype=dtype)
+    assert got.dtype == dtype
+    assert bits_equal(got, ref.unpack_ternary(s, m, dtype))
 
 
 @pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])

@@ -199,3 +199,45 @@ def test_fused_equals_per_leaf_bit_for_bit():
             for (_, x), (_, y) in zip(T.flatten(a) + T.flatten(ea),
                                       T.flatten(b) + T.flatten(eb)):
                 assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("path", ["bucketed", "per_leaf_ef", "staged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vote_aggregates_in_the_payload_dtype_match_reference(path, dtype):
+    """The packed vote decodes straight into the payload's dtype; the
+    reference decodes to float32 and casts.  Same bits on the bucketed
+    path, per leaf with EF in the kernels, and on the staged chain."""
+    w = 4
+    fused, error_feedback, fused_kernels = {
+        "bucketed": (True, False, True), "per_leaf_ef": (False, True, True),
+        "staged": (True, False, False)}[path]
+    rng = np.random.RandomState(17)
+    grads = _grads(rng, w)
+    jplan, plan = _plans(Schedule.PACKED_A2A.value, error_feedback)
+    g0 = T.map_leaves(lambda g: jnp.asarray(g[0]), grads)
+    jpol = JFabric(dp_axes=("w",), num_workers=w).resolve(g0, jplan)
+    ef_on = T.map_leaves(lambda e: e.ndim > 0, j_init_ef(g0, jpol))
+    efs = T.map_leaves(
+        lambda g, on: (rng.randn(*g.shape).astype(np.float32) if on
+                       else np.zeros((w,), np.float32)), grads, ef_on)
+    j_efs = T.map_leaves(lambda e, on: e[:, None] if on else e, efs, ef_on)
+    want, _ = _run_reference(
+        T.map_leaves(lambda g: jnp.asarray(g).astype(dtype), grads),
+        T.map_leaves(jnp.asarray, j_efs), jplan, w, fused, error_feedback,
+        fused_kernels)
+    t_efs = T.map_leaves(lambda e, on: torch.from_numpy(e) if on
+                         else torch.zeros(()), efs, ef_on)
+    got, _ = Fabric(num_workers=w, fused=fused,
+                    fused_kernels=fused_kernels).aggregate(
+        T.map_leaves(lambda g: torch.from_numpy(g).to(getattr(torch, dtype)),
+                     grads), plan, ef=t_efs if error_feedback else None)
+    want = dict(T.flatten(want))
+    for p, u in T.flatten(got):
+        if p in LOWBIT:
+            # bit patterns, so that -0.0 would not pass for +0.0
+            view = torch.int16 if dtype == "bfloat16" else torch.int32
+            ref_u = np.asarray(want[p][0])
+            assert u.dtype == getattr(torch, dtype)
+            np.testing.assert_array_equal(
+                u.view(view).numpy(), ref_u.view(u.view(view).numpy().dtype),
+                p)

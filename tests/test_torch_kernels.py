@@ -220,6 +220,31 @@ def test_unpack_ternary_matches_reference_and_pallas(rows):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), u32(pallas))
 
 
+@pytest.mark.parametrize("rows", [1, 5, 129])
+def test_unpack_ternary_bf16_matches_reference_and_pallas(rows):
+    """Decoding straight into bfloat16 (the main path's payload dtype):
+    the wrapper (CPU -> twin) and the twin, against the reference's
+    ``dtype=jnp.bfloat16`` decode, jitted and in Pallas interpret mode."""
+    rng = np.random.RandomState(100 + rows)
+    s, m = rand_words(rng, rows, 128), rand_words(rng, rows, 128)
+    got = ops.unpack_ternary(words_t(s), words_t(m), dtype=torch.bfloat16)
+    twin = ref.unpack_ternary(words_t(s), words_t(m), torch.bfloat16)
+    assert got.dtype == twin.dtype == torch.bfloat16
+    want = jax.jit(j_ref.unpack_ternary, static_argnums=2)(
+        jnp.asarray(s), jnp.asarray(m), jnp.bfloat16)
+    pallas = j_apply.unpack_ternary(jnp.asarray(s), jnp.asarray(m),
+                                    dtype=jnp.bfloat16, interpret=True)
+    for other in (twin, want, pallas):
+        np.testing.assert_array_equal(bits(got), bits(other))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_unpack_ternary_rejects_other_dtypes(dtype):
+    words = torch.zeros((1, 128), dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.unpack_ternary(words, words, dtype=dtype)
+
+
 @pytest.mark.parametrize("w", WORKERS + (4,))
 @pytest.mark.parametrize("ternary", [False, True])
 def test_popcount_majority_match_reference_and_pallas(w, ternary):
