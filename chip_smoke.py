@@ -11,16 +11,23 @@ Phases (any failure exits non-zero before the result line):
   3. hold each of the eleven kernels against its plain PyTorch twin on
      the card, byte for byte: ragged sizes, W in {1, 3, 4, 31, 128, 256}
      (vote_combine: W = 2^k - 1, 2^k, 2^k + 1 for k = 1..12 and 65,537,
-     every count-plane width of its dispatch up to 13, and 17), G-Binary
-     and G-Ternary gates, strided owner views, float32 and bfloat16
-     planes and decodes, +-0, NaN, +-inf, operands whose exponents lie
-     far apart, int4 .5 ties, zero / NaN / inf planes and top-k ties at
-     the threshold; then time each at the main path's largest leaf
-     (88,080,384 elements) against its twin and its bound, on the device
-     clock alone (a spin kernel keeps the card busy while the host
-     enqueues the timed launches); vote_combine also cold, after a
-     128 MiB write that flushes L2 before each launch, and unpack_ternary
-     in float32 and bfloat16;
+     every count-plane width of its dispatch up to 13, and 17;
+     vote_pipeline: W = 1-5, 31-33, 128, 255-257 and 65,537, with a tie
+     and columns of -0.0, NaN, +-inf and +-subnormals, decoded to
+     float32 and bfloat16), G-Binary and G-Ternary gates, strided owner
+     views, float32 and bfloat16 planes and decodes, +-0, NaN, +-inf,
+     operands whose exponents lie far apart, int4 .5 ties, zero / NaN /
+     inf planes and top-k ties at the threshold (also subnormals, a
+     negative, an infinite and a NaN threshold, and 70,000 planes); then
+     time each at
+     the main path's largest leaf (88,080,384 elements) against its twin
+     and its bound, on the device clock alone (a spin kernel keeps the
+     card busy while the host enqueues the timed launches); vote_combine
+     also cold, after a 128 MiB write that flushes L2 before each launch,
+     unpack_ternary and vote_pipeline in float32 and bfloat16 out, and
+     threshold_mask in bfloat16 and float32 beside
+     ``torch.nn.functional.hardshrink`` on the same planes (its library
+     time; it drops the ties at t that threshold_mask keeps);
   4. train the full qwen3-0.6B (28 layers, d 1024, vocab 151,936, bf16,
      remat) with W = 4 virtual data-parallel workers, AdamW, global batch
      16 x 128 tokens, in five runs, each checking finite losses, its
@@ -50,7 +57,10 @@ Phases (any failure exits non-zero before the result line):
      ``Fabric(group=LocalGroup())`` under gbin_packed, a packed G-Ternary
      backbone and per-leaf gbin_packed with EF: one vote_pipeline launch
      per low-bit bucket or leaf (plus ef_residual under EF), equal to the
-     three-kernel chain of ``Fabric(num_workers=1)`` and the staged chain;
+     three-kernel chain of ``Fabric(num_workers=1)`` and the staged chain,
+     every vote_pipeline launch decoding straight into bf16; then
+     ``torch.profiler`` over 5 more gbin_packed aggregates gives
+     vote_pipeline's device time inside the path, beside its bound;
   5. print the kernels line (launches summed over the runs), the card,
      then ``{"ok": true, "device": {...}}`` last.
 """
@@ -89,6 +99,8 @@ SOURCES = {
     "majority_decode": ("majority_decode.cu",
                         "src/repro/kernels/popcount_majority.py:73"),
     "vote_pipeline": ("vote_pipeline.cu", "src/repro/kernels/fused.py:131"),
+    "vote_pipeline_bf16": ("vote_pipeline.cu",
+                           "src/repro/kernels/fused.py:131"),
     "apply_sign_update": ("apply_sign_update.cu",
                           "src/repro/kernels/apply_update.py:59"),
     "int4_quant": ("int4_quant.cu", "src/repro/kernels/fused.py:158"),
@@ -423,11 +435,15 @@ def finish_rows(rows: dict, shape: str) -> None:
         row["source"] = f"src/repro_torch/csrc/{src}"
         row["replaces"] = replaces
         bound(row)
+        row.setdefault("library_ms", None)
         warm = row.pop("warm_ms", None)
         when = "" if warm is None else f" cold, {warm:.4f} ms warm"
+        lib = row["library_ms"]
+        lib = "" if lib is None else f", library {lib:.4f} ms"
         print(f"kernel {name}: {row['ms']:.4f} ms{when}, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), {row.pop('shape', shape)}", flush=True)
+              f"{row['plain_ms']:.4f} ms{lib}, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}), {row.pop('shape', shape)}",
+              flush=True)
 
 
 def int4_planes(gen) -> torch.Tensor:
@@ -450,22 +466,71 @@ def int4_planes(gen) -> torch.Tensor:
     return torch.stack(planes)
 
 
-def check_slice3_kernels(gen) -> None:
-    """vote_pipeline, int4_quant, threshold_mask, apply_sign_update."""
+#: vote_pipeline's W: ties at even W, and counts past every narrow integer
+#: the reference once wrapped
+PIPELINE_WORKERS = (1, 2, 3, 4, 5, 31, 32, 33, 128, 255, 256, 257, 65_537)
+
+
+def check_vote_pipeline(gen) -> None:
+    """vote_pipeline against its twin, decoded to float32 and bfloat16:
+    ragged sizes, a tie in row 0 (W // 2 positive workers) and columns of
+    -0.0, NaN, +inf, -inf and +-subnormals in row 1; W = 65,537 on one
+    word row."""
     from repro_torch.kernels import fused, ops, ref
 
-    for w in WORKERS:
-        for n in ((4000,) if w > 31 else (4000, 3 * 4096 + 77)):
+    for w in PIPELINE_WORKERS:
+        for n in ((4000,) if w > 257 else (4000, 3 * 4096 + 77)):
+            x = torch.randn((w, n), device="cuda", generator=gen)
+            x[:w // 2, :8] = 1.0
+            x[w // 2:, :8] = -1.0
+            x[:, 128:134] = torch.tensor([-0.0, float("nan"), float("inf"),
+                                          -float("inf"), 1e-40, -1e-40])
             for dt in (torch.float32, torch.bfloat16):
-                stack = ref.to_plane(spread((w, n), gen).to(dt))
+                stack = ref.to_plane(x.to(dt))
                 for ternary in (False, True):
                     gate = fused.local_gate_words(
                         stack.shape[1] // 32, ternary=ternary,
                         gate_phase=w % 3, device="cuda")
-                    if not same(ops.vote_pipeline(stack, gate, num_workers=w),
-                                ref.vote_pipeline_dense(stack, w, gate)):
-                        fail(f"vote_pipeline differs (W={w}, n={n}, {dt}, "
-                             f"ternary={ternary})")
+                    want = ref.vote_pipeline_dense(stack, w, gate)
+                    for out in (torch.float32, torch.bfloat16):
+                        got = ops.vote_pipeline(stack, gate, num_workers=w,
+                                                dtype=out)
+                        if not same(got, want.to(out)):
+                            fail(f"vote_pipeline differs (W={w}, n={n}, "
+                                 f"{dt} -> {out}, ternary={ternary})")
+                del stack, want
+            del x
+
+
+def check_threshold_special(gen) -> None:
+    """threshold_mask with ties at t, NaN, +-0, +-inf and subnormals under
+    thresholds 0.75, 0, a subnormal, -1 (keeps all but NaN), +inf and NaN
+    (keeps nothing), on 300 planes of 33 rows and 70,000 planes of one
+    row (more than a grid's y dimension holds)."""
+    from repro_torch.kernels import ops, ref
+
+    specials = torch.tensor([0.75, -0.75, float("nan"), 0.0, -0.0,
+                             float("inf"), -float("inf"), 1e-40, -3e-39,
+                             1e-30, -1.0, 1.0], device="cuda")
+    ts = torch.tensor([0.75, 0.0, 1e-40, -1.0, float("inf"), float("nan")],
+                      device="cuda")
+    for planes, rows in ((300, 33), (70_000, 1)):
+        x = torch.randn((planes, rows, 128), device="cuda", generator=gen)
+        x[:, 0, :specials.numel()] = specials
+        thresh = ts.repeat(planes // ts.numel() + 1)[:planes]
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            if not same(ops.threshold_mask_plane(xd, thresh),
+                        ref.threshold_mask_plane(xd, thresh.to(dt))):
+                fail(f"threshold_mask differs ({planes} planes of {rows} "
+                     f"rows, {dt}, special values and thresholds)")
+
+
+def check_slice3_kernels(gen) -> None:
+    """vote_pipeline, int4_quant, threshold_mask, apply_sign_update."""
+    from repro_torch.kernels import ops, ref
+
+    check_vote_pipeline(gen)
     planes = ref.to_plane(int4_planes(gen))
     if not same(ops.int4_quant_plane(planes), ref.int4_quant_plane(planes)):
         fail("int4_quant differs from its twin")
@@ -473,6 +538,7 @@ def check_slice3_kernels(gen) -> None:
         if not same(ops.int4_quant_plane(planes[p]),
                     ref.int4_quant_plane(planes[p])):
             fail(f"int4_quant differs on plane {p} alone")
+    check_threshold_special(gen)
     for n in RAGGED:
         for dt in (torch.float32, torch.bfloat16):
             x = spread((3, n), gen)
@@ -495,9 +561,10 @@ def check_slice3_kernels(gen) -> None:
 
 def time_slice3_kernels(gen) -> dict:
     """The four kernels of the third slice at the main path's largest
-    leaf: vote_pipeline on one worker's bf16 plane (run E's shape), int4
-    on W = 4 float32 planes and threshold_mask on W = 4 bf16 planes (runs
-    C and D), apply_sign_update on a bf16 and a float32 parameter plane."""
+    leaf: vote_pipeline on one worker's bf16 plane (run E's shape),
+    decoded to float32 and to bfloat16, int4 on W = 4 float32 planes and
+    threshold_mask on W = 4 bf16 planes (runs C and D; float32 printed
+    beside), apply_sign_update on a bf16 and a float32 parameter plane."""
     from repro_torch.kernels import fused, ops, ref
 
     n, w, bf16, f32 = MAIN_N, MAIN_W, 2, 4
@@ -506,16 +573,22 @@ def time_slice3_kernels(gen) -> dict:
                                    generator=gen).to(torch.bfloat16))
     gate = fused.local_gate_words(one.shape[1] // 32, ternary=False,
                                   device="cuda")
-    u = ops.vote_pipeline(one, gate, num_workers=1)
     u_plain = ref.vote_pipeline_dense(one, 1, gate)
-    if not same(u, u_plain):
-        fail("vote_pipeline differs at the main-path leaf")
-    rows["vote_pipeline"] = dict(
-        ms=time_ms(lambda: ops.vote_pipeline(one, gate, num_workers=1)),
-        plain_ms=time_ms(lambda: ref.vote_pipeline_dense(one, 1, gate), 3, 1),
-        bytes=n * (bf16 + 1 / 8 + f32), ops=n * 6,
-        err=max_abs_err(u, u_plain), shape=f"n={n} W=1 bf16")
-    del one, gate, u, u_plain
+    for name, out in (("vote_pipeline", torch.float32),
+                      ("vote_pipeline_bf16", torch.bfloat16)):
+        u = ops.vote_pipeline(one, gate, num_workers=1, dtype=out)
+        if not same(u, u_plain.to(out)):
+            fail(f"vote_pipeline differs at the main-path leaf ({out})")
+        size = u.element_size()
+        rows[name] = dict(
+            ms=time_ms(lambda: ops.vote_pipeline(one, gate, num_workers=1,
+                                                 dtype=out)),
+            plain_ms=time_ms(lambda: ref.vote_pipeline_dense(one, 1, gate)
+                             .to(out), 3, 1),
+            bytes=n * (bf16 + 1 / 8 + size), ops=n * 6,
+            err=max_abs_err(u, u_plain), shape=f"n={n} W=1 bf16 -> {out}")
+        del u
+    del one, gate, u_plain
 
     planes = ref.to_plane(torch.randn((w, n), device="cuda", generator=gen)
                           .to(torch.bfloat16).to(torch.float32))
@@ -530,20 +603,33 @@ def time_slice3_kernels(gen) -> dict:
         err=max_abs_err(q, q_plain), shape=f"n={n} W={w} f32, 2 launches")
     del planes, q, q_plain
 
-    planes = ref.to_plane(torch.randn((w, n), device="cuda", generator=gen)
-                          .to(torch.bfloat16))
-    thresh = torch.full((w,), 1.862, device="cuda").to(torch.bfloat16)
-    m = ops.threshold_mask_plane(planes, thresh)
-    m_plain = ref.threshold_mask_plane(planes, thresh)
-    if not same(m, m_plain):
-        fail("threshold_mask differs at the main-path leaf")
-    rows["threshold_mask"] = dict(
-        ms=time_ms(lambda: ops.threshold_mask_plane(planes, thresh)),
-        plain_ms=time_ms(lambda: ref.threshold_mask_plane(planes, thresh),
-                         3, 1),
-        bytes=w * n * 2 * bf16, ops=w * n * 2,
-        err=max_abs_err(m, m_plain), shape=f"n={n} W={w} bf16")
-    del planes, m, m_plain
+    # threshold_mask in bf16 (run D's payload) and float32, each beside
+    # one hardshrink call on the same planes: the same bytes, and the same
+    # values but at ties |x| == t, which hardshrink drops
+    x = torch.randn((w, n), device="cuda", generator=gen)
+    for dt in (torch.bfloat16, torch.float32):
+        planes = ref.to_plane(x.to(dt))
+        thresh = torch.full((w,), 1.862, device="cuda").to(dt)
+        lambd = float(thresh[0])
+        m = ops.threshold_mask_plane(planes, thresh)
+        m_plain = ref.threshold_mask_plane(planes, thresh)
+        if not same(m, m_plain):
+            fail(f"threshold_mask differs at the main-path leaf ({dt})")
+        size = planes.element_size()
+        row = dict(
+            ms=time_ms(lambda: ops.threshold_mask_plane(planes, thresh)),
+            plain_ms=time_ms(lambda: ref.threshold_mask_plane(planes,
+                                                              thresh), 3, 1),
+            library_ms=time_ms(lambda: torch.nn.functional.hardshrink(
+                planes, lambd)),
+            bytes=w * n * 2 * size, ops=w * n * 2,
+            err=max_abs_err(m, m_plain), shape=f"n={n} W={w} {dt}")
+        if dt == torch.float32:     # printed, and kept in PERF.md
+            finish_rows({"threshold_mask": row}, "")
+        else:
+            rows["threshold_mask"] = row
+        del planes, m, m_plain
+    del x
 
     r = n // 4096
     sw, mw = rand_words((r, 128), gen), rand_words((r, 128), gen)
@@ -894,6 +980,43 @@ def run_mean_codec(name: str, preset: str, kernel: str,
     return run
 
 
+def time_in_path(fabric, grads, plan, lowbit, aggregates: int = 5) -> None:
+    """vote_pipeline's device time inside run E's own aggregates, in the
+    memory state the path leaves (blocks the caching allocator hands out
+    again): ``torch.profiler`` over a few more aggregates; the sum of an
+    aggregate's launches and the launches on the largest buckets, each
+    beside the bound of the bytes they move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sizes = sorted(b.size for b in lowbit)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(aggregates):
+            fabric.aggregate(grads, plan)
+        torch.cuda.synchronize()
+    ms = [e.device_time / 1e3 for e in sorted(
+        prof.events(), key=lambda e: e.time_range.start)
+          if "vote_pipeline_kernel" in e.name]
+    if len(ms) != aggregates * len(sizes):
+        print(f"[E host-local] vote_pipeline in the path: not measured "
+              f"({len(ms)} kernel events traced)", flush=True)
+        return
+    per = len(sizes)
+    totals = [sum(ms[i:i + per]) for i in range(0, len(ms), per)]
+    # the launches on the largest buckets: the longest of each aggregate
+    top = sizes.count(sizes[-1])
+    big = [t for i in range(0, len(ms), per)
+           for t in sorted(ms[i:i + per])[-top:]]
+    bound_ms = [n * (2 + 1 / 8 + 2) / HBM_BYTES_PER_S * 1e3
+                for n in (sum(sizes), sizes[-1])]
+    for what, ts, b in ((f"all {per} launches of an aggregate", totals,
+                         bound_ms[0]),
+                        (f"a launch at n={sizes[-1]}", big, bound_ms[1])):
+        print(f"[E host-local] vote_pipeline bf16 -> bf16 in the path, "
+              f"{what}: median {np.median(ts):.4f} ms over {len(ts)}, "
+              f"range {min(ts):.4f}-{max(ts):.4f}, bound {b:.4f} ms "
+              f"({np.median(ts) / b:.2f}x)", flush=True)
+
+
 def run_host_local() -> dict:
     """Run E: one worker's gradients through the host-local session."""
     from repro_torch.configs import get_config
@@ -926,7 +1049,9 @@ def run_host_local() -> dict:
              ("gbin_packed EF, per leaf",
               plan_presets(error_feedback=True)["gbin_packed"], False))
     wrappers = kernel_wrappers()
+    by_dtype = wrappers["vote_pipeline"].launches_by_dtype
     launches = dict.fromkeys(wrappers, 0)
+    launches["vote_pipeline_bf16"] = 0
     for label, plan, fused in cases:
         fabric = Fabric(group=LocalGroup(), fused=fused)
         lowbit = [b for b in fabric.layout_for(like, plan).buckets
@@ -943,6 +1068,7 @@ def run_host_local() -> dict:
         for rnd in range(1 if ef is None else 2):   # EF: zero, then moved
             for fn in wrappers.values():
                 fn.launches = 0
+            bf16_before = by_dtype[torch.bfloat16]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             agg, new_ef = fabric.aggregate(grads, plan, ef=ef)
@@ -951,8 +1077,16 @@ def run_host_local() -> dict:
             got = {kn: fn.launches for kn, fn in wrappers.items()}
             if got != expect:
                 fail(f"E {label}: kernel launches {got}, expected {expect}")
+            # the bf16 gradients' votes decode straight into bf16
+            bf16 = by_dtype[torch.bfloat16] - bf16_before
+            if bf16 != got["vote_pipeline"]:
+                fail(f"E {label}: {got['vote_pipeline'] - bf16} of "
+                     f"{got['vote_pipeline']} vote_pipeline launches did "
+                     f"not decode into bf16")
             for kn, v in got.items():
                 launches[kn] += v
+            launches["vote_pipeline"] -= bf16
+            launches["vote_pipeline_bf16"] += bf16
             al = dict(T.flatten(agg))
             for p in backbone:
                 vals = set(torch.unique(al[p].to(torch.float32)).tolist())
@@ -976,6 +1110,8 @@ def run_host_local() -> dict:
                   f": aggregate {agg_s:.4f} s, launches "
                   f"{ {k: v for k, v in got.items() if v} }, equal to the "
                   f"three-kernel and staged chains", flush=True)
+            if label == "gbin_packed":
+                time_in_path(fabric, grads, plan, lowbit)
             ef = new_ef
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[E host-local] peak memory {peak:.2f} GiB", flush=True)
@@ -995,7 +1131,10 @@ def main() -> None:
     print(f"built {built} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     rows = check_kernels()
-    free()
+    # timed with the checks' memory still cached, as the training path
+    # runs: for tens of ms after empty_cache() returns their ~29 GiB,
+    # every memory-bound kernel on the H100 runs 6-16% slower, PyTorch's
+    # copy and fill too
     rows.update(time_slice3_kernels(torch.Generator(device="cuda")
                                     .manual_seed(1)))
     print("kernel checks: byte-equal to the plain twins", flush=True)
@@ -1017,7 +1156,8 @@ def main() -> None:
                 "replaces": row["replaces"], "launches": launches[name],
                 "max_abs_err": row["err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": None}
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
                for name, row in rows.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -143,6 +143,13 @@ vote_combine.launches = 0
 _FLOATS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _decode_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a vote decode kernel writes for a payload of ``dtype``:
+    float32 and bfloat16 themselves, anything else float32 (then cast;
+    {-1, 0, +1} are exact in every float type)."""
+    return dtype if dtype in _FLOATS else torch.float32
+
+
 def _float_symbol(stem: str, *dtypes) -> str:
     for dt in dtypes:
         if dt not in _FLOATS:
@@ -236,20 +243,25 @@ def ef_update_fused(g_eff: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def vote_pipeline(stack: torch.Tensor, gate_words: torch.Tensor, *,
-                  num_workers: int) -> torch.Tensor:
+                  num_workers: int, dtype=torch.float32) -> torch.Tensor:
     """Stacked value planes (W, M, LANE) + gate (M // 32, LANE) -> the
-    decoded float32 plane (M, LANE) of {-1, 0, +1}, in one launch.
+    decoded plane (M, LANE) of {-1, 0, +1} in ``dtype``, in one launch.
 
-    ``stack`` must carry exactly ``num_workers`` planes.  The reference
-    disagrees with itself there (its Pallas call takes W from the stack,
-    its plain path ``num_workers``), so a mismatch raises here.
+    ``dtype`` is float32 or bfloat16, as in the reference; both hold the
+    three values exactly, so the bits equal a float32 decode cast to
+    ``dtype``.  ``stack`` must carry exactly ``num_workers`` planes.  The
+    reference disagrees with itself there (its Pallas call takes W from
+    the stack, its plain path ``num_workers``), so a mismatch raises here.
     """
+    if dtype not in _FLOATS:
+        raise TypeError(f"vote_pipeline decodes to float32 or bfloat16, "
+                        f"got {dtype}")
     if stack.dim() != 3 or stack.shape[0] != num_workers:
         raise ValueError(f"vote_pipeline needs a stack of num_workers="
                          f"{num_workers} planes, got {tuple(stack.shape)}")
     if build.on_cpu(stack, gate_words):
-        return vote_pipeline_plain(stack, num_workers, gate_words)
-    symbol = _float_symbol("vote_pipeline", stack.dtype)
+        return vote_pipeline_plain(stack, num_workers, gate_words).to(dtype)
+    symbol = _float_symbol("vote_pipeline", stack.dtype, dtype)
     w, m, lane = stack.shape
     if lane != LANE or m % PACK or gate_words.shape != (m // PACK, LANE):
         raise ValueError(f"vote_pipeline shapes disagree: stack "
@@ -259,16 +271,21 @@ def vote_pipeline(stack: torch.Tensor, gate_words: torch.Tensor, *,
         raise TypeError("vote_pipeline takes int32 gate words")
     if not (stack.is_contiguous() and gate_words.is_contiguous()):
         raise ValueError("vote_pipeline needs contiguous operands")
-    out = torch.empty((m, LANE), dtype=torch.float32, device=stack.device)
+    if stack.data_ptr() % 16 or gate_words.data_ptr() % 16:
+        raise ValueError("vote_pipeline needs 16-byte aligned operands")
+    out = torch.empty((m, LANE), dtype=dtype, device=stack.device)
     fn = build.bind("vote_pipeline", symbol, 3, 2)
     build.check(fn(stack.data_ptr(), gate_words.data_ptr(), out.data_ptr(),
                    m * LANE, w, build.stream_ptr(stack.device)),
                 "vote_pipeline")
     vote_pipeline.launches += 1
+    vote_pipeline.launches_by_dtype[dtype] += 1
     return out
 
 
 vote_pipeline.launches = 0
+#: the same launches split by output dtype
+vote_pipeline.launches_by_dtype = dict.fromkeys(_FLOATS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +334,8 @@ int4_quant_plane.launches = 0
 def threshold_mask_plane(planes: torch.Tensor, thresh) -> torch.Tensor:
     """Keep x where ``|x| >= t``, else +0, on value planes (M, LANE) or
     (L, M, LANE); ``thresh`` is one value or one per plane (L,), rounded
-    to the planes' dtype."""
+    to the planes' dtype.  For CUDA tensors the planes must start on a
+    16-byte boundary (the kernel moves 16 bytes a thread)."""
     if not isinstance(thresh, torch.Tensor):
         thresh = torch.as_tensor(thresh, device=planes.device)
     if build.on_cpu(planes, thresh):
@@ -328,13 +346,14 @@ def threshold_mask_plane(planes: torch.Tensor, thresh) -> torch.Tensor:
         raise ValueError(f"threshold_mask_plane needs one threshold or one "
                          f"per plane, got {tuple(thresh.shape)} for "
                          f"{p3.shape[0]} planes")
-    # rounded to the planes' dtype as the twin rounds it, then widened
-    # (exactly) to the float32 the kernel compares in
-    t32 = thresh.reshape(-1).to(planes.dtype).to(torch.float32) \
-        .expand(p3.shape[0]).contiguous()
+    if p3.data_ptr() % 16:
+        raise ValueError("threshold_mask_plane needs 16-byte aligned planes")
+    # rounded to the planes' dtype as the twin rounds it; the kernel reads
+    # it in that dtype (a no-op here for run D's per-plane thresholds)
+    t = thresh.reshape(-1).to(planes.dtype).expand(p3.shape[0]).contiguous()
     out = torch.empty_like(p3)
     fn = build.bind("threshold_mask", symbol, 3, 2)
-    build.check(fn(p3.data_ptr(), t32.data_ptr(), out.data_ptr(),
+    build.check(fn(p3.data_ptr(), t.data_ptr(), out.data_ptr(),
                    p3.shape[0], p3[0].numel(),
                    build.stream_ptr(p3.device)), "threshold_mask")
     threshold_mask_plane.launches += 1
@@ -372,7 +391,8 @@ def fused_packed_vote(g: torch.Tensor, group, num_workers: int, *,
         gate = local_gate_words(plane.shape[1] // PACK, ternary=ternary,
                                 gate_phase=gate_phase, gate_mask=gate_mask,
                                 device=g.device)
-        u_plane = vote_pipeline(plane, gate, num_workers=w)
+        u_plane = vote_pipeline(plane, gate, num_workers=w,
+                                dtype=_decode_dtype(g.dtype))
         u = ref.from_plane(u_plane, n).reshape(g.shape[1:]).to(g.dtype)
         return u, None if ef is None else ef_update_fused(g_eff, ef)
     if ef is None:
@@ -412,12 +432,11 @@ def route_words(words: torch.Tensor, group, num_workers: int):
 def gather_decode(sw: torch.Tensor, mw: torch.Tensor, group, r: int,
                   n: int, dtype: torch.dtype) -> torch.Tensor:
     """Owner pairs -> ``all_gather`` -> the decoded flat aggregate (n,)
-    in ``dtype``.  The kernel writes float32 and bfloat16 itself; any
-    other dtype is a cast of the float32 decode (the values are exact)."""
+    in ``dtype`` (see :func:`_decode_dtype`)."""
     sw_all = group.all_gather(sw)[:r]
     mw_all = group.all_gather(mw)[:r]
-    out = dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
-    return ref.from_plane(unpack_ternary(sw_all, mw_all, out), n).to(dtype)
+    return ref.from_plane(unpack_ternary(sw_all, mw_all, _decode_dtype(dtype)),
+                          n).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -235,19 +235,69 @@ def test_fabric_kernel_path_matches_cpu_twin_path(cuda, plan, w):
 # apply_sign_update, and the paths they run on
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("w", [1, 3, 4, 31, 128, 256])
+# W = 1-5, 31-33, 128, 255-257 and 65,537: ties at even W, and counts
+# past every narrow integer the reference once wrapped
+PIPELINE_WORKERS = [1, 2, 3, 4, 5, 31, 32, 33, 128, 255, 256, 257, 65_537]
+
+
+@pytest.mark.parametrize("w", PIPELINE_WORKERS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_vote_pipeline_matches_twin(cuda, w, dtype):
-    rng = np.random.RandomState(w)
-    n = 4000 if w > 31 else 3 * 4096 + 77          # ragged sizes
-    stack = ref.to_plane(spread(rng, w, n)).to(dtype).to(cuda)
-    for ternary in (False, True):
-        gate = fused.local_gate_words(stack.shape[1] // 32, ternary=ternary,
-                                      gate_phase=w % 3, device=cuda)
-        got = ops.vote_pipeline(stack, gate, num_workers=w)
-        assert bits_equal(got, ref.vote_pipeline_dense(stack, w, gate))
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_vote_pipeline_matches_twin(cuda, w, dtype, out):
+    """Ragged sizes (1, 4 and 9 word rows; one at W = 65,537), a tie in
+    row 0 (W // 2 positive workers), and columns of -0.0, NaN, +inf,
+    -inf and +-subnormals in row 1, under a G-Binary and a G-Ternary
+    gate; the decode in ``out`` equals the twin's float32 decode cast to
+    ``out``."""
+    gen = torch.Generator(device=cuda).manual_seed(w)
+    for n in ((4000,) if w > 257 else (4000, 3 * 4096 + 77, 9 * 4096 - 5)):
+        x = torch.randn((w, n), device=cuda, generator=gen)
+        x[:w // 2, :8] = 1.0
+        x[w // 2:, :8] = -1.0
+        x[:, 128:134] = torch.tensor([-0.0, float("nan"), float("inf"),
+                                      -float("inf"), 1e-40, -1e-40])
+        stack = ref.to_plane(x.to(dtype))
+        del x
+        for ternary in (False, True):
+            gate = fused.local_gate_words(stack.shape[1] // 32,
+                                          ternary=ternary, gate_phase=w % 3,
+                                          device=cuda)
+            got = ops.vote_pipeline(stack, gate, num_workers=w, dtype=out)
+            want = ref.vote_pipeline_dense(stack, w, gate)
+            assert bits_equal(got, want.to(out))
+            if w % 2 == 0:                     # the tie decodes to +0.0
+                assert not got[0, :8].view(torch.int16 if out ==
+                                           torch.bfloat16 else
+                                           torch.int32).any()
     with pytest.raises(ValueError, match="num_workers"):
         ops.vote_pipeline(stack, gate, num_workers=w + 1)
+
+
+def test_vote_pipeline_and_threshold_mask_raise_on_misaligned_views(cuda):
+    """Both kernels move 16 bytes a thread: a view that does not start on
+    a 16-byte boundary raises and launches nothing; 16 bytes further on,
+    the same views launch."""
+    buf = torch.ones(4096 + 4, device=cuda)
+    gbuf = torch.full((128 + 4,), -1, dtype=torch.int32, device=cuda)
+    wrappers = (ops.vote_pipeline, ops.threshold_mask_plane)
+    before = [fn.launches for fn in wrappers]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.vote_pipeline(buf[1:4097].view(1, 32, 128),
+                          gbuf[4:132].view(1, 128), num_workers=1)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.vote_pipeline(buf[4:4100].view(1, 32, 128),
+                          gbuf[1:129].view(1, 128), num_workers=1)
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.threshold_mask_plane(buf.to(dt)[1:257].view(2, 1, 128), 0.5)
+    assert [fn.launches for fn in wrappers] == before
+    u = ops.vote_pipeline(buf[4:4100].view(1, 32, 128),
+                          gbuf[4:132].view(1, 128), num_workers=1,
+                          dtype=torch.bfloat16)
+    kept = ops.threshold_mask_plane(buf.to(torch.bfloat16)[8:264]
+                                    .view(2, 1, 128), 0.5)
+    assert bool((u == 1).all()) and bool((kept == 1).all())
+    assert [fn.launches for fn in wrappers] == [b + 1 for b in before]
 
 
 def int4_planes(rng) -> torch.Tensor:
@@ -288,6 +338,35 @@ def test_threshold_mask_matches_twin(cuda, dtype):
                                                     thresh.to(dtype)))
     assert bits_equal(ops.threshold_mask_plane(planes[0], 0.75),
                       ref.threshold_mask_plane(planes[0], 0.75))
+
+
+#: thresholds of the special-value test: a tie value, 0, a subnormal, a
+#: negative t (keeps all but NaN), +inf (keeps only infinities) and NaN
+#: (keeps nothing)
+SPECIAL_T = [0.75, 0.0, 1e-40, -1.0, float("inf"), float("nan")]
+
+
+@pytest.mark.parametrize("planes", [300, 70_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threshold_mask_special_values_and_many_planes(cuda, planes, dtype):
+    """More planes than a grid's y dimension holds (65,535), each with
+    ties at t, NaN, +-0.0, +-inf and subnormals, under the thresholds of
+    ``SPECIAL_T`` in turn; 300 planes of 33 rows, 70,000 of one row."""
+    rows = 33 if planes == 300 else 1
+    gen = torch.Generator(device=cuda).manual_seed(planes)
+    x = torch.randn((planes, rows, 128), device=cuda, generator=gen)
+    x[:, 0, :12] = torch.tensor([0.75, -0.75, float("nan"), 0.0, -0.0,
+                                 float("inf"), -float("inf"), 1e-40,
+                                 -3e-39, 1e-30, -1.0, 1.0])
+    x = x.to(dtype)
+    thresh = torch.tensor(SPECIAL_T, device=cuda).repeat(
+        planes // len(SPECIAL_T) + 1)[:planes]
+    got = ops.threshold_mask_plane(x, thresh)
+    assert bits_equal(got, ref.threshold_mask_plane(x, thresh.to(dtype)))
+    head = got[:len(SPECIAL_T), 0, :12].to(torch.float32)
+    assert int(head[3].isnan().sum()) == 0 and bool(head[5].eq(0).all())
+    assert int((head[3] != 0).sum()) == 9           # t < 0: all but NaN, +-0
+    assert int((head[4] != 0).sum()) == 2           # t = inf: +-inf
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
