@@ -18,8 +18,10 @@ Phases (any failure exits non-zero before the result line):
      views, float32 and bfloat16 planes and decodes, +-0, NaN, +-inf,
      operands whose exponents lie far apart, int4 .5 ties, zero / NaN /
      inf planes and top-k ties at the threshold (also subnormals, a
-     negative, an infinite and a NaN threshold, and 70,000 planes); then
-     time each at
+     negative, an infinite and a NaN threshold, and 70,000 planes;
+     apply_sign_update with +-0, +-inf, NaN and subnormal parameters
+     under scales 1e-3, -0.37, +-0, inf and NaN, each given as a float
+     and as a one-element tensor); then time each at
      the main path's largest leaf (88,080,384 elements) against its twin
      and its bound, on the device clock alone (a spin kernel keeps the
      card busy while the host enqueues the timed launches); vote_combine
@@ -27,7 +29,9 @@ Phases (any failure exits non-zero before the result line):
      unpack_ternary and vote_pipeline in float32 and bfloat16 out, and
      threshold_mask in bfloat16 and float32 beside
      ``torch.nn.functional.hardshrink`` on the same planes (its library
-     time; it drops the ties at t that threshold_mask keeps);
+     time; it drops the ties at t that threshold_mask keeps), and
+     apply_sign_update with its scale as a tensor on the card (the
+     kernel's own time), a float scale (passed by value) beside;
   4. train the full qwen3-0.6B (28 layers, d 1024, vocab 151,936, bf16,
      remat) with W = 4 virtual data-parallel workers, AdamW, global batch
      16 x 128 tokens, in five runs, each checking finite losses, its
@@ -438,6 +442,9 @@ def finish_rows(rows: dict, shape: str) -> None:
         row.setdefault("library_ms", None)
         warm = row.pop("warm_ms", None)
         when = "" if warm is None else f" cold, {warm:.4f} ms warm"
+        by_value = row.pop("float_scale_ms", None)
+        if by_value is not None:
+            when = f" tensor scale, {by_value:.4f} ms float scale"
         lib = row["library_ms"]
         lib = "" if lib is None else f", library {lib:.4f} ms"
         print(f"kernel {name}: {row['ms']:.4f} ms{when}, plain "
@@ -550,13 +557,35 @@ def check_slice3_kernels(gen) -> None:
                         ref.threshold_mask_plane(planes, thresh.to(dt))):
                 fail(f"threshold_mask differs (n={n}, {dt})")
             param = ref.to_plane(spread((n,), gen).to(dt))
-            r = param.shape[0] // 32
-            sw, mw = rand_words((r, 128), gen), rand_words((r, 128), gen)
-            for scale in (1e-3, -0.37):
-                if not same(ops.apply_sign_update(param, sw, mw, scale),
-                            ref.apply_sign_update(param, sw, mw, scale)):
-                    fail(f"apply_sign_update differs (n={n}, {dt}, "
-                         f"scale={scale})")
+            check_apply_sign_update(param, gen, (1e-3, -0.37), f"n={n}")
+    for dt in (torch.float32, torch.bfloat16):
+        param = ref.to_plane(spread((5 * 4096,), gen))
+        param[:32, :8] = ASU_SPECIAL[(torch.arange(32)[:, None]
+                                      + torch.arange(8)) % 8]
+        check_apply_sign_update(param.to(dt), gen, ASU_SCALES,
+                                "special values")
+
+
+#: apply_sign_update's special parameters, planted in rows 0-31, lanes 0-7
+#: (each meets every bit of random sign and mask words), and its scales
+ASU_SPECIAL = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            -float("inf"), 1e-40, -3e-39, -9.2e-41])
+ASU_SCALES = (1e-3, -0.37, 0.0, -0.0, float("inf"), float("nan"))
+
+
+def check_apply_sign_update(param, gen, scales, what: str) -> None:
+    """apply_sign_update on random words under each scale, given as a
+    float and as a one-element tensor, against its twin."""
+    from repro_torch.kernels import ops, ref
+
+    r = param.shape[0] // 32
+    sw, mw = rand_words((r, 128), gen), rand_words((r, 128), gen)
+    for scale in scales:
+        for arg in (scale, torch.tensor([scale], device="cuda")):
+            if not same(ops.apply_sign_update(param, sw, mw, arg),
+                        ref.apply_sign_update(param, sw, mw, arg)):
+                fail(f"apply_sign_update differs ({what}, {param.dtype}, "
+                     f"scale={scale} as {type(arg).__name__})")
 
 
 def time_slice3_kernels(gen) -> dict:
@@ -564,7 +593,8 @@ def time_slice3_kernels(gen) -> dict:
     leaf: vote_pipeline on one worker's bf16 plane (run E's shape),
     decoded to float32 and to bfloat16, int4 on W = 4 float32 planes and
     threshold_mask on W = 4 bf16 planes (runs C and D; float32 printed
-    beside), apply_sign_update on a bf16 and a float32 parameter plane."""
+    beside), apply_sign_update on a bf16 and a float32 parameter plane
+    (float32 printed beside)."""
     from repro_torch.kernels import fused, ops, ref
 
     n, w, bf16, f32 = MAIN_N, MAIN_W, 2, 4
@@ -631,20 +661,26 @@ def time_slice3_kernels(gen) -> dict:
         del planes, m, m_plain
     del x
 
+    # apply_sign_update: its ms is the kernel's own, with the scale as a
+    # tensor made once; the float scale (passed by value) is timed beside
     r = n // 4096
     sw, mw = rand_words((r, 128), gen), rand_words((r, 128), gen)
+    scale = torch.tensor(1e-3, device="cuda")
     for dt in (torch.float32, torch.bfloat16):
         param = ref.to_plane(torch.randn((n,), device="cuda", generator=gen)
                              .to(dt))
-        a = ops.apply_sign_update(param, sw, mw, 1e-3)
-        a_plain = ref.apply_sign_update(param, sw, mw, 1e-3)
-        if not same(a, a_plain):
+        a = ops.apply_sign_update(param, sw, mw, scale)
+        a_plain = ref.apply_sign_update(param, sw, mw, scale)
+        if not (same(a, a_plain)
+                and same(ops.apply_sign_update(param, sw, mw, 1e-3), a)):
             fail(f"apply_sign_update differs at the main-path leaf ({dt})")
         size = param.element_size()
         row = dict(
-            ms=time_ms(lambda: ops.apply_sign_update(param, sw, mw, 1e-3)),
+            ms=time_ms(lambda: ops.apply_sign_update(param, sw, mw, scale)),
+            float_scale_ms=time_ms(lambda: ops.apply_sign_update(
+                param, sw, mw, 1e-3)),
             plain_ms=time_ms(lambda: ref.apply_sign_update(param, sw, mw,
-                                                           1e-3), 3, 1),
+                                                           scale), 3, 1),
             bytes=n * (2 * size + 1 / 4), ops=n * 6,
             err=max_abs_err(a, a_plain), shape=f"n={n} {dt}")
         if dt == torch.float32:     # printed, and kept in PERF.md

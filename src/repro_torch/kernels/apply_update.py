@@ -4,9 +4,13 @@ Replaces ``repro/kernels/apply_update.py``: :func:`unpack_ternary` (the
 Pallas kernel ``_unpack_ternary_kernel``, CUDA ``csrc/unpack_ternary.cu``)
 and :func:`apply_sign_update` (``_apply_sign_update_kernel``, CUDA
 ``csrc/apply_sign_update.cu``), which reads a parameter plane once and
-writes ``param - scale * u`` without materialising u.  Neither package
-calls ``apply_sign_update`` from its training path; it is here for parity
-with the reference's kernel set.
+writes ``param - scale * u`` without materialising u.  Both move 16
+bytes an access: unpack_ternary gives a thread 4 lanes of one word row
+and walks its 32 rows, apply_sign_update gives a thread 8 lanes of one
+row and finds its words in cache.  The scale of ``apply_sign_update``
+reaches its kernel by value or through a device pointer, so no call
+synchronises.  Neither package calls ``apply_sign_update`` from its training path; it
+is here for parity with the reference's kernel set.
 """
 from __future__ import annotations
 
@@ -66,35 +70,52 @@ def apply_sign_update(param_plane: torch.Tensor, sign_words: torch.Tensor,
                       mask_words: torch.Tensor, scale) -> torch.Tensor:
     """``param - scale * decode(sign, mask)`` over a value plane (M, LANE)
     of float32 or bfloat16, in float32 and rounded once to the plane's
-    dtype.  ``scale`` is a float or a one-element tensor (float32)."""
-    s = (scale.to(torch.float32) if isinstance(scale, torch.Tensor)
-         else torch.tensor(scale, dtype=torch.float32,
-                           device=param_plane.device))
-    if build.on_cpu(param_plane, sign_words, mask_words, s):
-        return apply_sign_update_plain(param_plane, sign_words, mask_words, s)
+    dtype.  ``scale`` is a float, rounded to float32 as
+    ``torch.tensor(scale, dtype=torch.float32)`` rounds it, or a
+    one-element tensor on the plane's device, read as float32.
+
+    On the card neither kind waits for the device: a float goes to the
+    kernel by value, and the kernel reads a tensor through its pointer
+    (a float32 tensor is passed as it is, another dtype is cast on the
+    stream first)."""
+    tensor_scale = isinstance(scale, torch.Tensor)
+    operands = (param_plane, sign_words, mask_words) + (
+        (scale,) if tensor_scale else ())
+    if build.on_cpu(*operands):
+        return apply_sign_update_plain(param_plane, sign_words, mask_words,
+                                       scale)
     if param_plane.dtype not in _PARAM_SYMBOL:
         raise TypeError(f"apply_sign_update takes float32 or bfloat16 "
                         f"parameters, got {param_plane.dtype}")
     m = param_plane.shape[0] if param_plane.dim() == 2 else -1
     if (m < 0 or param_plane.shape[1] != LANE or m % PACK
             or sign_words.shape != (m // PACK, LANE)
-            or mask_words.shape != sign_words.shape or s.numel() != 1):
+            or mask_words.shape != sign_words.shape
+            or (tensor_scale and scale.numel() != 1)):
         raise ValueError(f"apply_sign_update shapes disagree: param "
                          f"{tuple(param_plane.shape)}, words "
                          f"{tuple(sign_words.shape)} and "
-                         f"{tuple(mask_words.shape)}, scale {tuple(s.shape)}")
+                         f"{tuple(mask_words.shape)}, scale "
+                         f"{tuple(scale.shape) if tensor_scale else ()}")
     for t in (param_plane, sign_words, mask_words):
         if not t.is_contiguous():
             raise ValueError("apply_sign_update needs contiguous operands")
+        if t.data_ptr() % 16:
+            raise ValueError("apply_sign_update needs 16-byte aligned "
+                             "operands")
     if sign_words.dtype != torch.int32 or mask_words.dtype != torch.int32:
         raise TypeError("apply_sign_update takes int32 words")
-    s = s.reshape(1).contiguous()
+    if tensor_scale:
+        scale = scale.to(torch.float32)
+        scale_ptr, value = scale.data_ptr(), 0.0
+    else:
+        scale_ptr, value = None, float(scale)
     out = torch.empty_like(param_plane)
     fn = build.bind("apply_sign_update", _PARAM_SYMBOL[param_plane.dtype],
-                    5, 1)
+                    5, 1, 1)
     build.check(fn(param_plane.data_ptr(), sign_words.data_ptr(),
-                   mask_words.data_ptr(), s.data_ptr(), out.data_ptr(),
-                   out.numel(), build.stream_ptr(param_plane.device)),
+                   mask_words.data_ptr(), scale_ptr, out.data_ptr(),
+                   out.numel(), value, build.stream_ptr(param_plane.device)),
                 "apply_sign_update")
     apply_sign_update.launches += 1
     return out

@@ -369,14 +369,76 @@ def test_threshold_mask_special_values_and_many_planes(cuda, planes, dtype):
     assert int((head[4] != 0).sum()) == 2           # t = inf: +-inf
 
 
+#: scales of the apply_sign_update tests: ordinary ones, 2^-20 as a
+#: one-element tensor, and the special values
+ASU_SCALES = [1e-3, -0.37, 2.0 ** -20, 0.0, -0.0, float("inf"),
+              float("nan")]
+
+
+@pytest.mark.parametrize("scale", ASU_SCALES,
+                         ids=["1e-3", "-0.37", "2^-20 tensor", "0", "-0",
+                              "inf", "nan"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_apply_sign_update_matches_twin(cuda, dtype):
+def test_apply_sign_update_matches_twin(cuda, dtype, scale):
+    """Parameters with exponents 2^-24 .. 2^24, led by +-0, NaN, +-inf
+    and subnormals in rows 0-31 of lanes 0-7, each under every bit of
+    random sign and mask words; the bits equal the twin's, NaNs too."""
     rng = np.random.RandomState(7)
-    param = ref.to_plane(spread(rng, 5 * 4096)).to(dtype).to(cuda)
+    param = ref.to_plane(spread(rng, 5 * 4096))
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            -float("inf"), 1e-40, -3e-39, -9.2e-41])
+    rows, lanes = torch.meshgrid(torch.arange(32), torch.arange(8),
+                                 indexing="ij")
+    param[:32, :8] = special[(rows + lanes) % 8]
+    param = param.to(dtype).to(cuda)
     sw, mw = words(rng, 5, 128).to(cuda), words(rng, 5, 128).to(cuda)
-    for scale in (1e-3, -0.37, torch.tensor(2.0 ** -20, device=cuda)):
-        got = ops.apply_sign_update(param, sw, mw, scale)
-        assert bits_equal(got, ref.apply_sign_update(param, sw, mw, scale))
+    arg = torch.tensor(scale, device=cuda) if scale == 2.0 ** -20 else scale
+    got = ops.apply_sign_update(param, sw, mw, arg)
+    assert bits_equal(got, ref.apply_sign_update(param, sw, mw, arg))
+
+
+def test_apply_sign_update_raises_on_misaligned_views(cuda):
+    """The kernel moves 16 bytes a thread: a parameter plane or a word
+    plane that does not start on a 16-byte boundary raises and launches
+    nothing; 16 bytes further on, the same views launch."""
+    buf = torch.ones(4096 + 8, dtype=torch.bfloat16, device=cuda)
+    wbuf = torch.full((128 + 4,), -1, dtype=torch.int32, device=cuda)
+    before = ops.apply_sign_update.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.apply_sign_update(buf[1:4097].view(32, 128),
+                              wbuf[4:132].view(1, 128),
+                              wbuf[4:132].view(1, 128), 0.5)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.apply_sign_update(buf[8:4104].view(32, 128),
+                              wbuf[1:129].view(1, 128),
+                              wbuf[4:132].view(1, 128), 0.5)
+    assert ops.apply_sign_update.launches == before
+    got = ops.apply_sign_update(buf[8:4104].view(32, 128),
+                                wbuf[4:132].view(1, 128),
+                                wbuf[4:132].view(1, 128), 0.5)
+    assert bool((got == 0.5).all())
+    assert ops.apply_sign_update.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_sign_update_never_synchronises(cuda, dtype):
+    """Neither a float scale (by value) nor a one-element tensor scale
+    (read on the card) makes the wrapper wait for the device: under
+    ``set_sync_debug_mode("error")`` a synchronising call raises."""
+    rng = np.random.RandomState(9)
+    param = ref.to_plane(spread(rng, 2 * 4096)).to(dtype).to(cuda)
+    sw, mw = words(rng, 2, 128).to(cuda), words(rng, 2, 128).to(cuda)
+    tensor = torch.tensor([-0.37], device=cuda)
+    ops.apply_sign_update(param, sw, mw, 1e-3)     # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        by_value = ops.apply_sign_update(param, sw, mw, -0.37)
+        on_card = ops.apply_sign_update(param, sw, mw, tensor)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bits_equal(by_value, on_card)
+    assert bits_equal(on_card, ref.apply_sign_update(param, sw, mw, tensor))
 
 
 @pytest.mark.parametrize("error_feedback", [False, True])
