@@ -65,7 +65,30 @@ Phases (any failure exits non-zero before the result line):
      every vote_pipeline launch decoding straight into bf16; then
      ``torch.profiler`` over 5 more gbin_packed aggregates gives
      vote_pipeline's device time inside the path, beside its bound;
-  5. print the kernels line (launches summed over the runs), the card,
+  5. the control plane:
+       F. paper     5 steps of the full model, W = 4, through
+                    ``Trainer(controller=make_controller("paper",
+                    commander=Commander(schedule=PACKED_A2A),
+                    warmup_steps=2))``: steps 0-1 on FP32 with cosine
+                    diagnostics and no kernel launch, the cosines held to
+                    a float64 recomputation from the same aggregates
+                    (1e-5), events (1, warmup_end) and (1, admitted), the
+                    admitted plan the Commander's proposal on the printed
+                    cosines with a packed low-bit bucket, and each later
+                    step launching what the admitted layout models;
+       G. grad_accum  2 steps of ``build_step(..., grad_accum=2)`` under
+                    gbin_packed: float32 gradients on the bf16-planned
+                    buckets, float32 aggregates, 7 sign_pack, vote_combine
+                    and float32 unpack_ternary launches a step, one
+                    aggregation byte-equal to the plain twins;
+       H. harness   the virtual-worker accuracy harness on the card: the
+                    four HARD runs of ``benchmarks/bench_convergence.py``
+                    (traffic ratios equal to the reference's, G-Binary
+                    everywhere 4 points under FP32, the FP32 head 5
+                    points over it) and the guarded pilot of
+                    ``benchmarks/bench_recovery.py`` (admitted, recovery
+                    and readmitted);
+  6. print the kernels line (launches summed over the runs), the card,
      then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -1154,6 +1177,329 @@ def run_host_local() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the control plane: the paper controller, grad_accum, the accuracy harness
+# ---------------------------------------------------------------------------
+
+def _launch_deltas(wrappers, before, by_dtype_before) -> dict:
+    """Launches since ``before``, with unpack_ternary split by dtype."""
+    delta = {kn: fn.launches - before[kn] for kn, fn in wrappers.items()}
+    split = wrappers["unpack_ternary"].launches_by_dtype
+    delta["unpack_ternary"] = split[torch.float32] - \
+        by_dtype_before[torch.float32]
+    delta["unpack_ternary_bf16"] = split[torch.bfloat16] - \
+        by_dtype_before[torch.bfloat16]
+    return delta
+
+
+def cosines_f64(agg, groups) -> dict:
+    """The per-group cosines of ``core/diagnostics.py`` recomputed in
+    float64 from the same aggregates."""
+    from repro_torch.core import tree as T
+    acc: dict = {}
+    for leaf, group in zip(T.leaves(agg), T.leaves(groups)):
+        g = leaf.to(torch.float64).reshape(-1)
+        ubin = torch.where(g == 0, g, torch.sign(g))
+        idx = torch.arange(g.numel(), device=g.device)
+        uter = ubin * ((idx % 3) != 2).to(torch.float64)
+        d = acc.setdefault(group, [0.0] * 5)
+        for i, v in enumerate((ubin @ g, uter @ g, g @ g, ubin @ ubin,
+                               uter @ uter)):
+            d[i] += float(v)
+        del g, ubin, idx, uter
+    return {group: {"gbinary": nb / (np.sqrt(gg) * np.sqrt(bb) + 1e-12),
+                    "gternary": nt / (np.sqrt(gg) * np.sqrt(tt) + 1e-12)}
+            for group, (nb, nt, gg, bb, tt) in acc.items()}
+
+
+def run_paper_controller(steps: int = 5, warmup: int = 2) -> dict:
+    """Run F: the paper controller on full qwen3-0.6B, W = 4.
+
+    Steps 0 and 1 run on the FP32 bypass with diagnostics and launch no
+    kernel; the Commander admits its plan from step 1's cosines (printed,
+    and held to a float64 recomputation from the same aggregates); each
+    later step launches what the admitted layout models."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Commander, Schedule, cosines_to_host,
+                                  group_cosines_from_mean)
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import (Fabric, Telemetry, get_codec,
+                                    layout_kernel_stats, make_controller)
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+
+    cfg = get_config("qwen3_0p6b")
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=16,
+                             seed=0, learnable=False)
+    commander = Commander(schedule=Schedule.PACKED_A2A)
+    controller = make_controller("paper", commander=commander,
+                                 warmup_steps=warmup)
+    fabric = Fabric(num_workers=MAIN_W)
+    trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
+                                 total_steps=steps),
+                      data, controller=controller, fabric=fabric, seed=0,
+                      device="cuda")
+    state = trainer.init_state()
+    params = state.model.tree()
+    groups = fabric.groups(params)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    by_dtype = dict(wrappers["unpack_ternary"].launches_by_dtype)
+    launches: dict = {}
+    for k in range(steps):
+        before = {kn: fn.launches for kn, fn in wrappers.items()}
+        dt_before = dict(wrappers["unpack_ternary"].launches_by_dtype)
+        plan = controller.plan
+        calibrating = controller.wants_diagnostics
+        trainer.run(k + 1)
+        rec = trainer.history[-1]
+        delta = _launch_deltas(wrappers, before, dt_before)
+        if not np.isfinite(rec["loss"]):
+            fail(f"F step {k}: loss {rec['loss']}")
+        cos = Telemetry.from_metrics(k, rec).cosines
+        if k < warmup:
+            if not calibrating or cos is None or any(delta.values()):
+                fail(f"F step {k}: the FP32 warm-up ran without "
+                     f"diagnostics or launched {delta}")
+            want = cosines_f64(trainer.last_aggregates, groups)
+            err = max(abs(cos[g][m] - want[g][m])
+                      for g in want for m in ("gbinary", "gternary"))
+            print(f"[F paper] step {k} cosines " + ", ".join(
+                f"{g}: gbinary {cos[g]['gbinary']:.6f} gternary "
+                f"{cos[g]['gternary']:.6f}" for g in sorted(cos))
+                + f"; float64 recomputation within {err:.2e}", flush=True)
+            if set(cos) != set(want) or err > 1e-5:
+                fail(f"F step {k}: cosines {cos} differ from their float64 "
+                     f"recomputation {want}")
+            cosines = cos
+            # the diagnostics' own cost: the step's cosines again, alone
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cosines_to_host(group_cosines_from_mean(
+                    trainer.last_aggregates, groups))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"[F paper] step {k} diagnostics alone: "
+                  f"{', '.join(f'{m:.2f}' for m in ms)} ms", flush=True)
+        else:
+            layout = fabric.layout_for(params, plan)
+            packed = [b for b in layout.buckets
+                      if b.key.schedule == "packed_a2a"
+                      and get_codec(b.key.mode).reduction == "vote"]
+            bf16 = sum(b.key.dtype == "bfloat16" for b in packed)
+            expect = {"sign_pack": len(packed), "vote_combine": len(packed),
+                      "unpack_ternary": len(packed) - bf16,
+                      "unpack_ternary_bf16": bf16}
+            want = {kn: expect.get(kn, 0) for kn in delta}
+            modeled = layout_kernel_stats(layout, MAIN_W)["launches_fused"]
+            if delta != want or sum(delta.values()) != modeled:
+                fail(f"F step {k}: launches {delta}, the admitted layout "
+                     f"models {want} ({modeled} in all)")
+        for kn, v in delta.items():
+            launches[kn] = launches.get(kn, 0) + v
+        print(f"[F paper] step {k}: loss {rec['loss']:.6f} time "
+              f"{rec['step_time_s']:.4f} s traffic_ratio "
+              f"{rec['traffic_ratio']:.6f} plan {rec['plan']} launches "
+              f"{ {kn: d for kn, d in delta.items() if d} }", flush=True)
+    events = [(e.step, e.kind) for e in controller.events]
+    proposed = commander.propose(cosines)
+    admitted = controller.plan
+    print(f"[F paper] events "
+          f"{[(e.step, e.kind, e.plan_signature) for e in controller.events]}",
+          flush=True)
+    if events != [(warmup - 1, "warmup_end"), (warmup - 1, "admitted")]:
+        fail(f"F: events {events}")
+    if admitted.signature() != proposed.signature():
+        fail(f"F: admitted {admitted.signature()}, the Commander proposes "
+             f"{proposed.signature()} on the printed cosines")
+    if "packed_a2a" not in admitted.signature():
+        fail(f"F: no packed low-bit bucket admitted: {admitted.signature()}")
+    if any(e.dim() for e in T.leaves(trainer.state.ef)):
+        fail("F: error-feedback state built past the warm-up plan")
+    hist = trainer.history
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[F paper] losses {[h['loss'] for h in hist]}", flush=True)
+    print(f"[F paper] step seconds {[h['step_time_s'] for h in hist]}, peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    return {"launches": launches}
+
+
+def run_grad_accum(steps: int = 2) -> dict:
+    """Run G: ``build_step(..., grad_accum=2)`` under gbin_packed.  The
+    gradients accumulate in float32, so the bf16-planned buckets carry
+    float32 payloads: float32 aggregates and float32 decodes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import Fabric, TrainState, plan_presets
+    from repro_torch.fabric.session import aggregate_tree_bucketed
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("qwen3_0p6b")
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=16,
+                             seed=0, learnable=False)
+    model = Transformer(cfg, device="cuda", seed=0)
+    fabric = Fabric(num_workers=MAIN_W)
+    plan = plan_presets()["gbin_packed"]
+    opt = AdamW(peak_lr=3e-4, warmup_steps=2, total_steps=steps)
+    params = model.tree()
+    step = fabric.build_step(opt, plan, params, model.loss, grad_accum=2)
+    lowbit = [b for b in step.layout.buckets
+              if b.key.schedule == "packed_a2a"]
+    if len(lowbit) != LOWBIT_BUCKETS or \
+            {b.key.dtype for b in lowbit} != {"bfloat16"}:
+        fail(f"G: {len(lowbit)} packed buckets, dtypes "
+             f"{ {b.key.dtype for b in lowbit} }")
+    backbone = {s.name for b in lowbit for s in b.slots}
+    state = TrainState(model=model, opt=opt.init(params),
+                       ef=fabric.init_ef(params, step.policies))
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    launches: dict = {}
+    expect = {"sign_pack": LOWBIT_BUCKETS, "vote_combine": LOWBIT_BUCKETS,
+              "unpack_ternary": LOWBIT_BUCKETS}
+    for k in range(steps):
+        batch = {kk: torch.as_tensor(v).cuda()
+                 for kk, v in data.batch_at(k).items()}
+        before = {kn: fn.launches for kn, fn in wrappers.items()}
+        dt_before = dict(wrappers["unpack_ternary"].launches_by_dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, agg = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        delta = _launch_deltas(wrappers, before, dt_before)
+        if delta != {kn: expect.get(kn, 0) for kn in delta}:
+            fail(f"G step {k}: launches {delta}, expected {expect}")
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            fail(f"G step {k}: loss {loss}")
+        for path, u in T.flatten(agg):
+            if u.dtype != torch.float32:
+                fail(f"G step {k}: aggregate {path} is {u.dtype}")
+            if path in backbone and not set(torch.unique(u).tolist()) <= \
+                    {-1.0, 0.0, 1.0}:
+                fail(f"G step {k}: aggregate {path} is not a vote")
+        for kn, v in delta.items():
+            launches[kn] = launches.get(kn, 0) + v
+        print(f"[G grad_accum] step {k}: loss {loss:.6f} time {dt:.4f} s "
+              f"launches { {kn: d for kn, d in delta.items() if d} }",
+              flush=True)
+    # one step's aggregation against the plain twins on the same float32
+    # gradients
+    batch = {kk: torch.as_tensor(v).cuda()
+             for kk, v in data.batch_at(steps).items()}
+    grads, _ = fabric.worker_grads(params, batch, model.loss, grad_accum=2)
+    agg, _ = aggregate_tree_bucketed(fabric.context, grads, step.policies,
+                                     layout=step.layout)
+    gl, al = dict(T.flatten(grads)), dict(T.flatten(agg))
+    for bucket in lowbit:
+        flat = torch.cat([gl[s.name].reshape(MAIN_W, -1)
+                          for s in bucket.slots], dim=1)
+        if flat.dtype != torch.float32:
+            fail(f"G: bucket payload is {flat.dtype}")
+        want = twin_vote(flat)
+        for s in bucket.slots:
+            if not same(al[s.name].reshape(-1),
+                        want[s.offset:s.offset + s.size]):
+                fail(f"G: aggregate {s.name} differs from the plain twins")
+        del flat, want
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[G grad_accum] aggregates float32, byte-equal to the plain "
+          f"twins; peak memory {peak:.2f} GiB", flush=True)
+    return {"launches": launches}
+
+
+#: the HARD settings of benchmarks/bench_convergence.py
+HARD = dict(steps=700, batch=64, warmup_fp32=50, seed=0)
+HARD_RUNS = {"fp32_all": dict(policy="fp32"),
+             "gbinary_all": dict(policy="gbinary", lr=2e-4),
+             "gbinary_backbone_fp32_head": dict(policy="gbinary",
+                                                head_policy="fp32", lr=2e-4),
+             "sign_of_mean": dict(policy="sign_of_mean", lr=2e-4)}
+#: repro.core.experiments.run_training's (accuracy, traffic ratio) on the
+#: same settings, JAX 0.9.0 on the CPU (the reference; recomputed by
+#: tests/test_torch_experiments.py)
+REFERENCE_CPU = {"fp32_all": (0.890625, 1.0),
+                 "gbinary_all": (0.81201171875, 0.10044642857142858),
+                 "gbinary_backbone_fp32_head": (0.9189453125,
+                                                0.31424555173306806),
+                 "sign_of_mean": (0.95654296875, 1.0),
+                 "pilot": (0.875, None)}
+
+
+def run_harness() -> dict:
+    """Run H: the virtual-worker accuracy harness on the card: the four
+    HARD runs and the guarded pilot of ``benchmarks/bench_recovery.py``."""
+    from repro_torch.core import Commander, CusumGuard, Supervisor
+    from repro_torch.core.experiments import hard_task, run_training
+    from repro_torch.fabric import Telemetry, make_controller
+
+    acc = {}
+    for name, kw in HARD_RUNS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_training(hard_task(), device="cuda", **HARD, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref_acc, ref_ratio = REFERENCE_CPU[name]
+        print(f"[H harness] {name}: accuracy {r.final_acc:.6f} (reference "
+              f"on the CPU {ref_acc:.6f}), traffic ratio "
+              f"{r.traffic_ratio!r}, {dt:.2f} s", flush=True)
+        if abs(r.traffic_ratio - ref_ratio) > 1e-9:
+            fail(f"H {name}: traffic ratio {r.traffic_ratio}, the "
+                 f"reference's {ref_ratio}")
+        if not all(np.isfinite(r.losses)):
+            fail(f"H {name}: non-finite loss")
+        acc[name] = r.final_acc
+    if acc["gbinary_all"] > acc["fp32_all"] - 0.04:
+        fail(f"H: gbinary_all {acc['gbinary_all']} is not 4 points under "
+             f"fp32_all {acc['fp32_all']}")
+    if acc["gbinary_backbone_fp32_head"] < acc["gbinary_all"] + 0.05:
+        fail(f"H: the layer-aware run {acc['gbinary_backbone_fp32_head']} "
+             f"is not 5 points over gbinary_all {acc['gbinary_all']}")
+
+    # benchmarks/bench_recovery.py::_pilot(degrade=(250, 280))
+    cp = make_controller(
+        "paper", commander=Commander(tau_binary=0.2),
+        supervisor=Supervisor(guard=CusumGuard(kappa=0.02, h=0.6),
+                              cooldown_steps=60),
+        warmup_steps=50)
+    lowbit = []
+
+    def callback(step, loss):
+        plan = cp.observe(Telemetry(step=step, loss=loss, cosines={
+            "backbone": {"gbinary": 0.8, "gternary": 0.7},
+            "head": {"gbinary": 0.8, "gternary": 0.7}}))
+        lowbit.append("gbinary" in plan.signature())
+        return ("gbinary", "gbinary") if lowbit[-1] else ("fp32", "fp32")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = run_training(hard_task(), policy="fp32", steps=600, batch=64,
+                     lr=2e-4, warmup_fp32=0, degrade=(250, 280),
+                     plan_callback=callback, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    kinds = [e.kind for e in cp.events]
+    traffic = sum(1 / 32 if lb else 1.0 for lb in lowbit) / len(lowbit)
+    print(f"[H harness] pilot: accuracy {r.final_acc:.6f} (reference on the "
+          f"CPU {REFERENCE_CPU['pilot'][0]:.6f}), low-bit steps "
+          f"{sum(lowbit)} of {len(lowbit)}, traffic ratio {traffic!r}, "
+          f"{dt:.2f} s, events {[(e.step, e.kind) for e in cp.events]}",
+          flush=True)
+    if not {"admitted", "recovery", "readmitted"} <= set(kinds):
+        fail(f"H pilot: events {kinds}")
+    return {"launches": {}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -1180,7 +1526,8 @@ def main() -> None:
             lambda: run_mean_codec("C int4", "int4_backbone", "int4_quant"),
             lambda: run_mean_codec("D top-k", "topk_backbone",
                                    "threshold_mask"),
-            run_host_local)
+            run_host_local, run_paper_controller, run_grad_accum,
+            run_harness)
     for fn in runs:
         run = fn()
         for k, v in run.pop("launches").items():

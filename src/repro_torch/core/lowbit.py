@@ -15,7 +15,9 @@ without it.  Semantics (paper Section 2, identical across schedules):
     sign bits, ``all_to_all`` to the owner of each element range, owner
     PopCount/majority, ``all_gather`` of the packed ternary pair.
 
-FP32 aggregation stays available per bucket (:func:`fp32_allreduce`).
+FP32 aggregation stays available per bucket (:func:`fp32_allreduce`),
+and so do the paper's Section 9 baselines (:func:`majority_sign_sgd`,
+:func:`sign_of_mean`).
 Optional per-worker error feedback (EF-signSGD) is injected before the
 vote and updated after it: in the fused kernels on ``packed_a2a`` with a
 kernel set, in plain torch everywhere else.
@@ -44,6 +46,12 @@ def fp32_allreduce(g: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # shared helpers
 # ---------------------------------------------------------------------------
+
+def signum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: -1, 0 or +1, with -0.0 and NaN passed through
+    (``torch.sign`` maps both to +0.0)."""
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+
 
 def _flat_index_gate(shape, phase: int, dtype=torch.float32,
                      device="cpu") -> torch.Tensor:
@@ -133,6 +141,23 @@ def lowbit_packed_a2a(g: torch.Tensor, group, num_workers: int, *,
     sw, mw = K.majority_decode(counts, gate, num_workers=w)
     u = KF.gather_decode(sw, mw, group, r, n, g.dtype)
     return u.reshape(g.shape[1:]), _ef_update(g_eff, ef)
+
+
+# ---------------------------------------------------------------------------
+# Section 9 baselines
+# ---------------------------------------------------------------------------
+
+def majority_sign_sgd(g: torch.Tensor, group, num_workers: int):
+    """MajoritySignSGD: the software sign baseline, G-Binary's update
+    rule on the dense vote schedule (paper Section 9)."""
+    u, _ = lowbit_vote_psum(g, group, num_workers)
+    return u
+
+
+def sign_of_mean(g: torch.Tensor, group) -> torch.Tensor:
+    """SignOfMean: the sign taken after the FP32 mean (the optimizer
+    reference; not communication-comparable)."""
+    return signum(group.all_reduce_mean(g)).to(g.dtype)
 
 
 # ---------------------------------------------------------------------------

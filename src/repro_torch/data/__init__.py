@@ -1,4 +1,6 @@
 """Synthetic data pipelines of the port."""
-from .pipeline import MarkovLM, SyntheticLMStream
+from .pipeline import (ClassificationTask, MarkovLM, Prefetcher,
+                       SyntheticLMStream, make_cluster_task)
 
-__all__ = ["MarkovLM", "SyntheticLMStream"]
+__all__ = ["ClassificationTask", "MarkovLM", "Prefetcher",
+           "SyntheticLMStream", "make_cluster_task"]

@@ -3,7 +3,13 @@ from . import backends  # noqa: F401  (registers the built-in schedules)
 from . import extra_codecs  # noqa: F401  (registers int4 / topk)
 from .codecs import (Codec, GradientCodec, MaskGate, available_codecs,
                      get_codec, register_codec, unregister_codec)
-from .control import plan_presets
+from .control import (Controller, ControlEvent, FP32Controller,
+                      PaperController, Phase, PolicyProgram, StaticController,
+                      Telemetry, available_controllers, get_controller,
+                      make_controller, plan_from_jsonable, plan_presets,
+                      plan_to_jsonable, register_controller,
+                      register_plan_preset, unregister_controller,
+                      unregister_plan_preset)
 from .registry import (AggregationContext, ScheduleBackend,
                        available_schedules, get_schedule, register_schedule,
                        unregister_schedule)
@@ -11,10 +17,15 @@ from .session import (Fabric, TrainState, aggregate_leaf, aggregate_tree,
                       aggregate_tree_bucketed, layout_kernel_stats)
 
 __all__ = [
-    "AggregationContext", "Codec", "Fabric", "GradientCodec", "MaskGate",
-    "ScheduleBackend", "TrainState", "aggregate_leaf", "aggregate_tree",
-    "aggregate_tree_bucketed", "available_codecs", "available_schedules",
-    "get_codec", "get_schedule", "layout_kernel_stats", "plan_presets",
-    "register_codec", "register_schedule", "unregister_codec",
-    "unregister_schedule",
+    "AggregationContext", "Codec", "ControlEvent", "Controller",
+    "FP32Controller", "Fabric", "GradientCodec", "MaskGate",
+    "PaperController", "Phase", "PolicyProgram", "ScheduleBackend",
+    "StaticController", "Telemetry", "TrainState", "aggregate_leaf",
+    "aggregate_tree", "aggregate_tree_bucketed", "available_codecs",
+    "available_controllers", "available_schedules", "get_codec",
+    "get_controller", "get_schedule", "layout_kernel_stats",
+    "make_controller", "plan_from_jsonable", "plan_presets",
+    "plan_to_jsonable", "register_codec", "register_controller",
+    "register_plan_preset", "register_schedule", "unregister_codec",
+    "unregister_controller", "unregister_plan_preset", "unregister_schedule",
 ]

@@ -1,17 +1,19 @@
 """Built-in schedule backends: the paper's collectives behind the registry.
 
-Port of ``repro/fabric/backends.py:38-190`` (psum, vote_psum and
-packed_a2a).  Backends are codec-parametric and all fusable: besides the
-per-leaf ``aggregate`` they implement ``aggregate_flat`` over a
-(ranks, N) bucket payload, one collective per bucket.  A codec's kernel
-set runs the packed vote (``packed_a2a``) or the encode around the mean
-(``psum``, the int4 and top-k kernels).
+Port of ``repro/fabric/backends.py:38-217`` (psum, vote_psum, also
+registered as the ``majority_sign_sgd`` baseline, packed_a2a and the
+``sign_of_mean`` baseline).  Backends are codec-parametric and all
+fusable: besides the per-leaf ``aggregate`` they implement
+``aggregate_flat`` over a (ranks, N) bucket payload, one collective per
+bucket.  A codec's kernel set runs the packed vote (``packed_a2a``) or
+the encode around the mean (``psum``, the int4 and top-k kernels).
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.lowbit import fp32_allreduce, lowbit_packed_a2a, lowbit_vote_psum
+from ..core.lowbit import (fp32_allreduce, lowbit_packed_a2a,
+                           lowbit_vote_psum, sign_of_mean)
 from ..core.modes import Schedule
 from .codecs import get_codec, resolve_leaf_gate_mask, ring_wire_bytes
 from .registry import AggregationContext, register_schedule
@@ -64,9 +66,13 @@ class Fp32AllreduceBackend:
                                num_workers)
 
 
-@register_schedule(Schedule.VOTE_PSUM)
+@register_schedule(Schedule.VOTE_PSUM, "majority_sign_sgd")
 class VotePsumBackend:
-    """Dense sign votes + one integer all-reduce (uses no kernel)."""
+    """Dense sign votes + one integer all-reduce (uses no kernel).
+
+    Registered as ``majority_sign_sgd`` too: the software baseline has
+    G-Binary's update rule on this schedule (paper Section 9).
+    """
 
     name = "vote_psum"
     fusable = True
@@ -130,3 +136,26 @@ class PackedA2ABackend:
         # all_to_all of packed signs + all_gather of sign+mask words
         return (ring_wire_bytes(n_elements / 8.0, num_workers, trips=1.0)
                 + ring_wire_bytes(n_elements / 4.0, num_workers, trips=1.0))
+
+
+@register_schedule("sign_of_mean")
+class SignOfMeanBackend:
+    """Sign after the FP32 mean: the optimizer reference, FP32 wire cost."""
+
+    name = "sign_of_mean"
+    fusable = True
+    threads_ef = False
+
+    def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
+        return sign_of_mean(g, ctx.group), ef
+
+    def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
+                       gate=None):
+        return sign_of_mean(flat, ctx.group)
+
+    def wire_bytes_per_device(self, n_elements: int, mode,
+                              num_workers: int) -> float:
+        # the full-precision reduction has already happened, whatever
+        # the nominal codec: priced as the psum transport's fp32 payload
+        return ring_wire_bytes(get_codec("fp32").payload_bytes(n_elements),
+                               num_workers)

@@ -9,8 +9,8 @@ instead of branching on a mode enum.
 
 The reference's ``pallas_kernels()`` hook is named :meth:`GradientCodec.
 kernel_set` here: it returns the codec's fused
-:class:`~repro_torch.kernels.fused.KernelSet` (hand-written CUDA kernels).
-The port compiles no steps, so it has no ``kernel_signature()`` cache key.
+:class:`~repro_torch.kernels.fused.KernelSet` (hand-written CUDA kernels),
+whose signature (``kernel_signature()``) keys the session's built steps.
 Of the KV-cache capability only the ``kv_cache`` flag and the int4
 codec's ``kv_encode`` are here; the rest belongs to the serving engine,
 still to port, as the simulator lane descriptor belongs to ``sim``.
@@ -135,6 +135,11 @@ class GradientCodec:
         """The codec's fused :class:`~repro_torch.kernels.fused.KernelSet`
         (None when it brings none); the reference's ``pallas_kernels``."""
         return None
+
+    def kernel_signature(self) -> str | None:
+        """Step-cache key component for the codec's kernel set (or None)."""
+        ks = self.kernel_set()
+        return None if ks is None else ks.signature()
 
     # -- accounting ------------------------------------------------------
     def payload_bytes(self, n_elements: int) -> float:

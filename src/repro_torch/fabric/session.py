@@ -3,7 +3,9 @@
 Port of ``repro/fabric/session.py``.  A :class:`Fabric` owns the worker
 group, group assignment, policy resolution, error-feedback state,
 schedule dispatch (by default through fused 32 MiB buckets, one
-collective per bucket) and the train step.
+collective per bucket), the train step with its cosine diagnostics and
+gradient accumulation, a cache of built steps keyed on the plan
+signature, and the attached admission controller.
 
 Gradients reach the session with the group's local ranks on their
 leading axis — for the :class:`~repro_torch.core.collectives.VirtualGroup`
@@ -21,11 +23,13 @@ import torch
 
 from ..core import tree as T
 from ..core.buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan,
-                            BucketLayout, GroupRules, dtype_name,
-                            group_sizes, plan_buckets, resolve_policies)
+                            BucketLayout, GroupRules, assign_groups,
+                            dtype_name, group_sizes, plan_buckets,
+                            resolve_policies)
 from ..core.collectives import VirtualGroup
+from ..core.diagnostics import group_cosines_from_mean
 from ..core.lowbit import _ef_update
-from ..core.modes import wire_schedule
+from ..core.modes import codec_name, wire_schedule
 from .codecs import get_codec
 from .registry import AggregationContext, get_schedule
 
@@ -83,6 +87,22 @@ def _registry_fusable(schedule: str) -> bool:
         return bool(getattr(get_schedule(schedule), "fusable", False))
     except KeyError:
         return False        # the per-leaf path raises the registry error
+
+
+def _codec_kernel_sig(mode) -> str | None:
+    """A mode's kernel-set signature; None when it brings no kernels (or
+    is not registered: the dispatch raises the real error)."""
+    try:
+        codec = get_codec(mode)
+    except KeyError:
+        return None
+    hook = getattr(codec, "kernel_signature", None)
+    return hook() if hook is not None else None
+
+
+def plan_modes(plan: AdmissionPlan) -> set:
+    """Every codec mode an admission plan can route a leaf to."""
+    return {pol.mode for _, pol in plan.policies} | {plan.default.mode}
 
 
 def layout_kernel_stats(layout: BucketLayout, num_workers: int) -> dict:
@@ -247,7 +267,25 @@ class Fabric:
         self.bucket_bytes = int(bucket_bytes)
         self.fused = bool(fused)
         self.fused_kernels = bool(fused_kernels)
+        self.controller = None           # the attached admission controller
+        self._steps: dict[tuple, Callable] = {}
         self._layouts: dict[tuple, BucketLayout] = {}
+
+    # -- admission controller -------------------------------------------
+
+    def attach_controller(self, controller, **kwargs):
+        """Attach an admission controller: an instance, or a registered
+        name with ``kwargs`` for its factory (``attach_controller("paper",
+        warmup_steps=50)``).  A Trainer built on this session picks it
+        up.  Returns the controller."""
+        from .control import make_controller
+        if isinstance(controller, str):
+            controller = make_controller(controller, **kwargs)
+        elif kwargs:
+            raise TypeError("factory kwargs are only valid when attaching "
+                            "a controller by registered name")
+        self.controller = controller
+        return controller
 
     @property
     def context(self) -> AggregationContext:
@@ -261,6 +299,10 @@ class Fabric:
 
     def group_sizes(self, params_like: Any) -> dict[str, int]:
         return group_sizes(params_like, self.rules)
+
+    def groups(self, params_like: Any) -> dict:
+        """Params tree -> tree of group names."""
+        return assign_groups(params_like, self.rules)
 
     def init_ef(self, params: Any, policies: Any,
                 dtype=torch.float32) -> dict:
@@ -301,44 +343,71 @@ class Fabric:
     # -- step builder ---------------------------------------------------
 
     def worker_grads(self, params: dict, batch: dict,
-                     loss: Callable[[dict, dict], torch.Tensor]):
+                     loss: Callable[[dict, dict], torch.Tensor],
+                     grad_accum: int = 1):
         """Each worker's gradients on its shard of the global batch.
 
         Returns ``(grads, loss)``: a tree of ``(W, *shape)`` gradients
-        and the loss averaged over workers.
+        and the loss averaged over workers.  With ``grad_accum > 1`` each
+        shard is cut into that many microbatches whose gradients sum in
+        float32 and are divided by ``grad_accum``, as is their loss: the
+        gradients stay float32 whatever the parameters' dtype, as in the
+        reference.
         """
         w = self.num_workers
         items = T.flatten(params)
         leaves = [p for _, p in items]
-        grads = [torch.empty((w, *p.shape), dtype=p.dtype, device=p.device)
+        accum = grad_accum > 1
+        grads = [torch.zeros((w, *p.shape), dtype=torch.float32,
+                             device=p.device) if accum else
+                 torch.empty((w, *p.shape), dtype=p.dtype, device=p.device)
                  for p in leaves]
         losses = []
         for k, shard in enumerate(_split_batch(batch, w)):
-            lval = loss(params, shard)
-            for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):
-                buf[k].copy_(g)
-            losses.append(lval.detach())
+            if not accum:
+                lval = loss(params, shard)
+                for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):
+                    buf[k].copy_(g)
+                losses.append(lval.detach())
+                continue
+            lacc = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            for mb in _split_microbatches(shard, grad_accum):
+                lval = loss(params, mb)
+                for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):
+                    buf[k].add_(g.to(torch.float32))
+                lacc = lacc + lval.detach()
+            for buf in grads:
+                buf[k].div_(grad_accum)
+            losses.append(lacc / grad_accum)
         gtree = T.unflatten([(p, g) for (p, _), g in zip(items, grads)])
         return gtree, self.group.all_reduce_mean(torch.stack(losses))
 
     def build_step(self, optimizer, plan: AdmissionPlan, params_like: Any,
-                   loss: Callable[[dict, dict], torch.Tensor]) -> Callable:
+                   loss: Callable[[dict, dict], torch.Tensor], *,
+                   with_diagnostics: bool = False,
+                   grad_accum: int = 1) -> Callable:
         """One data-parallel train step under ``plan``.
 
         The step computes each virtual worker's loss and gradients on its
         shard of the batch (``loss(params, batch)``), aggregates them
-        through the bucket layout, and applies the optimizer once to the
-        one replicated parameter copy.  The loss is the mean over
-        workers, as ``pmean`` gives.  Returns ``step(state, batch) ->
-        (state, metrics, aggregates)``.
+        through the bucket layout (planned on ``params_like``), and
+        applies the optimizer once to the one replicated parameter copy.
+        The loss is the mean over workers, as ``pmean`` gives.
+        ``grad_accum`` cuts each shard into that many microbatches (see
+        :meth:`worker_grads`); a step still runs one aggregation.
+        ``with_diagnostics`` adds the per-group cosines of the aggregate
+        (``metrics["cos/{group}/gbinary"]`` and ``.../gternary``).
+        Returns ``step(state, batch) -> (state, metrics, aggregates)``.
         """
         policies = self.resolve(params_like, plan)
         layout = self.layout_for(params_like, policies) if self.fused else None
+        groups = self.groups(params_like)
         ctx = self.context
 
         def step(state: TrainState, batch: dict):
             params = state.model.tree()
-            gtree, lval = self.worker_grads(params, batch, loss)
+            gtree, lval = self.worker_grads(params, batch, loss, grad_accum)
             if layout is not None:
                 agg, new_ef = aggregate_tree_bucketed(
                     ctx, gtree, policies, ef_states=state.ef, layout=layout)
@@ -346,17 +415,64 @@ class Fabric:
                 agg, new_ef = aggregate_tree(ctx, gtree, policies,
                                              ef_states=state.ef)
             del gtree
-            gn = torch.sqrt(sum(torch.sum(x.to(torch.float32) ** 2)
-                                for x in T.leaves(agg)))
+            metrics = {"loss": lval}
+            if with_diagnostics:
+                cos = group_cosines_from_mean(agg, groups)
+                for g, d in sorted(cos.items()):
+                    metrics[f"cos/{g}/gbinary"] = d["gbinary"]
+                    metrics[f"cos/{g}/gternary"] = d["gternary"]
+            metrics["agg_norm"] = torch.sqrt(sum(
+                torch.sum(x.to(torch.float32) ** 2) for x in T.leaves(agg)))
             with torch.no_grad():
                 opt = optimizer.apply(params, agg, state.opt)
-            metrics = {"loss": lval, "agg_norm": gn}
             return (TrainState(model=state.model, opt=opt, ef=new_ef,
                                step=state.step + 1), metrics, agg)
 
         step.layout = layout
         step.policies = policies
         return step
+
+    def step_for(self, optimizer, plan: AdmissionPlan, params_like: Any,
+                 loss: Callable[[dict, dict], torch.Tensor], *,
+                 with_diagnostics: bool = False,
+                 grad_accum: int = 1) -> Callable:
+        """Cached :meth:`build_step`: one built step per plan signature
+        (the controller's mode latch), keyed as the reference keys its
+        compiled steps, also on the optimizer and the loss, the session's
+        ``fused`` and ``fused_kernels`` switches, the kernel signatures of
+        the plan's codecs and the worker count."""
+        kern_sig = tuple(sorted(
+            (codec_name(m), _codec_kernel_sig(m)) for m in plan_modes(plan)))
+        key = (plan.signature(), with_diagnostics, grad_accum, optimizer,
+               loss, self.fused, self.fused_kernels, kern_sig,
+               self.num_workers)
+        if key not in self._steps:
+            self._steps[key] = self.build_step(
+                optimizer, plan, params_like, loss,
+                with_diagnostics=with_diagnostics, grad_accum=grad_accum)
+        return self._steps[key]
+
+    def clear_cache(self) -> None:
+        self._steps.clear()
+        self._layouts.clear()
+
+
+def _split_microbatches(batch: dict, grad_accum: int) -> list[dict]:
+    """One worker's shard cut into ``grad_accum`` equal microbatches.
+
+    Raises when the shard does not divide: a silent cut would drop its
+    trailing samples.
+    """
+    for x in batch.values():
+        if x.shape[0] % grad_accum:
+            raise ValueError(
+                f"grad_accum={grad_accum} must divide the per-device batch "
+                f"size, but got a batch leaf of shape {tuple(x.shape)} "
+                f"({x.shape[0]} % {grad_accum} = {x.shape[0] % grad_accum}); "
+                f"trailing samples would be silently dropped")
+    n = next(iter(batch.values())).shape[0] // grad_accum
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(grad_accum)]
 
 
 def _split_batch(batch: dict, w: int) -> list[dict]:

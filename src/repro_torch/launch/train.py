@@ -9,9 +9,13 @@ Example, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
       --smoke --device cpu --mesh 4,1 --steps 2 --plan gbin_packed
 
-The flags of parts still to port (controllers, autotuning,
-checkpointing, forced host device counts) are accepted and raise when
-set.
+  # the paper controller (warm-up -> calibrate -> admit -> guarded):
+  ... --controller paper --warmup-steps 1    # equivalent: --plan adaptive
+
+``--controller`` accepts any registered controller: ``paper``
+(``adaptive``), ``static`` (with a concrete ``--plan``) and ``fp32``.
+The flags of parts still to port (autotuning, checkpointing, forced host
+device counts) are accepted and raise when set.
 """
 import argparse
 import logging
@@ -20,11 +24,10 @@ import logging
 _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
                  "gter_backbone", "gter_vote", "lowbit_all",
                  "gbin_packed_all", "gbin_packed_embed", "int4_backbone",
-                 "topk_backbone"]
+                 "topk_backbone", "adaptive"]
 
 #: flags of the reference launcher whose machinery is still to port
-_NOT_PORTED = ("controller", "autotune", "autotune_out", "ckpt_dir",
-               "device_count")
+_NOT_PORTED = ("autotune", "autotune_out", "ckpt_dir", "device_count")
 
 
 def main(argv=None):
@@ -40,7 +43,8 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--plan", default="gbin_backbone", choices=_PLAN_CHOICES)
     ap.add_argument("--controller", default=None,
-                    help="admission controller (still to port)")
+                    help="registered admission controller driving the run "
+                         "(paper, adaptive, static, fp32); overrides --plan")
     ap.add_argument("--autotune", action="store_true",
                     help="plan autotuning (still to port)")
     ap.add_argument("--autotune-topology", default="ici_ring")
@@ -85,10 +89,23 @@ def main(argv=None):
                              batch=args.global_batch, seed=args.seed)
     opt_cls = AdamW if args.optimizer == "adamw" else SgdMomentum
     optimizer = opt_cls(peak_lr=args.lr, total_steps=args.steps)
-    plan = plan_presets(error_feedback=args.error_feedback)[args.plan]
-    trainer = Trainer(cfg, optimizer, data, plan=plan,
-                      fabric=Fabric(num_workers=workers), seed=args.seed,
-                      device=args.device)
+    plans = plan_presets(error_feedback=args.error_feedback)
+    fabric = Fabric(num_workers=workers)
+    plan = None
+    controller = args.controller or (
+        "paper" if args.plan == "adaptive" else None)
+    if controller in ("paper", "adaptive"):
+        fabric.attach_controller(controller, warmup_steps=args.warmup_steps)
+    elif controller == "static":
+        if args.plan == "adaptive":
+            ap.error("--controller static needs a concrete --plan preset")
+        fabric.attach_controller("static", plan=plans[args.plan])
+    elif controller is not None:
+        fabric.attach_controller(controller)
+    else:
+        plan = plans[args.plan]
+    trainer = Trainer(cfg, optimizer, data, plan=plan, fabric=fabric,
+                      seed=args.seed, device=args.device)
     history = trainer.run(args.steps)
     last = history[-1]
     print(f"final: step={last['step']} loss={last['loss']:.4f} "

@@ -511,3 +511,124 @@ def test_mean_codecs_match_cpu_twin_path(cuda, preset, fused, fused_kernels):
     for (p, a), (_, b) in zip(T.flatten(got), T.flatten(want)):
         assert a.dtype == b.dtype and a.shape == b.shape
         torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the control plane on the card
+# ---------------------------------------------------------------------------
+
+def _smoke_paper_trainer(device, init=None):
+    from repro_torch.configs import get_config
+    from repro_torch.core import Commander, Schedule
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import make_controller
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+
+    cfg = get_config("qwen3_0p6b", smoke=True)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=16, batch=8,
+                             seed=0)
+    trainer = Trainer(
+        cfg, AdamW(peak_lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-2),
+        data, fabric=Fabric(num_workers=4), device=device,
+        controller=make_controller(
+            "paper", commander=Commander(schedule=Schedule.PACKED_A2A),
+            warmup_steps=2))
+    trainer.init_state()
+    if init is not None:
+        with torch.no_grad():
+            for t, x in zip(T.leaves(trainer.state.model.tree()), init):
+                t.copy_(x)
+    return trainer
+
+
+def test_paper_trainer_on_the_card_admits_as_on_the_cpu(cuda):
+    """The SMOKE-config paper Trainer (W = 4, warm-up 2, packed schedule)
+    from the same parameters on the CPU twins and on the card: the same
+    events and admitted plan; on the card the admitted packed buckets
+    launch sign_pack, vote_combine and unpack_ternary once each a step,
+    and the FP32 warm-up launches nothing."""
+    cpu = _smoke_paper_trainer("cpu")
+    init = [t.detach().clone() for t in T.leaves(cpu.state.model.tree())]
+    card = _smoke_paper_trainer(cuda, [x.to(cuda) for x in init])
+    cpu.run(4)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    per_step = []
+    for k in range(4):
+        before = {n: fn.launches for n, fn in kernel_wrappers().items()}
+        card.run(k + 1)
+        per_step.append({n: fn.launches - before[n]
+                         for n, fn in kernel_wrappers().items()})
+    log = lambda c: [(e.step, e.kind, e.plan_signature)  # noqa: E731
+                     for e in c.controller.events]
+    assert log(card) == log(cpu)
+    assert [(s, k) for s, k, _ in log(card)] == [(1, "warmup_end"),
+                                                (1, "admitted")]
+    plan = card.controller.plan
+    layout = card.fabric.layout_for(card.state.model.tree(), plan)
+    packed = sum(b.key.schedule == "packed_a2a" for b in layout.buckets)
+    assert packed
+    path = {"sign_pack", "vote_combine", "unpack_ternary"}
+    for k, got in enumerate(per_step):
+        want = packed if k >= 2 else 0
+        assert got == {n: (want if n in path else 0) for n in got}, k
+    for a, b in zip(card.history, cpu.history):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+
+
+def test_grad_accum_launches_float32_unpack_ternary(cuda):
+    """``grad_accum=2`` on a bfloat16 model: the float32 accumulated
+    gradients ride the bf16-planned buckets, so each packed bucket's
+    decode is a float32 unpack_ternary launch, and its aggregates equal
+    the CPU twins' on the same gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import TrainState
+    from repro_torch.fabric.session import aggregate_tree_bucketed
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config("qwen3_0p6b", smoke=True),
+                              dtype="bfloat16")
+    model = Transformer(cfg, seed=0, device=cuda)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=16, batch=8,
+                             seed=0)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in data.batch_at(0).items()}
+    fabric = Fabric(num_workers=4)
+    params = model.tree()
+    plan = plan_presets()["gbin_packed"]
+    opt = AdamW(peak_lr=1e-3, total_steps=10)
+    step = fabric.build_step(opt, plan, params, model.loss, grad_accum=2)
+    packed = [b for b in step.layout.buckets
+              if b.key.schedule == "packed_a2a"]
+    assert packed and {b.key.dtype for b in packed} == {"bfloat16"}
+    unpack = kernel_wrappers()["unpack_ternary"]
+    by_dtype = dict(unpack.launches_by_dtype)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    grads, _ = fabric.worker_grads(params, batch, model.loss, grad_accum=2)
+    agg, _ = aggregate_tree_bucketed(fabric.context, grads, step.policies,
+                                     layout=step.layout)
+    torch.cuda.synchronize()
+    assert unpack.launches_by_dtype[torch.float32] - \
+        by_dtype[torch.float32] == len(packed)
+    assert unpack.launches_by_dtype[torch.bfloat16] == \
+        by_dtype[torch.bfloat16]
+    assert all(g.dtype == torch.float32 for g in T.leaves(grads))
+    want, _ = aggregate_tree_bucketed(
+        fabric.context, T.map_leaves(lambda g: g.cpu(), grads),
+        step.policies, layout=step.layout)
+    lowbit = {s.name for b in packed for s in b.slots}
+    for (p, a), (_, b) in zip(T.flatten(agg), T.flatten(want)):
+        assert a.dtype == b.dtype == torch.float32
+        if p in lowbit:
+            assert bits_equal(a.cpu(), b), p
+    state = TrainState(model=model, opt=opt.init(params),
+                       ef=fabric.init_ef(params, step.policies))
+    state, metrics, agg = step(state, batch)
+    assert all(u.dtype == torch.float32 for u in T.leaves(agg))
+    assert np.isfinite(float(metrics["loss"]))

@@ -241,3 +241,97 @@ def test_vote_aggregates_in_the_payload_dtype_match_reference(path, dtype):
             np.testing.assert_array_equal(
                 u.view(view).numpy(), ref_u.view(u.view(view).numpy().dtype),
                 p)
+
+
+# ---------------------------------------------------------------------------
+# the Section 9 baselines and the microbatch split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("schedule", ["sign_of_mean", "majority_sign_sgd"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("w", [3, 4])
+def test_section9_baselines_match_reference(schedule, fused, w):
+    """A G-Binary backbone and a G-Ternary embedding table on each
+    baseline's schedule, per leaf and bucketed: every leaf byte-equal to
+    ``repro``'s, and the same wire bytes.  One stated difference: on the
+    dense vote schedule a gated-out element whose vote was -1 is -0.0
+    (``-1 * 0``) in the port and in the eager reference, and +0.0 in the
+    jitted reference, whose ``u * gate`` XLA rewrites; those zeros are
+    compared as zeros."""
+    from repro.core import lowbit as JL
+    from repro.core import wire_bytes_per_device as j_wire
+    from repro_torch.core import VirtualGroup, majority_sign_sgd, sign_of_mean
+
+    rng = np.random.RandomState(40 + w)
+    grads = _grads(rng, w)
+    jplan, plan = _plans(schedule, False)
+    zeros = T.map_leaves(lambda g: jnp.zeros((w,), jnp.float32), grads)
+    want, _ = _run_reference(T.map_leaves(jnp.asarray, grads), zeros, jplan,
+                             w, fused, False)
+    fab = Fabric(num_workers=w, fused=fused)
+    got, _ = fab.aggregate(T.map_leaves(torch.from_numpy, grads), plan)
+    if fused:
+        assert schedule in {b.key.schedule for b in fab.layout_for(
+            T.map_leaves(lambda g: torch.from_numpy(g[0]), grads),
+            plan).buckets}
+    want = dict(T.flatten(want))
+    for path, u in T.flatten(got):
+        ref_u = np.asarray(want[path][0])
+        if path in LOWBIT:
+            u = u.numpy()
+            if schedule == "majority_sign_sgd":      # -0.0 -> +0.0
+                u, ref_u = u + np.float32(0), ref_u + np.float32(0)
+            np.testing.assert_array_equal(u.view(np.int32),
+                                          ref_u.view(np.int32), path)
+        else:
+            np.testing.assert_allclose(u.numpy(), ref_u, rtol=1e-6, atol=0,
+                                       err_msg=path)
+    for mode in ("gbinary", "gternary", "fp32"):
+        assert wire_bytes_per_device(12345, mode, schedule, w) == \
+            j_wire(12345, mode, schedule, w)
+
+    # the free functions of repro/core/lowbit.py:234-253
+    g = grads["backbone"]["w1"]
+    fn = {"sign_of_mean": lambda x: JL.sign_of_mean(x, ("w",)),
+          "majority_sign_sgd": lambda x: JL.majority_sign_sgd(x, ("w",), w)}
+    ref_u = np.asarray(jax.jit(jax.vmap(fn[schedule], axis_name="w"))(
+        jnp.asarray(g)))[0]
+    group = VirtualGroup(w)
+    u = (sign_of_mean(torch.from_numpy(g), group)
+         if schedule == "sign_of_mean" else
+         majority_sign_sgd(torch.from_numpy(g), group, w))
+    np.testing.assert_array_equal(u.numpy().view(np.int32),
+                                  ref_u.view(np.int32))
+
+
+def test_sign_of_mean_keeps_jnp_sign_at_nan():
+    """``torch.sign`` maps NaN to 0; the baseline follows ``jnp.sign``."""
+    from repro.core import lowbit as JL
+    from repro_torch.core import VirtualGroup, sign_of_mean
+
+    g = np.array([[np.nan, 1.0, -2.0, 0.0], [0.5, -3.0, 1.0, 0.0]],
+                 np.float32)
+    ref_u = np.asarray(jax.jit(jax.vmap(
+        lambda x: JL.sign_of_mean(x, ("w",)), axis_name="w"))(
+            jnp.asarray(g)))[0]
+    u = sign_of_mean(torch.from_numpy(g), VirtualGroup(2)).numpy()
+    np.testing.assert_array_equal(u.view(np.int32), ref_u.view(np.int32))
+
+
+def test_ragged_microbatch_split_raises_as_reference():
+    from repro.fabric.session import _split_microbatches as j_split
+    from repro_torch.fabric.session import _split_microbatches
+
+    with pytest.raises(ValueError) as want:
+        j_split({"tokens": jnp.zeros((4, 5), jnp.int32)}, 3)
+    with pytest.raises(ValueError) as got:
+        _split_microbatches({"tokens": torch.zeros((4, 5))}, 3)
+    assert str(got.value) == str(want.value)
+    # a worker's shard of 4 rows does not split in 3: the step raises
+    params = {"w": torch.ones(3, requires_grad=True)}
+    loss = lambda p, b: (p["w"] * b["x"].sum()).sum()  # noqa: E731
+    with pytest.raises(ValueError, match="trailing samples"):
+        Fabric(num_workers=2).worker_grads(
+            params, {"x": torch.ones(8, 3)}, loss, grad_accum=3)
+    parts = _split_microbatches({"x": torch.arange(6)}, 3)
+    assert [p["x"].tolist() for p in parts] == [[0, 1], [2, 3], [4, 5]]
