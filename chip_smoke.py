@@ -88,7 +88,35 @@ Phases (any failure exits non-zero before the result line):
                     points over it) and the guarded pilot of
                     ``benchmarks/bench_recovery.py`` (admitted, recovery
                     and readmitted);
-  6. print the kernels line (launches summed over the runs), the card,
+  6. data parallelism across processes:
+       I. nccl      full qwen3-0.6B on ``Fabric(group=DistributedGroup)``
+                    over NCCL at world size 1 (the group set up in this
+                    process, a ``file://`` store under build/), gbin_packed,
+                    4 x 128 tokens (one worker's share of the main cell),
+                    5 steps: 7 launches each of sign_pack, vote_combine
+                    and bf16 unpack_ternary a step, the group's calls and
+                    bytes by op a step (7 all_to_all, 14 all_gather, one
+                    all_reduce a FP32 bucket and one of the loss) and
+                    their host time, each synchronised; then one set of
+                    this rank's gradients through it and through
+                    ``Fabric(num_workers=1)`` under gbin_packed, packed
+                    G-Ternary, per-leaf EF, the staged chain,
+                    int4_backbone, topk_backbone and fp32: aggregates and
+                    EF residuals byte-equal, zeros of either sign as
+                    zeros;
+       J. replay    qwen3-0.6B at full width and 2 layers (a depth cut:
+                    ~1.9 GB a checkpoint) over NCCL, gbin_packed under the
+                    paper controller (warm-up 2), 8 steps, a checkpoint
+                    every 4 (keep 1) under build/, removed after: once as
+                    it is and once with a failure injected at step 6;
+                    restarts 0 and 1, the last loss, every parameter, the
+                    admitted plan and the events equal; the save and
+                    restore timed;
+       K. gloo      two ranks spawned on cuda:0 over gloo, the bf16 smoke
+                    model, gbin_packed, 2 steps: every step's aggregates,
+                    the losses and the parameters equal to
+                    ``Fabric(num_workers=2)``'s;
+  7. print the kernels line (launches summed over the runs), the card,
      then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -740,11 +768,12 @@ def twin_combine_decode(words: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def drive(name: str, fabric, plan, steps: int, expect: dict,
-          on_step=None) -> dict:
-    """Train full qwen3-0.6B ``steps`` steps under ``plan``; check finite
-    losses, the low-bit aggregates ({-1, 0, +1} for a vote codec, finite
-    for a mean codec) and, per step, exactly ``expect[k]`` launches of
-    each kernel k (0 for the others)."""
+          on_step=None, batch: int = 16) -> dict:
+    """Train full qwen3-0.6B ``steps`` steps under ``plan`` on global
+    batches of ``batch`` x 128 tokens; check finite losses, the low-bit
+    aggregates ({-1, 0, +1} for a vote codec, finite for a mean codec)
+    and, per step, exactly ``expect[k]`` launches of each kernel k (0 for
+    the others)."""
     from repro_torch.configs import get_config
     from repro_torch.core import codec_name
     from repro_torch.core import tree as T
@@ -755,7 +784,7 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
     from repro_torch.runtime import Trainer
 
     cfg = get_config("qwen3_0p6b")
-    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=16,
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=batch,
                              seed=0, learnable=False)
     trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
                                  total_steps=steps),
@@ -776,7 +805,7 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
           f"{sum(p.numel() for p in T.leaves(params))} params, "
           f"{len(lowbit)} low-bit {lowbit[0].key.schedule} "
           f"{'buckets' if fabric.fused else 'leaves'}, modeled "
-          f"{layout_kernel_stats(layout, MAIN_W)}", flush=True)
+          f"{layout_kernel_stats(layout, fabric.num_workers)}", flush=True)
 
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
@@ -1500,6 +1529,395 @@ def run_harness() -> dict:
     return {"launches": {}}
 
 
+# ---------------------------------------------------------------------------
+# data parallelism across processes: NCCL at world size 1, gloo on the card
+# ---------------------------------------------------------------------------
+
+def same_numbers(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Byte equality, except that a zero equals a zero of either sign: a
+    virtual sum of ranks starts from +0.0, NCCL's and gloo's keep the
+    sign of a zero sum."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    zero = (a == 0) & (b == 0)
+    return same(a.masked_fill(zero, 0.0), b.masked_fill(zero, 0.0))
+
+
+def nccl_group():
+    """One NCCL rank in this process (a ``file://`` store under build/)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core import DistributedGroup
+
+    store = os.path.join(ROOT, "build", "nccl_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    group = DistributedGroup(device="cuda:0")
+    print(f"[I nccl] {group!r}, initialised in "
+          f"{time.perf_counter() - t0:.4f} s", flush=True)
+    return group
+
+
+def timed_group():
+    """A DistributedGroup whose collectives synchronise the card before
+    and after, and add their host time to ``seconds`` by op."""
+    from repro_torch.core import DistributedGroup
+
+    class TimedGroup(DistributedGroup):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.seconds: dict = {}
+
+        def _timed(self, op, fn, x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x)
+            torch.cuda.synchronize()
+            self.seconds[op] = self.seconds.get(op, 0.0) + \
+                time.perf_counter() - t0
+            return out
+
+        def psum(self, x):
+            return self._timed("all_reduce", super().psum, x)
+
+        def all_to_all(self, x):
+            return self._timed("all_to_all", super().all_to_all, x)
+
+        def all_gather(self, x):
+            return self._timed("all_gather", super().all_gather, x)
+
+    return TimedGroup(device="cuda:0")
+
+
+def run_nccl(group, steps: int = 5) -> dict:
+    """Run I: full qwen3-0.6B on ``Fabric(group=DistributedGroup)`` over
+    NCCL at world size 1, gbin_packed, one worker's share of the main
+    cell (4 x 128 tokens); then one set of this rank's gradients through
+    it and through ``Fabric(num_workers=1)`` under seven plans, equal
+    byte for byte (zeros of either sign as zeros)."""
+    from repro_torch.core import AdmissionPlan, AggregationMode, Schedule
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, plan_presets
+
+    plan = plan_presets()["gbin_packed"]
+    fabric = Fabric(group=group)
+    traffic = []
+
+    def count(k, before, after):
+        traffic.append((dict(group.calls_by_op), dict(group.bytes_by_op)))
+        group.reset_counts()
+
+    group.reset_counts()
+    run = drive("I nccl", fabric, plan, steps,
+                dict.fromkeys(("sign_pack", "vote_combine", "unpack_ternary"),
+                              LOWBIT_BUCKETS), on_step=count, batch=4)
+    if (run["launches"]["unpack_ternary_bf16"] != steps * LOWBIT_BUCKETS
+            or run["launches"]["unpack_ternary"]):
+        fail(f"I: the bf16 buckets' decodes were not all bf16 launches: "
+             f"{run['launches']}")
+    calls, nbytes = traffic[-1]
+    # a step: one all_to_all and two all_gathers a packed bucket, one
+    # all_reduce a FP32 bucket (embedding, norms) and one of the loss
+    means = sum(key.schedule == "psum" for key, _ in
+                fabric.layout_for(run["params"], plan).launches())
+    want = {"all_to_all": LOWBIT_BUCKETS, "all_gather": 2 * LOWBIT_BUCKETS,
+            "all_reduce": means + 1}
+    if calls != want:
+        fail(f"I: a step's collectives {calls}, expected {want}")
+    print(f"[I nccl] a step's collectives (step {steps - 1}): calls {calls}, "
+          f"bytes {nbytes}", flush=True)
+    # layout_kernel_stats keeps the reference's model, which takes a
+    # world of one for the host-local session (one vote_pipeline a
+    # bucket); the group runs the three-kernel chain, counted above
+    print(f"[I nccl] launches a step: {3 * LOWBIT_BUCKETS} counted (sign_pack, "
+          f"vote_combine, unpack_ternary a bucket); the layout model's "
+          f"{LOWBIT_BUCKETS} is the reference's world-of-one count",
+          flush=True)
+    trainer = run["trainer"]
+    loss = trainer.state.model.loss
+
+    # the host time of a step's collectives, each synchronised
+    tg = timed_group()
+    timed = Fabric(group=tg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _ = timed.worker_grads(run["params"], run["batch"], loss)
+    agg, _ = timed.aggregate(grads, plan)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    print(f"[I nccl] a step's collectives, synchronised: "
+          f"{ {k: round(v, 6) for k, v in tg.seconds.items()} } s "
+          f"({sum(tg.seconds.values()):.6f} s of the {total:.4f} s of "
+          f"worker grads and aggregate; calls {tg.calls_by_op})", flush=True)
+    del agg
+
+    like = T.map_leaves(lambda g: g[0], grads)
+    presets = plan_presets()
+    cases = (
+        ("gbin_packed", plan, {}),
+        ("packed G-Ternary", AdmissionPlan.lowbit_backbone(
+            AggregationMode.G_TERNARY, schedule=Schedule.PACKED_A2A), {}),
+        ("gbin_packed EF, per leaf",
+         plan_presets(error_feedback=True)["gbin_packed"], {"fused": False}),
+        ("staged", plan, {"fused_kernels": False}),
+        ("int4_backbone", presets["int4_backbone"], {}),
+        ("topk_backbone", presets["topk_backbone"], {}),
+        ("fp32", AdmissionPlan.fp32_all(), {}))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, p, kw in cases:
+        a, b = Fabric(group=group, **kw), Fabric(num_workers=1, **kw)
+        ef = None
+        if not kw.get("fused", True):
+            ef = a.init_ef(like, a.resolve(like, p))
+            for e in T.leaves(ef):
+                if e.dim():
+                    e.copy_(1e-3 * torch.randn(e.shape, device="cuda",
+                                               generator=gen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_ef = a.aggregate(grads, p, ef=ef)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want, want_ef = b.aggregate(grads, p, ef=ef)
+        pairs = list(zip(T.flatten(got), T.leaves(want)))
+        if ef is not None:
+            pairs += [(("ef/" + q, x), y) for (q, x), y in
+                      zip(T.flatten(got_ef), T.leaves(want_ef)) if x.dim()]
+        signed = 0
+        for (q, x), y in pairs:
+            if not same_numbers(x, y):
+                fail(f"I {label}: {q} differs from Fabric(num_workers=1)")
+            signed += int(((x == 0) & (torch.signbit(x)
+                                      != torch.signbit(y))).sum())
+        print(f"[I nccl] {label}: aggregate {dt:.4f} s, equal to "
+              f"Fabric(num_workers=1) on {len(pairs)} leaves "
+              f"({signed} zeros of the other sign)", flush=True)
+        del got, got_ef, want, want_ef, ef
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report("I nccl", run)
+    return run
+
+
+def run_restore_replay(group, steps: int = 8, fail_at: int = 6) -> dict:
+    """Run J: qwen3-0.6B at full width and 2 layers over NCCL at world
+    size 1, gbin_packed under the paper controller, checkpoints every 4
+    steps: once as it is and once with a failure at step 6, restored
+    and replayed to the same bits."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import (CheckpointManager, load_train_state,
+                                        restore_latest, train_state_arrays)
+    from repro_torch.configs import get_config
+    from repro_torch.core import Commander, Schedule
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import Fabric, make_controller
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("qwen3_0p6b"), num_layers=2)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=4,
+                             seed=0, learnable=False)
+    root = os.path.join(ROOT, "build", "ckpt_run_j")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def one(failing: bool):
+        ctl = make_controller("paper", warmup_steps=2,
+                              commander=Commander(
+                                  schedule=Schedule.PACKED_A2A))
+        tr = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
+                                total_steps=steps), data, controller=ctl,
+                     fabric=Fabric(group=group), seed=0, device="cuda",
+                     ckpt_dir=os.path.join(root, str(int(failing))),
+                     tcfg=TrainerConfig(checkpoint_interval=4,
+                                        checkpoint_keep=1),
+                     failure_injector=FailureInjector(at_steps=[fail_at])
+                     if failing else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(steps)
+        torch.cuda.synchronize()
+        return tr, time.perf_counter() - t0
+
+    try:
+        a, ta = one(False)
+        b, tb = one(True)
+        la, lb = [h["loss"] for h in a.history], [h["loss"] for h in b.history]
+        print(f"[J replay] unbroken: {ta:.2f} s, losses {la}", flush=True)
+        print(f"[J replay] failure at step {fail_at}: {tb:.2f} s, losses "
+              f"{lb}", flush=True)
+        if (a.restarts, b.restarts) != (0, 1):
+            fail(f"J: restarts {a.restarts}, {b.restarts}; expected 0, 1")
+        if la[-1] != lb[-1] or not all(np.isfinite(la)):
+            fail(f"J: last losses {la[-1]} and {lb[-1]} differ")
+        for (p, x), y in zip(T.flatten(a.state.model.tree()),
+                             T.leaves(b.state.model.tree())):
+            if not same(x.detach(), y.detach()):
+                fail(f"J: parameter {p} differs after the replay")
+        events = [[(e.step, e.kind, e.plan_signature)
+                   for e in tr.controller.events] for tr in (a, b)]
+        plans = [tr.controller.plan.signature() for tr in (a, b)]
+        if events[0] != events[1] or plans[0] != plans[1]:
+            fail(f"J: controllers part: {events}, {plans}")
+        print(f"[J replay] equal: the last loss, every parameter, the plan "
+              f"{plans[0]} and the events {events[0]}", flush=True)
+
+        # the save (snapshot, then the write) and the restore, timed
+        mgr = CheckpointManager(os.path.join(root, "timed"), interval=1,
+                                keep=1, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.maybe_save(steps, lambda: train_state_arrays(b.state, group))
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        path = os.path.join(root, "timed", f"step_{steps:010d}")
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        t3 = time.perf_counter()
+        _, arrays, _ = restore_latest(os.path.join(root, "timed"))
+        t4 = time.perf_counter()
+        load_train_state(b.state, arrays, group)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        print(f"[J replay] checkpoint {size} bytes: snapshot to host "
+              f"{t1 - t0:.4f} s, write {t2 - t1:.4f} s; restore: read "
+              f"{t4 - t3:.4f} s, copy into the state {t5 - t4:.4f} s",
+              flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[J replay] peak memory {peak:.2f} GiB", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {}}
+
+
+K_STEPS = 2
+
+
+def k_trainer(group, device):
+    """Run K's trainer: the bf16 smoke model, gbin_packed, W = 2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+
+    cfg = dataclasses.replace(get_config("qwen3_0p6b", smoke=True),
+                              dtype="bfloat16")
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=16, batch=8,
+                             seed=0)
+    fabric = Fabric(group=group) if group is not None else \
+        Fabric(num_workers=2)
+    return Trainer(cfg, AdamW(peak_lr=1e-3, warmup_steps=1, total_steps=10),
+                   data, plan=plan_presets()["gbin_packed"], fabric=fabric,
+                   seed=0, device=device)
+
+
+def run_k_rank(rank: int, out: str) -> None:
+    """One rank of run K: gloo over CUDA tensors on cuda:0."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core import DistributedGroup
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import kernel_wrappers
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=60))
+    group = DistributedGroup(device="cuda:0")
+    trainer = k_trainer(group, "cuda:0")
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    aggs = []
+    for k in range(K_STEPS):
+        trainer.run(k + 1)
+        aggs.append({p: u.cpu() for p, u in
+                     T.flatten(trainer.last_aggregates)})
+    torch.save({"aggs": aggs,
+                "losses": [h["loss"] for h in trainer.history],
+                "params": {p: x.detach().cpu() for p, x in
+                           T.flatten(trainer.state.model.tree())},
+                "launches": {n: fn.launches
+                             for n, fn in kernel_wrappers().items()},
+                "calls": dict(group.calls_by_op)},
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_gloo_on_card() -> dict:
+    """Run K: two ranks spawned on cuda:0 over gloo (torch 2.11's gloo
+    takes CUDA tensors in all_reduce, all_to_all_single and
+    all_gather_into_tensor), 2 steps of gbin_packed on the bf16 smoke
+    model: every step's aggregates, the losses and the parameters equal
+    to Fabric(num_workers=2)'s, zeros of either sign as zeros."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import kernel_wrappers
+
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--run-k-rank", str(r), out])
+                 for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"K: rank exit codes {[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                 for r in range(2)]
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    trainer = k_trainer(None, "cuda")
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    for k in range(K_STEPS):
+        trainer.run(k + 1)
+        for p, u in T.flatten(trainer.last_aggregates):
+            for r, got in enumerate(ranks):
+                if not same_numbers(got["aggs"][k][p], u.cpu()):
+                    fail(f"K step {k}: rank {r}'s aggregate {p} differs "
+                         f"from Fabric(num_workers=2)'s")
+    virtual = {n: fn.launches for n, fn in wrappers.items()}
+    for r, got in enumerate(ranks):
+        if got["losses"] != [h["loss"] for h in trainer.history]:
+            fail(f"K: rank {r}'s losses {got['losses']}")
+        for p, x in T.flatten(trainer.state.model.tree()):
+            if not same_numbers(got["params"][p], x.detach().cpu()):
+                fail(f"K: rank {r}'s parameter {p} differs")
+        if got["launches"] != virtual or not virtual["vote_combine"]:
+            fail(f"K: rank {r} launched {got['launches']}, the virtual run "
+                 f"{virtual}")
+    print(f"[K gloo on the card] 2 ranks on cuda:0, {K_STEPS} steps: "
+          f"aggregates, losses {ranks[0]['losses']} and parameters equal to "
+          f"Fabric(num_workers=2)'s; each rank launched "
+          f"{ {n: v for n, v in virtual.items() if v} } and called "
+          f"{ranks[0]['calls']}; {spawn_s:.2f} s for the two ranks",
+          flush=True)
+    return {"launches": {}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -1535,6 +1953,20 @@ def main() -> None:
         del run
         free()
 
+    import torch.distributed as dist
+    group = nccl_group()
+    try:
+        for fn in (run_nccl, run_restore_replay):
+            run = fn(group)
+            for k, v in run.pop("launches").items():
+                launches[k] += v
+            del run
+            free()
+    finally:
+        dist.destroy_process_group()
+    run_gloo_on_card()
+    free()
+
     kernels = [{"name": name, "route": "cuda", "source": row["source"],
                 "replaces": row["replaces"], "launches": launches[name],
                 "max_abs_err": row["err"], "ms": row["ms"],
@@ -1550,4 +1982,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--run-k-rank"]:
+        run_k_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

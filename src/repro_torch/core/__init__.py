@@ -4,8 +4,8 @@ from .buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan, Bucket, BucketGate,
                       GroupRules, UnfusedLeaf, assign_groups, group_sizes,
                       leaf_bucket_key, plan_buckets, resolve_policies)
 from .admission import Commander, ControlEvent, CusumGuard, Supervisor
-from .collectives import LocalGroup, VirtualGroup
-from .device import resolve_device
+from .collectives import DistributedGroup, LocalGroup, VirtualGroup
+from .device import rank_device, resolve_device
 from .diagnostics import (cosines_to_host, group_cosines_from_mean,
                           group_cosines_from_workers)
 from .lowbit import (LeafPolicy, fp32_allreduce, lowbit_packed_a2a,
@@ -17,13 +17,15 @@ from .traffic import payload_bytes, plan_traffic_ratio, wire_bytes_per_device
 __all__ = [
     "DEFAULT_BUCKET_BYTES", "AdmissionPlan", "AggregationMode", "Bucket",
     "BucketGate", "BucketKey", "BucketLayout", "BucketSlot", "Commander",
-    "ControlEvent", "CusumGuard", "GroupPolicy", "GroupRules", "LeafPolicy",
+    "ControlEvent", "CusumGuard", "DistributedGroup", "GroupPolicy",
+    "GroupRules", "LeafPolicy",
     "LocalGroup", "Schedule", "Supervisor", "UnfusedLeaf", "VirtualGroup",
     "assign_groups", "bits_per_element", "canonical_mode", "codec_name",
     "cosines_to_host", "fp32_allreduce", "group_cosines_from_mean",
     "group_cosines_from_workers", "group_sizes", "leaf_bucket_key",
     "lowbit_packed_a2a", "lowbit_vote_psum", "majority_sign_sgd",
-    "payload_bytes", "plan_buckets", "plan_traffic_ratio", "resolve_device",
+    "payload_bytes", "plan_buckets", "plan_traffic_ratio", "rank_device",
+    "resolve_device",
     "resolve_policies", "schedule_name", "sign_of_mean",
     "wire_bytes_per_device", "wire_schedule",
 ]

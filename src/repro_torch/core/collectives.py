@@ -16,13 +16,15 @@ ranks are ``0..W-1`` and its collectives are sums, views and reshapes.
 :class:`LocalGroup` is the host-local session of one worker (the
 reference's ``Fabric()`` with no data-parallel axes): every collective is
 the identity on a leading local-rank axis of one, and ``host_local``
-tells the schedules that no collective separates their stages.  A
-``torch.distributed``/NCCL group with one local rank per process fits
-the same interface (ROADMAP queue 1), without touching the schedules.
+tells the schedules that no collective separates their stages.
+:class:`DistributedGroup` is one rank per process over a
+``torch.distributed`` process group (NCCL on the card, gloo on the
+CPU): the reference's ``shard_map`` over its data-parallel mesh axes.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 class VirtualGroup:
@@ -91,3 +93,125 @@ class LocalGroup(VirtualGroup):
 
     def __repr__(self) -> str:
         return "LocalGroup()"
+
+
+class DistributedGroup:
+    """One data-parallel rank per process over a ``torch.distributed``
+    process group (the default group when ``process_group`` is None).
+
+    Inputs carry a leading local-rank axis of one.  ``psum`` and
+    ``all_reduce_mean`` reduce into a buffer of their own and never
+    write to their input (a float32 ``g.to(torch.float32)`` is the
+    caller's gradient itself); ``all_reduce_mean`` is the sum divided by
+    the world size, as :class:`VirtualGroup` takes it (gloo has no
+    ``AVG``).  ``all_to_all`` sends the contiguous ``(W, rw, LANE)``
+    chunks, so the owner shards come back contiguous, ``(1, W, rw,
+    LANE)``.  Sums of ranks keep the sign of a zero sum (-0.0 + -0.0 is
+    -0.0), where a virtual sum starts from +0.0.
+
+    ``host_local`` is False at every world size: the reference's
+    one-device mesh with ``dp_axes=("data",)`` still runs the collective
+    chain.  Tensors must lie on ``device``; the group never moves one,
+    and an NCCL group refuses CPU tensors.  ``calls_by_op`` and
+    ``bytes_by_op`` count each collective and the bytes handed to it
+    (``reset_counts()`` clears them): an instrument for the structure of
+    a step's traffic, not a timer.
+    """
+
+    host_local = False
+
+    def __init__(self, process_group=None, *, device):
+        if not dist.is_initialized():
+            raise RuntimeError("DistributedGroup needs an initialised "
+                               "torch.distributed process group")
+        self.process_group = process_group
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.backend = str(dist.get_backend(process_group))
+        if self.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"an NCCL group runs on a CUDA device, "
+                             f"got {self.device}")
+        self.size = dist.get_world_size(process_group)
+        self._rank = dist.get_rank(process_group)
+        self.calls_by_op: dict[str, int] = {}
+        self.bytes_by_op: dict[str, int] = {}
+
+    def rank(self) -> tuple[int, ...]:
+        """This process's rank, the one local rank."""
+        return (self._rank,)
+
+    def reset_counts(self) -> None:
+        self.calls_by_op.clear()
+        self.bytes_by_op.clear()
+
+    def _count(self, op: str, x: torch.Tensor) -> None:
+        self.calls_by_op[op] = self.calls_by_op.get(op, 0) + 1
+        self.bytes_by_op[op] = (self.bytes_by_op.get(op, 0)
+                                + x.numel() * x.element_size())
+
+    def _on_device(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device != self.device:
+            raise ValueError(f"{self!r} holds tensors on {self.device}, "
+                             f"got one on {x.device}")
+        return x
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 0 or x.shape[0] != 1:
+            raise ValueError(f"expected a leading axis of 1 local rank, "
+                             f"got shape {tuple(x.shape)}")
+        return self._on_device(x)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over ranks (integer inputs sum in their own dtype)."""
+        out = self._local(x)[0].clone(memory_format=torch.contiguous_format)
+        self._count("all_reduce", out)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.process_group)
+        return out
+
+    def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over ranks, as ``pmean``: the sum divided by W."""
+        return self.psum(x) / self.size
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """(1, W, ...) chunks addressed to each rank -> (1, W, ...) chunks
+        received from each rank, in a contiguous buffer."""
+        self._local(x)
+        if x.dim() < 2 or x.shape[1] != self.size:
+            raise ValueError(f"all_to_all needs {self.size} chunks per "
+                             f"rank, got shape {tuple(x.shape)}")
+        send = x[0].contiguous()
+        out = torch.empty_like(send)
+        self._count("all_to_all", send)
+        dist.all_to_all_single(out, send, group=self.process_group)
+        return out.unsqueeze(0)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(1, rows, ...) -> (W * rows, ...), concatenated in rank order."""
+        send = self._local(x)[0].contiguous()
+        out = torch.empty((self.size * send.shape[0], *send.shape[1:]),
+                          dtype=send.dtype, device=send.device)
+        self._count("all_gather", send)
+        # all_gather_into_tensor, not its successor all_gather_single,
+        # which torch 2.11 lacks
+        dist.all_gather_into_tensor(out, send, group=self.process_group)
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Overwrite ``x`` (no leading rank axis) with rank ``src``'s
+        value, in place; returns ``x``."""
+        self._count("broadcast", self._on_device(x))
+        dist.broadcast(x, src=src, group=self.process_group)
+        return x
+
+    def barrier(self) -> None:
+        """Return once every rank has reached this call: a one-element
+        all-reduce on the group's device, read back on the host."""
+        flag = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._count("barrier", flag)
+        dist.all_reduce(flag, group=self.process_group)
+        flag.item()
+
+    def __repr__(self) -> str:
+        return (f"DistributedGroup(rank={self._rank}, size={self.size}, "
+                f"backend={self.backend}, device={self.device})")

@@ -53,6 +53,14 @@ class Telemetry:
     ``cosines`` is ``group -> {"gbinary": cos, "gternary": cos}`` when the
     step ran with diagnostics (calibration), else None.  The record is
     the only channel between the runtime and a controller.
+
+    Under a process group every rank runs its own controller, so a
+    decision may read only replicated values: ``step``, ``loss`` (the
+    mean over ranks), the ``cosines`` of the replicated aggregate,
+    ``traffic_ratio``, ``restart`` and ``plan_signature``.
+    ``step_time_s`` is each rank's own wall time and differs by rank; no
+    shipped controller decides on it.  Ranks that latched different
+    plans would run collectives that no longer match, and hang.
     """
     step: int
     loss: float

@@ -9,10 +9,12 @@ signature, and the attached admission controller.
 
 Gradients reach the session with the group's local ranks on their
 leading axis — for the :class:`~repro_torch.core.collectives.VirtualGroup`
-all W workers, ``(W, *shape)`` per leaf — and aggregates leave it
-replicated, ``(*shape)``.  Error-feedback trees hold ``(W, *shape)``
-residuals where EF is on and a scalar 0 sentinel elsewhere, as the
-reference's global EF tree does.
+all W workers, ``(W, *shape)`` per leaf; for a process of a
+:class:`~repro_torch.core.collectives.DistributedGroup` its one rank,
+``(1, *shape)`` — and aggregates leave it replicated, ``(*shape)``.
+Error-feedback trees hold one residual row per local rank where EF is on
+and a scalar 0 sentinel elsewhere; the W rows of a virtual group are the
+reference's global EF tree.
 """
 from __future__ import annotations
 
@@ -236,7 +238,12 @@ class Fabric:
 
     ``Fabric(num_workers=W)`` runs W virtual data-parallel workers on one
     device (the reference's ``Fabric(dp_axes=("w",), num_workers=W)``
-    under ``vmap``).  ``Fabric(group=LocalGroup())`` is the host-local
+    under ``vmap``).  ``Fabric(group=DistributedGroup(device=...))`` runs
+    one rank per process over ``torch.distributed`` (the reference's
+    ``shard_map`` over its mesh's data axes): each process computes its
+    own shard's gradients and holds its own EF rows, and the aggregates
+    are the virtual group's bits (FP32 means to the summation order).
+    ``Fabric(group=LocalGroup())`` is the host-local
     session of one worker (the reference's ``Fabric()``, no
     data-parallel axes): gradients keep a leading axis of one, every
     collective is the identity, and a packed vote bucket or leaf is one
@@ -306,9 +313,14 @@ class Fabric:
 
     def init_ef(self, params: Any, policies: Any,
                 dtype=torch.float32) -> dict:
-        """EF tree: ``(W, *shape)`` zeros where EF is on, scalar 0 else."""
+        """EF tree: ``(L, *shape)`` zeros where EF is on, scalar 0 else,
+        one row for each of the group's L local ranks (all W workers of
+        a :class:`VirtualGroup`, this process's one rank of a
+        :class:`~repro_torch.core.collectives.DistributedGroup`)."""
+        local = len(self.group.rank())
+
         def make(p, pol):
-            shape = (self.num_workers, *p.shape) if pol.error_feedback else ()
+            shape = (local, *p.shape) if pol.error_feedback else ()
             return torch.zeros(shape, dtype=dtype, device=p.device)
         return T.map_leaves(make, params, policies)
 
@@ -345,25 +357,33 @@ class Fabric:
     def worker_grads(self, params: dict, batch: dict,
                      loss: Callable[[dict, dict], torch.Tensor],
                      grad_accum: int = 1):
-        """Each worker's gradients on its shard of the global batch.
+        """Each local rank's gradients on its shard of the global batch.
 
-        Returns ``(grads, loss)``: a tree of ``(W, *shape)`` gradients
-        and the loss averaged over workers.  With ``grad_accum > 1`` each
+        Rank ``r`` of W takes rows ``[r * b / W, (r + 1) * b / W)`` of
+        the global batch of ``b`` rows, as the reference's ``P(dp)``
+        batch sharding lays it out; the group's local ranks
+        (``group.rank()``) are computed here, all W for a
+        :class:`VirtualGroup`, one for a process of a distributed group.
+        Returns ``(grads, loss)``: a tree of ``(L, *shape)`` gradients,
+        one row per local rank, and the loss averaged over all W ranks.
+        With ``grad_accum > 1`` each
         shard is cut into that many microbatches whose gradients sum in
         float32 and are divided by ``grad_accum``, as is their loss: the
         gradients stay float32 whatever the parameters' dtype, as in the
         reference.
         """
-        w = self.num_workers
+        ranks = self.group.rank()
+        shards = _split_batch(batch, self.num_workers)
         items = T.flatten(params)
         leaves = [p for _, p in items]
         accum = grad_accum > 1
-        grads = [torch.zeros((w, *p.shape), dtype=torch.float32,
+        grads = [torch.zeros((len(ranks), *p.shape), dtype=torch.float32,
                              device=p.device) if accum else
-                 torch.empty((w, *p.shape), dtype=p.dtype, device=p.device)
+                 torch.empty((len(ranks), *p.shape), dtype=p.dtype,
+                             device=p.device)
                  for p in leaves]
         losses = []
-        for k, shard in enumerate(_split_batch(batch, w)):
+        for k, shard in enumerate(shards[r] for r in ranks):
             if not accum:
                 lval = loss(params, shard)
                 for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):

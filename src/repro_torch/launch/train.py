@@ -1,24 +1,35 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
 Same flags as ``python -m repro.launch.train``.  ``--mesh W,1`` (or
-``P,D,1``) runs W (= P*D) virtual data-parallel workers on the one
-device; a model axis other than 1 raises, since tensor parallelism is
-still to port.  ``--device`` picks the device (``cuda`` by default).
-Example, on the CPU:
+``P,D,1``) runs W (= P*D) data-parallel workers; a model axis other
+than 1 raises, since tensor parallelism is still to port.  ``--device``
+picks the device (``cuda`` by default).  Started by ``torchrun`` (which
+sets ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``), each process is one
+rank of a ``torch.distributed`` group — NCCL on ``cuda:LOCAL_RANK`` for
+``--device cuda``, gloo for ``--device cpu`` — and the mesh's data
+extent must equal ``WORLD_SIZE``; otherwise the W workers are virtual,
+on the one device.  Examples, on the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
       --smoke --device cpu --mesh 4,1 --steps 2 --plan gbin_packed
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch qwen3_0p6b --smoke \\
+      --device cpu --mesh 2,1 --steps 2 --plan gbin_packed
 
   # the paper controller (warm-up -> calibrate -> admit -> guarded):
   ... --controller paper --warmup-steps 1    # equivalent: --plan adaptive
 
 ``--controller`` accepts any registered controller: ``paper``
 (``adaptive``), ``static`` (with a concrete ``--plan``) and ``fp32``.
-The flags of parts still to port (autotuning, checkpointing, forced host
-device counts) are accepted and raise when set.
+``--ckpt-dir`` checkpoints every ``--ckpt-interval`` steps and restores
+the newest checkpoint on start.  The flags of parts still to port
+(autotuning, forced host device counts) are accepted and raise when set.
 """
 import argparse
 import logging
+import os
+from datetime import timedelta
 
 #: the plan presets this port carries (repro_torch.fabric.plan_presets)
 _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
@@ -27,7 +38,10 @@ _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
                  "topk_backbone", "adaptive"]
 
 #: flags of the reference launcher whose machinery is still to port
-_NOT_PORTED = ("autotune", "autotune_out", "ckpt_dir", "device_count")
+_NOT_PORTED = ("autotune", "autotune_out", "device_count")
+
+#: how long a collective may wait for the other ranks before it fails
+_GROUP_TIMEOUT = timedelta(seconds=60)
 
 
 def main(argv=None):
@@ -55,7 +69,8 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgdm"])
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory (still to port)")
+                    help="checkpoint directory: save every "
+                         "--ckpt-interval steps, restore on start")
     ap.add_argument("--ckpt-interval", type=int, default=100)
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -75,12 +90,20 @@ def main(argv=None):
     workers = 1
     for s in shape[:-1]:
         workers *= s
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None and int(world) != workers:
+        ap.error(f"--mesh {args.mesh} has a data extent of {workers}, but "
+                 f"torchrun started WORLD_SIZE={world} processes")
+
+    import torch
+    import torch.distributed as dist
 
     from ..configs import get_config
+    from ..core import DistributedGroup, rank_device
     from ..data import SyntheticLMStream
     from ..fabric import Fabric, plan_presets
     from ..optim import AdamW, SgdMomentum
-    from ..runtime import Trainer
+    from ..runtime import Trainer, TrainerConfig
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -90,7 +113,16 @@ def main(argv=None):
     opt_cls = AdamW if args.optimizer == "adamw" else SgdMomentum
     optimizer = opt_cls(peak_lr=args.lr, total_steps=args.steps)
     plans = plan_presets(error_feedback=args.error_feedback)
-    fabric = Fabric(num_workers=workers)
+    if world is not None:
+        device = rank_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                timeout=_GROUP_TIMEOUT)
+        fabric = Fabric(group=DistributedGroup(device=device))
+    else:
+        device = args.device
+        fabric = Fabric(num_workers=workers)
     plan = None
     controller = args.controller or (
         "paper" if args.plan == "adaptive" else None)
@@ -105,12 +137,19 @@ def main(argv=None):
     else:
         plan = plans[args.plan]
     trainer = Trainer(cfg, optimizer, data, plan=plan, fabric=fabric,
-                      seed=args.seed, device=args.device)
-    history = trainer.run(args.steps)
+                      seed=args.seed, device=device, ckpt_dir=args.ckpt_dir,
+                      tcfg=TrainerConfig(
+                          checkpoint_interval=args.ckpt_interval))
+    try:
+        history = trainer.run(args.steps)
+    finally:
+        if world is not None:
+            dist.destroy_process_group()
     last = history[-1]
+    rank = "" if world is None else f" rank={fabric.group.rank()[0]}"
     print(f"final: step={last['step']} loss={last['loss']:.4f} "
           f"traffic={last['traffic_ratio']:.4f} workers={workers} "
-          f"device={trainer.device}")
+          f"device={trainer.device}{rank}")
     return history
 
 

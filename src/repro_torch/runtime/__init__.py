@@ -1,4 +1,8 @@
 """Training runtime of the port."""
-from .train import Trainer
+from .fault import (FailureInjector, SimulatedFailure, StepTimer,
+                    StragglerEvent, StragglerWatchdog)
+from .train import Trainer, TrainerConfig
 
-__all__ = ["Trainer"]
+__all__ = ["FailureInjector", "SimulatedFailure", "StepTimer",
+           "StragglerEvent", "StragglerWatchdog", "Trainer",
+           "TrainerConfig"]

@@ -1,43 +1,76 @@
-"""Training runtime: the Trainer's host loop and its admission control.
+"""Training runtime: the Trainer's host loop, admission control and fault
+tolerance.
 
-Port of ``repro/runtime/train.py`` (the ``Trainer`` with its ``plan=``
-and ``controller=`` paths).  Each step runs the
+Port of ``repro/runtime/train.py:80-307``.  Each step runs the
 :class:`~repro_torch.fabric.Fabric` train step built for the latched
-plan — per-worker gradients, bucketed aggregation under the plan, one
+plan — per-rank gradients, bucketed aggregation under the plan, one
 optimizer update — and records the loss, the plan signature, the
 payload traffic ratio and the step's wall time (ending in a device
 synchronize).  With a controller, each step's record goes to it as a
 :class:`~repro_torch.fabric.control.Telemetry`, and the controller
 latches the plan of the next step; the step runs with cosine
-diagnostics while the controller asks for them.  Checkpointing and
-failure injection are still to port (ROADMAP queue 1 item 5).
+diagnostics while the controller asks for them.
+
+With ``ckpt_dir=`` the Trainer restores the newest checkpoint on start,
+saves every ``checkpoint_interval`` steps (and at the end), and on a
+:class:`~repro_torch.runtime.fault.SimulatedFailure` restores the last
+durable checkpoint, the controller's state with it, and replays the
+deterministic data stream (``batch_at``).  A straggler watchdog watches
+the step times.
+
+On a fabric over a
+:class:`~repro_torch.core.collectives.DistributedGroup` each process is
+one rank: it takes its shard of every global batch, rank 0's initial
+parameters are broadcast once, every rank runs its own controller on
+replicated telemetry, and only rank 0 logs and writes checkpoints.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
-import time
 from typing import Iterator
 
 import torch
 
-from ..core import AdmissionPlan, plan_traffic_ratio, resolve_device
+from ..checkpoint import (CheckpointManager, load_train_state,
+                          train_state_arrays)
+from ..core import (AdmissionPlan, DistributedGroup, plan_traffic_ratio,
+                    resolve_device)
+from ..core import tree as T
 from ..fabric import Fabric, TrainState
 from ..fabric.control import Telemetry, make_controller
 from ..models import ModelConfig, Transformer
 from ..optim import Optimizer
+from .fault import (FailureInjector, SimulatedFailure, StepTimer,
+                    StragglerWatchdog)
 
 log = logging.getLogger("repro_torch.train")
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "TrainerConfig"]
 
-LOG_INTERVAL = 10           # steps between log lines
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Do two devices name one (``cuda`` is the current card)?"""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    checkpoint_interval: int = 100
+    checkpoint_keep: int = 3
+    log_interval: int = 10
+    max_restarts: int = 10
 
 
 class Trainer:
-    """Host loop with admission control.
+    """Host loop with admission control and fault tolerance.
 
     ``data`` yields (or, through ``batch_at(step)``, replays) global
-    batches of numpy arrays; the Fabric's workers each take an equal
+    batches of numpy arrays; each of the Fabric's ranks takes an equal
     shard.  Admission control is a controller: ``controller=`` (an
     instance or a ``@register_controller`` name) or the one attached to
     the fabric (``fabric.attach_controller(...)``); passing one that
@@ -45,14 +78,18 @@ class Trainer:
     controller is the static path.  Error-feedback state is built once,
     for the plan latched at :meth:`init_state`, as in the reference.
     ``last_aggregates`` holds the aggregates of the most recent step
-    (replicated, one tree) for callers that check them.
+    (replicated, one tree) for callers that check them; ``restarts``
+    counts the failures recovered from.
     """
 
     def __init__(self, cfg: ModelConfig, optimizer: Optimizer,
-                 data: Iterator[dict], *, plan: AdmissionPlan | None = None,
-                 controller=None, fabric: Fabric | None = None,
+                 data: Iterator[dict], *, tcfg: TrainerConfig | None = None,
+                 plan: AdmissionPlan | None = None, controller=None,
+                 fabric: Fabric | None = None, ckpt_dir: str | None = None,
+                 failure_injector: FailureInjector | None = None,
                  seed: int = 0, device="cuda"):
         self.cfg, self.optimizer, self.data = cfg, optimizer, data
+        self.tcfg = tcfg = tcfg or TrainerConfig()
         self.fabric = fabric = fabric or Fabric()
         if isinstance(controller, str):
             controller = make_controller(controller)
@@ -68,14 +105,36 @@ class Trainer:
         self.static_plan = plan
         self.seed = seed
         self.device = resolve_device(device)
+        group = fabric.group
+        self.distributed = isinstance(group, DistributedGroup)
+        if self.distributed and not _same_device(group.device, self.device):
+            raise ValueError(f"the fabric's {group!r} holds tensors on "
+                             f"{group.device}, the Trainer runs on "
+                             f"{self.device}")
+        self._logs = not self.distributed or group.rank() == (0,)
+        self.failure_injector = failure_injector
+        self.watchdog = StragglerWatchdog()
+        self.ckpt = (CheckpointManager(ckpt_dir,
+                                       interval=tcfg.checkpoint_interval,
+                                       keep=tcfg.checkpoint_keep,
+                                       group=group)
+                     if ckpt_dir else None)
         self.state: TrainState | None = None
         self.history: list[dict] = []
         self.last_aggregates = None
+        self.restarts = 0
         self._sizes = None
+        self._just_restarted = False
+
+    # -- state ----------------------------------------------------------
 
     def init_state(self) -> TrainState:
         model = Transformer(self.cfg, device=self.device, seed=self.seed)
         params = model.tree()
+        if self.distributed:
+            # one set of parameters for every rank: rank 0's
+            for p in T.leaves(params):
+                self.fabric.group.broadcast(p.detach())
         policies = self.fabric.resolve(params, self._current_plan())
         self.state = TrainState(model=model,
                                 opt=self.optimizer.init(params),
@@ -88,6 +147,22 @@ class Trainer:
             return self.controller.plan
         return self.static_plan or AdmissionPlan.fp32_all()
 
+    def _checkpoint_tree(self) -> dict:
+        return train_state_arrays(self.state, self.fabric.group)
+
+    def _restore(self) -> bool:
+        """Load the newest checkpoint (and the controller's state) into
+        the state in place; False when there is none."""
+        restored = self.ckpt.restore(controller=self.controller)
+        if restored is None:
+            return False
+        step, arrays, _ = restored
+        self.state = load_train_state(self.state, arrays, self.fabric.group)
+        self._just_restarted = True
+        if self._logs:
+            log.info("restored checkpoint at step %d", step)
+        return True
+
     def _batch(self, step: int, it) -> dict:
         batch = self.data.batch_at(step) if hasattr(self.data, "batch_at") \
             else next(it)
@@ -97,12 +172,45 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- loop -----------------------------------------------------------
+
     def run(self, num_steps: int) -> list[dict]:
         if self.state is None:
             self.init_state()
+            if self.ckpt is not None:
+                self._restore()
         it = iter(self.data)
         while self.state.step < num_steps:
+            try:
+                self._run_until(num_steps, it)
+            except SimulatedFailure as e:
+                self.restarts += 1
+                if self.restarts > self.tcfg.max_restarts:
+                    raise
+                log.warning("%s -> restart %d (restore + replay)", e,
+                            self.restarts)
+                self._recover()
+        if self.ckpt is not None:
+            self.ckpt.maybe_save(self.state.step, self._checkpoint_tree,
+                                 force=True, controller=self.controller)
+            self.ckpt.wait()
+        return self.history
+
+    def _recover(self) -> None:
+        """Node-failure recovery: restore the last durable checkpoint,
+        with the controller's state (CUSUM statistics, cooldown, the
+        admitted plan), or start over from the seed without one."""
+        if self.ckpt is None:
+            raise RuntimeError("failure without checkpointing enabled")
+        if not self._restore():
+            self.init_state()
+            self._just_restarted = True
+
+    def _run_until(self, num_steps: int, it) -> None:
+        while self.state.step < num_steps:
             step = self.state.step
+            if self.failure_injector is not None:
+                self.failure_injector.check(step)
             plan = self._current_plan()
             # the controller owns the calibration window: diagnostics run
             # while it asks for them, so admission can retry until the
@@ -115,19 +223,26 @@ class Trainer:
                                            with_diagnostics=calibrating)
             batch = self._batch(step, it)
             self._sync()
-            t0 = time.perf_counter()
-            self.state, metrics, agg = step_fn(self.state, batch)
-            self._sync()
-            dt = time.perf_counter() - t0
+            with StepTimer() as t:
+                self.state, metrics, agg = step_fn(self.state, batch)
+                self._sync()
+            dt = t.duration
+            self.watchdog.observe(step, dt)
             self.last_aggregates = agg
             rec = {k: float(v) for k, v in metrics.items()}
             rec.update(step=step, step_time_s=dt, plan=plan.signature(),
                        traffic_ratio=plan_traffic_ratio(self._sizes, plan))
             self.history.append(rec)
             if self.controller is not None:
-                self.controller.observe(
-                    Telemetry.from_metrics(step, rec, step_time_s=dt))
-            if step % LOG_INTERVAL == 0:
-                log.info("step %d loss %.4f traffic %.4f %.3fs", step,
-                         rec["loss"], rec["traffic_ratio"], dt)
-        return self.history
+                self.controller.observe(Telemetry.from_metrics(
+                    step, rec, step_time_s=dt,
+                    restart=self._just_restarted))
+            self._just_restarted = False
+            if self.ckpt is not None:
+                self.ckpt.maybe_save(step + 1, self._checkpoint_tree,
+                                     extra={"plan": plan.signature()},
+                                     controller=self.controller)
+            if self._logs and step % self.tcfg.log_interval == 0:
+                log.info("step %d loss %.4f traffic %.4f %.3fs plan=%s",
+                         step, rec["loss"], rec["traffic_ratio"], dt,
+                         plan.signature()[:48])

@@ -632,3 +632,77 @@ def test_grad_accum_launches_float32_unpack_ternary(cuda):
     state, metrics, agg = step(state, batch)
     assert all(u.dtype == torch.float32 for u in T.leaves(agg))
     assert np.isfinite(float(metrics["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the process group on the card: NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    """A one-rank NCCL process group in this process (a ``file://``
+    store in the test's directory), torn down after the test."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core import DistributedGroup
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        yield DistributedGroup(device="cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["gbinary", "gternary"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nccl_group_equals_one_virtual_worker(nccl_group, mode, dtype):
+    """A packed G-Binary / G-Ternary bucket over NCCL at world size 1:
+    the same bits as ``VirtualGroup(1)``, through the fused kernels
+    (sign_pack, vote_combine on the contiguous all_to_all buffer,
+    unpack_ternary) and the group's all_to_all and two all_gathers."""
+    from repro_torch.core import AdmissionPlan, Schedule
+
+    cuda = nccl_group.device
+    rng = np.random.RandomState(0)
+    grads = {"layers": {"w": torch.from_numpy(
+        rng.randn(1, 3, 4096 + 77).astype(np.float32)).to(dtype).to(cuda)},
+        "embed": {"tok": torch.from_numpy(
+            rng.randn(1, 64, 8).astype(np.float32)).to(dtype).to(cuda)}}
+    plan = AdmissionPlan.lowbit_backbone(mode, schedule=Schedule.PACKED_A2A)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    nccl_group.reset_counts()
+    got, _ = Fabric(group=nccl_group).aggregate(grads, plan)
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    want, _ = Fabric(num_workers=1).aggregate(grads, plan)
+    for p, u in T.flatten(want):
+        assert bits_equal(dict(T.flatten(got))[p], u), p
+    assert launches == {n: int(n in ("sign_pack", "vote_combine",
+                                     "unpack_ternary"))
+                        for n in launches}
+    assert nccl_group.calls_by_op == {"all_to_all": 1, "all_gather": 2,
+                                      "all_reduce": 1}
+
+
+def test_nccl_all_to_all_buffer_feeds_vote_combine(nccl_group):
+    """The received (1, W, rw, LANE) buffer is contiguous, not the
+    virtual group's transposed view, and vote_combine takes it."""
+    cuda = nccl_group.device
+    rng = np.random.RandomState(1)
+    w = words(rng, 1, 1, 9, 128).to(cuda)
+    routed = nccl_group.all_to_all(w)
+    assert routed.shape == (1, 1, 9, 128) and routed.is_contiguous()
+    assert routed.data_ptr() != w.data_ptr()
+    gate = fused.shard_gate_words(nccl_group.rank(), 9, ternary=True,
+                                  gate_phase=1, total_rows=9, device=cuda)
+    before = fused.vote_combine.launches
+    sw, mw = fused.vote_combine(routed, gate, num_workers=1)
+    assert fused.vote_combine.launches == before + 1
+    ws, wm = ref.vote_combine(w.cpu(), 1, gate.cpu())
+    assert torch.equal(sw.cpu(), ws.reshape(sw.shape))
+    assert torch.equal(mw.cpu(), wm.reshape(mw.shape))

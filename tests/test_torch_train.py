@@ -302,7 +302,7 @@ def test_launcher_runs_on_cpu(capsys):
 
 
 def test_launcher_rejects_a_model_axis_and_unported_flags():
-    for argv in (["--mesh", "2,2"], ["--ckpt-dir", "ckpt"],
+    for argv in (["--mesh", "2,2"], ["--device-count", "2"],
                  ["--controller", "static", "--plan", "adaptive"]):
         with pytest.raises(SystemExit):
             launch_main(["--arch", "qwen3_0p6b", "--smoke", "--device",
