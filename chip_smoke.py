@@ -116,7 +116,28 @@ Phases (any failure exits non-zero before the result line):
                     model, gbin_packed, 2 steps: every step's aggregates,
                     the losses and the parameters equal to
                     ``Fabric(num_workers=2)``'s;
-  7. print the kernels line (launches summed over the runs), the card,
+  7. the decoder-only model zoo at full width:
+       attention  one gemma3-27b layer's q, k, v at 4096 tokens (bf16):
+                    the blocked path against the full-scores path, forward
+                    and the gradient of a fixed cotangent, on a local
+                    (window 1024) and the global layer, to 2 bf16 ulps of
+                    the largest value; both timed, beside
+                    ``scaled_dot_product_attention`` (a yardstick only);
+       L. gemma3    gemma3-27b cut to 6 layers (one 5:1 local:global
+                    period; 3,886,618,368 parameters), W = 2 workers of one
+                    4096-token sequence each (the blocked path),
+                    gbin_packed, SgdMomentum, 3 steps: 9 buckets, 7 packed
+                    (sign_pack, vote_combine, bf16 unpack_ternary on leaves
+                    of up to 693,633,024 elements), the reference's traffic
+                    ratio 0.3825361348161055;
+       M. moe       deepseek-moe-16b cut to 3 layers (the dense first layer
+                    and 2 MoE layers of 64 experts, top-6, 2 shared;
+                    1,681,143,808 parameters), W = 4, 16 x 512 tokens,
+                    gbin_packed, AdamW, 3 steps: 15 buckets, 12 packed, the
+                    traffic ratio 0.27310381290117447;
+     each of L and M with one step's aggregates byte-equal to the plain
+     twins, and its losses, step seconds, peak memory and layout printed;
+  8. print the kernels line (launches summed over the runs), the card,
      then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -768,12 +789,14 @@ def twin_combine_decode(words: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def drive(name: str, fabric, plan, steps: int, expect: dict,
-          on_step=None, batch: int = 16) -> dict:
-    """Train full qwen3-0.6B ``steps`` steps under ``plan`` on global
-    batches of ``batch`` x 128 tokens; check finite losses, the low-bit
-    aggregates ({-1, 0, +1} for a vote codec, finite for a mean codec)
-    and, per step, exactly ``expect[k]`` launches of each kernel k (0 for
-    the others)."""
+          on_step=None, batch: int = 16, cfg=None, seq_len: int = 128,
+          optimizer=None, buckets: tuple = (9, LOWBIT_BUCKETS)) -> dict:
+    """Train ``cfg`` (full qwen3-0.6B by default) ``steps`` steps under
+    ``plan`` on global batches of ``batch`` x ``seq_len`` tokens (AdamW by
+    default); check the layout's ``buckets`` (all, low-bit), finite
+    losses, the low-bit aggregates ({-1, 0, +1} for a vote codec, finite
+    for a mean codec) and, per step, exactly ``expect[k]`` launches of
+    each kernel k (0 for the others)."""
     from repro_torch.configs import get_config
     from repro_torch.core import codec_name
     from repro_torch.core import tree as T
@@ -783,12 +806,13 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
     from repro_torch.optim import AdamW
     from repro_torch.runtime import Trainer
 
-    cfg = get_config("qwen3_0p6b")
-    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=batch,
-                             seed=0, learnable=False)
-    trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
-                                 total_steps=steps),
-                      data, plan=plan, fabric=fabric, seed=0, device="cuda")
+    cfg = cfg or get_config("qwen3_0p6b")
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=seq_len,
+                             batch=batch, seed=0, learnable=False)
+    optimizer = optimizer or AdamW(peak_lr=3e-4, warmup_steps=2,
+                                   total_steps=steps)
+    trainer = Trainer(cfg, optimizer, data, plan=plan, fabric=fabric, seed=0,
+                      device="cuda")
     t0 = time.perf_counter()
     state = trainer.init_state()
     torch.cuda.synchronize()
@@ -796,9 +820,10 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
     params = state.model.tree()
     layout = fabric.layout_for(params, plan)
     lowbit = [b for b in layout.buckets if codec_name(b.key.mode) != "fp32"]
-    if len(layout.buckets) != 9 or len(lowbit) != LOWBIT_BUCKETS:
+    if (len(layout.buckets), len(lowbit)) != buckets:
         fail(f"{name}: layout has {len(layout.buckets)} buckets, "
-             f"{len(lowbit)} low-bit; expected 9 and {LOWBIT_BUCKETS}")
+             f"{len(lowbit)} low-bit; expected {buckets[0]} and "
+             f"{buckets[1]}")
     votes = get_codec(lowbit[0].key.mode).reduction == "vote"
     backbone = {s.name for b in lowbit for s in b.slots}
     print(f"[{name}] model {cfg.name}: "
@@ -861,7 +886,6 @@ def report(name: str, run: dict, extra: str = "") -> None:
 
 def run_gbin_packed(steps: int = 5) -> dict:
     """The main path: bucketed gbin_packed on the fused kernels."""
-    from repro_torch.core import tree as T
     from repro_torch.fabric import Fabric, plan_presets
 
     plan = plan_presets()["gbin_packed"]
@@ -873,8 +897,23 @@ def run_gbin_packed(steps: int = 5) -> dict:
             or run["launches"]["unpack_ternary"]):
         fail(f"gbin_packed: the bf16 buckets' decodes were not all bf16 "
              f"launches: {run['launches']}")
+    extra = check_twin_step("gbin_packed", fabric, plan, run)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report("gbin_packed", run, extra)
+    return run
+
+
+#: elements of a bucket the twins vote on at once (whole sign words)
+TWIN_CHUNK = 2 ** 25
+
+
+def check_twin_step(name: str, fabric, plan, run: dict) -> str:
+    """One more step's worker gradients through ``fabric.aggregate`` and
+    through the plain twins, bucket by bucket: the vote aggregates must be
+    byte-equal.  Returns the timing text for :func:`report`."""
+    from repro_torch.core import tree as T
     trainer = run["trainer"]
-    # one step's aggregates against the plain twins on the same grads
+    trainer.last_aggregates = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     grads, _ = fabric.worker_grads(run["params"], run["batch"],
@@ -885,18 +924,26 @@ def run_gbin_packed(steps: int = 5) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     gl, al = dict(T.flatten(grads)), dict(T.flatten(agg))
+    w = fabric.num_workers
     for bucket in run["lowbit"]:
-        flat = torch.cat([gl[s.name].reshape(MAIN_W, -1)
-                          for s in bucket.slots], dim=1)
-        want = twin_vote(flat)
-        for s in bucket.slots:
-            if not same(al[s.name].reshape(-1),
-                        want[s.offset:s.offset + s.size]):
-                fail(f"aggregate {s.name} differs from the plain twins")
-    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    report("gbin_packed", run, f", worker grads {t1 - t0:.4f} s, bucketed "
-           f"aggregate {t2 - t1:.4f} s")
-    return run
+        flat = torch.cat([gl[s.name].reshape(w, -1) for s in bucket.slots],
+                         dim=1)
+        got = torch.cat([al[s.name].reshape(-1) for s in bucket.slots])
+        # elements vote independently: the twins take the bucket in
+        # chunks of whole sign words, which bounds their int64 unpacking
+        for c in range(0, bucket.size, TWIN_CHUNK):
+            if not same(got[c:c + TWIN_CHUNK],
+                        twin_vote(flat[:, c:c + TWIN_CHUNK])):
+                names = [s.name for s in bucket.slots
+                         if s.offset < c + TWIN_CHUNK
+                         and c < s.offset + s.size]
+                fail(f"{name}: aggregate {names} differs from the plain "
+                     f"twins in elements {c}..{c + TWIN_CHUNK}")
+        del flat, got
+    print(f"[{name}] one step's aggregates byte-equal to the plain twins",
+          flush=True)
+    return (f", worker grads {t1 - t0:.4f} s, bucketed aggregate "
+            f"{t2 - t1:.4f} s")
 
 
 def run_per_leaf_ef(steps: int = 3) -> dict:
@@ -1530,6 +1577,180 @@ def run_harness() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the model zoo: blocked attention at 4096 tokens, gemma3-27b and
+# deepseek-moe-16b at full width
+# ---------------------------------------------------------------------------
+
+ATTN_TOKENS = 4096
+#: the blocked and the full-scores paths agree to 2 bf16 ulps of the
+#: largest value (each rounds p to bf16 for the PV product, over other
+#: partial sums, and the output to bf16)
+ATTN_BOUND = 2.0 ** -6
+
+
+def check_blocked_attention() -> dict:
+    """One gemma3-27b layer's q, k and v at full width and 4096 tokens
+    (bf16, weights from a seed): the blocked path against the full-scores
+    path, forward and the gradient of a fixed cotangent, on a local
+    (window 1024) and the global layer; each path timed forward and
+    backward, and ``scaled_dot_product_attention`` on the same shapes as
+    a yardstick only (the port never calls it)."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("gemma3_27b")
+    s, d, h, kv, hd = (ATTN_TOKENS, cfg.d_model, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.hd)
+    g = h // kv
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def weight(n, m):
+        return (torch.randn((n, m), generator=gen, device="cuda")
+                / math.sqrt(n)).to(torch.bfloat16)
+
+    p = {"wq": weight(d, h * hd), "wk": weight(d, kv * hd),
+         "wv": weight(d, kv * hd),
+         "q_norm": {"scale": torch.ones(hd, device="cuda")},
+         "k_norm": {"scale": torch.ones(hd, device="cuda")}}
+    x = torch.randn((1, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        q, k, v = L._qkv(p, x, cfg, torch.arange(s, device="cuda")[None])
+    ct = torch.randn((1, s, h * hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    pos = torch.arange(s, device="cuda")
+
+    def blocked(q, k, v, is_global):
+        return L._flash_attention(
+            q.reshape(1, s, kv, g, hd), k, v, causal=True,
+            window=cfg.sliding_window, is_global=is_global,
+            scale=1.0 / math.sqrt(hd)).reshape(1, s, h * hd)
+
+    def full(q, k, v, is_global):
+        return L._full_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window,
+                                 is_global=is_global)
+
+    def sdpa(q, k, v, is_global):
+        mask = L._mask_block(pos, pos, causal=True, window=cfg.sliding_window,
+                             is_global=is_global)
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        return out.transpose(1, 2).reshape(1, s, h * hd)
+
+    def fwd_bwd(fn, is_global):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv, is_global)
+        return (out.detach(), *torch.autograd.grad(out, (qq, kk, vv), ct))
+
+    for is_global in (False, True):
+        layer = "global" if is_global else "local"
+        got, want = fwd_bwd(blocked, is_global), fwd_bwd(full, is_global)
+        errs = []
+        for part, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            err = max_abs_err(a, b)
+            bound = ATTN_BOUND * float(b.float().abs().max())
+            if not (bool(torch.isfinite(a).all()) and err <= bound):
+                fail(f"blocked attention, {layer} layer: {part} is "
+                     f"{err} from the full-scores path (bound {bound})")
+            errs.append(f"{part} {err:.6g} (bound {bound:.6g})")
+        del got, want
+        ms = {name: time_ms(lambda fn=fn: fwd_bwd(fn, is_global), iters=5,
+                            warmup=1)
+              for name, fn in (("blocked", blocked), ("full", full),
+                               ("sdpa", sdpa))}
+        print(f"[attention] gemma3-27b {layer} layer, {s} tokens, bf16: "
+              f"blocked vs full-scores max abs err {', '.join(errs)}; "
+              f"forward+backward {ms['blocked']:.4f} ms blocked, "
+              f"{ms['full']:.4f} ms full scores, {ms['sdpa']:.4f} ms "
+              f"scaled_dot_product_attention (yardstick only), on "
+              f"{card_line()}", flush=True)
+    return {"launches": {}}
+
+
+def drive_zoo(name: str, cfg, *, workers: int, seq_len: int, batch: int,
+              optimizer, buckets: tuple, ratio: float, params: int,
+              steps: int = 3) -> dict:
+    """Train ``cfg`` under bucketed gbin_packed on the fused kernels:
+    ``buckets`` = (all, low-bit) in the layout, the low-bit ones each a
+    sign_pack, vote_combine and bf16 unpack_ternary launch a step, the
+    reference's traffic ratio and parameter count, and one step's
+    aggregates byte-equal to the plain twins."""
+    from repro_torch.core import codec_name
+    from repro_torch.fabric import Fabric, plan_presets
+
+    plan = plan_presets()["gbin_packed"]
+    fabric = Fabric(num_workers=workers)
+    lowbit = buckets[1]
+    run = drive(name, fabric, plan, steps,
+                dict.fromkeys(("sign_pack", "vote_combine", "unpack_ternary"),
+                              lowbit),
+                batch=batch, cfg=cfg, seq_len=seq_len, optimizer=optimizer,
+                buckets=buckets)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if (run["launches"]["unpack_ternary_bf16"] != steps * lowbit
+            or run["launches"]["unpack_ternary"]):
+        fail(f"{name}: the bf16 buckets' decodes were not all bf16 "
+             f"launches: {run['launches']}")
+    if abs(run["traffic_ratio"] - ratio) > 1e-12:
+        fail(f"{name}: traffic ratio {run['traffic_ratio']!r}, the "
+             f"reference's {ratio!r}")
+    n = sum(t.numel() for t in run["trainer"].state.model.parameters())
+    if n != params:
+        fail(f"{name}: {n} parameters, expected {params}")
+    layout = fabric.layout_for(run["params"], plan)
+    for b in layout.buckets:
+        print(f"[{name}] bucket {codec_name(b.key.mode)} {b.key.schedule} "
+              f"{b.key.dtype} {b.size} elements: "
+              f"{', '.join(s.name for s in b.slots)}", flush=True)
+    extra = check_twin_step(name, fabric, plan, run)
+    extra += (f", {n} parameters, peak with the twin check "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    report(name, run, extra)
+    return run
+
+
+def run_gemma_4k(steps: int = 3) -> dict:
+    """Run L: gemma3-27b at full width cut to 6 layers (one 5:1 period:
+    five local layers, window 1024, and a global one), W = 2 workers of
+    one 4096-token sequence each, gbin_packed, SgdMomentum."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import SgdMomentum
+
+    cfg = dataclasses.replace(get_config("gemma3_27b"), num_layers=6)
+    return drive_zoo("L gemma3-27b", cfg, workers=2, seq_len=4096, batch=2,
+                     optimizer=SgdMomentum(peak_lr=1e-3, warmup_steps=2,
+                                           total_steps=steps),
+                     buckets=(9, 7), ratio=0.3825361348161055,
+                     params=3_886_618_368, steps=steps)
+
+
+def run_deepseek_moe(steps: int = 3) -> dict:
+    """Run M: deepseek-moe-16b at full width cut to 3 layers (the dense
+    first layer and 2 MoE layers of 64 routed experts, top-6, and 2
+    shared), W = 4 workers, 16 x 512 tokens a step (two 1024-token
+    dispatch groups a worker), gbin_packed, AdamW."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config("deepseek_moe_16b"), num_layers=3)
+    return drive_zoo("M deepseek-moe-16b", cfg, workers=4, seq_len=512,
+                     batch=16,
+                     optimizer=AdamW(peak_lr=3e-4, warmup_steps=2,
+                                     total_steps=steps),
+                     buckets=(15, 12), ratio=0.27310381290117447,
+                     params=1_681_143_808, steps=steps)
+
+
+# ---------------------------------------------------------------------------
 # data parallelism across processes: NCCL at world size 1, gloo on the card
 # ---------------------------------------------------------------------------
 
@@ -1966,6 +2187,12 @@ def main() -> None:
         dist.destroy_process_group()
     run_gloo_on_card()
     free()
+    for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe):
+        run = fn()
+        for k, v in run.pop("launches").items():
+            launches[k] += v
+        del run
+        free()
 
     kernels = [{"name": name, "route": "cuda", "source": row["source"],
                 "replaces": row["replaces"], "launches": launches[name],

@@ -386,7 +386,7 @@ class Fabric:
         for k, shard in enumerate(shards[r] for r in ranks):
             if not accum:
                 lval = loss(params, shard)
-                for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):
+                for buf, g in zip(grads, _grad(lval, leaves)):
                     buf[k].copy_(g)
                 losses.append(lval.detach())
                 continue
@@ -394,7 +394,7 @@ class Fabric:
                                device=leaves[0].device)
             for mb in _split_microbatches(shard, grad_accum):
                 lval = loss(params, mb)
-                for buf, g in zip(grads, torch.autograd.grad(lval, leaves)):
+                for buf, g in zip(grads, _grad(lval, leaves)):
                     buf[k].add_(g.to(torch.float32))
                 lacc = lacc + lval.detach()
             for buf in grads:
@@ -493,6 +493,14 @@ def _split_microbatches(batch: dict, grad_accum: int) -> list[dict]:
     n = next(iter(batch.values())).shape[0] // grad_accum
     return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             for i in range(grad_accum)]
+
+
+def _grad(lval: torch.Tensor, leaves: list) -> tuple:
+    """Gradients of ``lval`` for every leaf, zeros for a leaf the loss does
+    not reach (a VLM's patch projector on a batch of tokens only), as
+    ``jax.grad`` gives them."""
+    return torch.autograd.grad(lval, leaves, allow_unused=True,
+                               materialize_grads=True)
 
 
 def _split_batch(batch: dict, w: int) -> list[dict]:

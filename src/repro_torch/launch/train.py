@@ -1,6 +1,9 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
-Same flags as ``python -m repro.launch.train``.  ``--mesh W,1`` (or
+Same flags as ``python -m repro.launch.train``.  ``--arch`` takes the
+seven ported architectures (``repro_torch.configs.ARCH_IDS``, or their
+published names), ``--smoke`` their reduced configs; a VLM is fed tokens
+only, as the reference's launcher feeds it.  ``--mesh W,1`` (or
 ``P,D,1``) runs W (= P*D) data-parallel workers; a model axis other
 than 1 raises, since tensor parallelism is still to port.  ``--device``
 picks the device (``cuda`` by default).  Started by ``torchrun`` (which
@@ -147,9 +150,11 @@ def main(argv=None):
             dist.destroy_process_group()
     last = history[-1]
     rank = "" if world is None else f" rank={fabric.group.rank()[0]}"
+    # one write a line: under torchrun the ranks share one stdout, and an
+    # unbuffered print writes the line and its newline apart
     print(f"final: step={last['step']} loss={last['loss']:.4f} "
           f"traffic={last['traffic_ratio']:.4f} workers={workers} "
-          f"device={trainer.device}{rank}")
+          f"device={trainer.device}{rank}\n", end="", flush=True)
     return history
 
 

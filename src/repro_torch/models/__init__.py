@@ -1,7 +1,9 @@
-"""Model definitions of the port (dense decoder family)."""
-from .config import ModelConfig
-from .transformer import (Transformer, forward, init_params, loss_fn,
+"""Model definitions of the port (the decoder-only attention families)."""
+from .config import SHAPES, ModelConfig, MoEConfig, ShapeCell, SsmConfig
+from .transformer import (Transformer, count_params, forward,
+                          global_attention_flags, init_params, loss_fn,
                           params_from_jax, params_to_numpy)
 
-__all__ = ["ModelConfig", "Transformer", "forward", "init_params", "loss_fn",
-           "params_from_jax", "params_to_numpy"]
+__all__ = ["SHAPES", "ModelConfig", "MoEConfig", "ShapeCell", "SsmConfig",
+           "Transformer", "count_params", "forward", "global_attention_flags",
+           "init_params", "loss_fn", "params_from_jax", "params_to_numpy"]

@@ -1,11 +1,13 @@
-"""Building-block layers: RMSNorm, RoPE, GQA attention, the SwiGLU MLP.
+"""Building-block layers: RMSNorm, RoPE, GQA attention, MLP, MoE.
 
-Port of ``repro/models/layers.py`` (dense path).  Plain functions on a
-parameter dict, in the reference's layout: weights stored ``(in, out)``
-and used as ``x @ w``.  Attention is the short-sequence path of
-``attn_forward``: full (B, K, G, S, T) scores in float32 with the
-``-1e30`` causal mask.  The blocked flash path the reference takes above
-2048 tokens is still to port.
+Port of ``repro/models/layers.py``.  Plain functions on a parameter
+dict, in the reference's layout: weights stored ``(in, out)`` and used
+as ``x @ w``.  Attention takes the reference's two paths: up to
+``FLASH_SEQ_THRESHOLD`` tokens full (B, K, G, S, T) float32 scores with
+the ``-1e30`` mask; above it the reference's double-blocked online
+softmax (:func:`_flash_attention`), block by block in plain PyTorch.
+The MoE layer is the reference's grouped top-k capacity dispatch with
+shared experts.
 """
 from __future__ import annotations
 
@@ -16,8 +18,14 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 
-#: above this sequence length the reference switches to blocked attention
+#: above this sequence length attention runs double-blocked (flash-style)
 FLASH_SEQ_THRESHOLD = 2048
+FLASH_BLOCK_Q = 1024
+FLASH_BLOCK_K = 1024
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -42,10 +50,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q, kk, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
     kk = kk.reshape(b, s, k, hd)
     v = v.reshape(b, s, k, hd)
@@ -57,7 +71,11 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: (B,S,H,hd), k: (B,T,K,hd) -> float32 scores (B,K,G,S,T)."""
+    """q: (B,S,H,hd), k: (B,T,K,hd) -> float32 scores (B,K,G,S,T).
+
+    The reference's einsum takes bf16 operands with a float32 result;
+    the products of two bf16 values are exact in float32, so float32
+    operands give the same scores up to the order of the sum."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     q = q.reshape(b, s, kv, h // kv, hd).to(torch.float32)
@@ -72,23 +90,212 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, kv * g * v.shape[-1])
 
 
-def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """Causal full-sequence GQA attention (training / prefill)."""
-    s = x.shape[1]
-    if s > FLASH_SEQ_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence length {s} > {FLASH_SEQ_THRESHOLD} needs the blocked "
-            f"attention path, still to port (ROADMAP queue 1)")
+def _mask_block(iq: torch.Tensor, jk: torch.Tensor, *, causal: bool,
+                window, is_global: bool) -> torch.Tensor:
+    """(bq, bk) bool mask from absolute query/key positions."""
+    i, j = iq[:, None], jk[None, :]
+    m = (j <= i) if causal else torch.ones(
+        (iq.shape[0], jk.shape[0]), dtype=torch.bool, device=iq.device)
+    if window is not None and not is_global:
+        m = m & (i - j < window)
+    return m
+
+
+def _block_live(i0: int, bq: int, j0: int, bk: int, *, causal: bool,
+                window, is_global: bool) -> bool:
+    """Does the key block at ``j0`` hold an unmasked key for any query of
+    the block at ``i0``?  A causal block with none is skipped, which
+    leaves every row exact: before a row's first live block it would set
+    the running max to -1e30 and be wiped by ``corr = exp(-1e30 - m)``
+    = 0; after it, it adds ``p = 0`` under ``corr = 1``."""
+    if not causal:
+        return True
+    if j0 > i0 + bq - 1:                      # every key after every query
+        return False
+    if window is not None and not is_global:  # every key out of the window
+        return i0 - (j0 + bk - 1) < window
+    return True
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window, is_global: bool, scale: float,
+                     block_q: int = FLASH_BLOCK_Q,
+                     block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """Double-blocked online-softmax attention (memory O(S * block)).
+
+    q: (B,S,KV,G,hd); k, v: (B,T,KV,hd).  Returns (B,S,KV,G,hd) in
+    q's dtype.  The reference's recurrence over key blocks, per query
+    block: float32 scores (float32 operands, see :func:`_gqa_scores`)
+    times ``scale``, masked entries filled with -1e30 and the running max
+    started at -inf, ``p`` cast to v's dtype for the PV product and the
+    product back to float32, the output ``acc / max(l, 1e-30)``.  S and T
+    are padded up to whole blocks.  Non-causal padding keys are not
+    masked, as in the reference; no decoder-only layer runs non-causal.
+    Blocks with no live pair are skipped (:func:`_block_live`).
+    """
+    b, s, kv, g, hd = q.shape
+    t = k.shape[1]
+    bq, bk = min(block_q, s), min(block_k, t)
+    pad_q, pad_k = (-s) % bq, (-t) % bk
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (s + pad_q) // bq, (t + pad_k) // bk
+    # qb: (nq, B, KV, G, bq, hd); kb / vb: (nk, B, KV, bk, hd)
+    qb = q.to(torch.float32).reshape(b, nq, bq, kv, g, hd).permute(
+        1, 0, 3, 4, 2, 5)
+    kb = k.to(torch.float32).reshape(b, nk, bk, kv, hd).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(b, nk, bk, kv, hd).permute(1, 0, 3, 2, 4)
+    pos = torch.arange(max(nq * bq, nk * bk), device=q.device)
+    outs = []
+    for qi in range(nq):
+        i0 = qi * bq
+        qblk, iq = qb[qi], pos[i0:i0 + bq]
+        m_run = torch.full((b, kv, g, bq), -math.inf, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, kv, g, bq), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((b, kv, g, bq, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            j0 = ki * bk
+            if not _block_live(i0, bq, j0, bk, causal=causal, window=window,
+                               is_global=is_global):
+                continue
+            sc = torch.einsum("bkgqh,bkth->bkgqt", qblk, kb[ki]) * scale
+            mask = _mask_block(iq, pos[j0:j0 + bk], causal=causal,
+                               window=window, is_global=is_global)
+            sc = sc.masked_fill(~mask, -1e30)
+            m_new = torch.maximum(m_run, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,bkth->bkgqh", p.to(v.dtype), vb[ki]).to(torch.float32)
+            m_run = m_new
+        outs.append(acc / torch.clamp(l_run, min=1e-30)[..., None])
+    # (nq, B, KV, G, bq, hd) -> (B, S, KV, G, hd)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(
+        b, nq * bq, kv, g, hd)
+    return out[:, :s].to(q.dtype)
+
+
+def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 is_global: bool = True, positions=None,
+                 causal: bool = True) -> torch.Tensor:
+    """Full-sequence GQA attention (training / prefill).
+
+    ``is_global`` picks full causal attention over the sliding window on
+    a config with one; sequences over ``FLASH_SEQ_THRESHOLD`` take the
+    blocked path."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions)
-    scores = _gqa_scores(q, k)                              # (B,K,G,S,T)
-    i = torch.arange(s, device=x.device)
-    mask = i[None, :] <= i[:, None]
+    kv, hd = cfg.num_kv_heads, cfg.hd
+    g = cfg.num_heads // kv
+    if s > FLASH_SEQ_THRESHOLD:
+        out = _flash_attention(q.reshape(b, s, kv, g, hd), k, v,
+                               causal=causal, window=cfg.sliding_window,
+                               is_global=is_global,
+                               scale=1.0 / math.sqrt(hd))
+        return out.reshape(b, s, kv * g * hd) @ p["wo"]
+    out = _full_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                          is_global=is_global)
+    return out @ p["wo"]
+
+
+def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window, is_global: bool) -> torch.Tensor:
+    """The short path: q (B,S,H,hd), k, v (B,T,K,hd) -> (B,S,H*hd) from
+    the full (B,K,G,S,T) float32 scores, masked entries at -1e30."""
+    scores = _gqa_scores(q, k)
+    mask = _mask_block(torch.arange(q.shape[1], device=q.device),
+                       torch.arange(k.shape[1], device=q.device),
+                       causal=causal, window=window, is_global=is_global)
     scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    return _gqa_out(probs, v) @ p["wo"]
+    return _gqa_out(torch.softmax(scores, dim=-1), v)
+
+
+# ---------------------------------------------------------------------------
+# dense MLP and MoE
+# ---------------------------------------------------------------------------
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU MLP."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU MLP, or the GELU MLP where the tree has no ``w_gate``."""
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = _gelu(x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, ties to the
+    lower index (a stable descending sort keeps equal values in index
+    order; ``torch.topk`` promises no order among ties)."""
+    idx = torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k capacity-based MoE over groups of ``group_size`` tokens.
+
+    Each group's tokens choose k experts by router softmax; the k
+    choices take capacity slots in choice order, token order within a
+    choice (a per-group cumulative count), and a choice past an expert's
+    ``cap`` slots is dropped.  Shared experts see every token."""
+    m = cfg.moe
+    dt = _dtype(cfg)
+    b, s, d = x.shape
+    t = b * s
+    gs = min(m.group_size, t)
+    pad = (-t) % gs
+    xt = x.reshape(t, d)
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    g = (t + pad) // gs
+    xg = xt.reshape(g, gs, d)
+    e, k = m.num_experts, m.top_k
+    cap = max(4, int(gs * k / e * m.capacity_factor))
+    cap = min(cap, gs)
+
+    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32), p["router"])
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = _top_k(gates, k)                            # (g, gs, k)
+    topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+    topv = topv.to(dt)
+
+    # capacity assignment: sequential priority over the k choices
+    combine = torch.zeros((g, gs, e, cap), dtype=dt, device=x.device)
+    counts = torch.zeros((g, e), dtype=torch.int64, device=x.device)
+    for i in range(k):
+        onehot = F.one_hot(topi[..., i], e)                  # (g, gs, e)
+        pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None, :]
+        counts = counts + onehot.sum(dim=1)
+        keep = (pos < cap) & (onehot > 0)
+        # class ``cap`` (dropped) is a zero row, as jax.nn.one_hot gives
+        pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
+        combine = combine + pos_oh.to(dt) * (
+            topv[..., i, None, None] * onehot[..., None].to(dt))
+    dispatch = (combine > 0).to(dt)
+
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    if "w_gate" in p:
+        h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
+             * torch.einsum("gecd,edf->gecf", expert_in, p["w_up"]))
+    else:
+        h = _gelu(torch.einsum("gecd,edf->gecf", expert_in, p["w_up"]))
+    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    y = torch.einsum("gsec,gecd->gsd", combine, expert_out)
+    y = y.reshape(t + pad, d)[:t].reshape(b, s, d)
+    if "shared" in p:
+        y = y + mlp_forward(p["shared"], x, cfg)
+    return y

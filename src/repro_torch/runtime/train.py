@@ -222,6 +222,8 @@ class Trainer:
                                            model.tree(), model.loss,
                                            with_diagnostics=calibrating)
             batch = self._batch(step, it)
+            # the last step's aggregates are a model's worth of memory
+            self.last_aggregates = None
             self._sync()
             with StepTimer() as t:
                 self.state, metrics, agg = step_fn(self.state, batch)

@@ -706,3 +706,80 @@ def test_nccl_all_to_all_buffer_feeds_vote_combine(nccl_group):
     ws, wm = ref.vote_combine(w.cpu(), 1, gate.cpu())
     assert torch.equal(sw.cpu(), ws.reshape(sw.shape))
     assert torch.equal(mw.cpu(), wm.reshape(mw.shape))
+
+
+# ---------------------------------------------------------------------------
+# the model's attention and MoE layers on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("is_global", [True, False], ids=["global", "local"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_attention_matches_full_scores_on_the_card(cuda, is_global,
+                                                           dtype,
+                                                           monkeypatch):
+    """4096 tokens at a small width (2 KV heads of 2 queries, head dim
+    32, window 1024 on the local layer, 1024-token blocks): the blocked
+    path against the full-scores path on the card, forward and the
+    gradient of a fixed cotangent.  float32 to 1e-5 of the largest
+    value; bfloat16 to 2 bf16 ulps (each path rounds p to bf16 for the
+    PV product, over other partial sums)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("gemma3_27b", smoke=True),
+                              sliding_window=1024, dtype=str(dtype)[6:])
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {"wq": torch.randn(d, h * hd, generator=gen, device=cuda) / 8,
+         "wk": torch.randn(d, kv * hd, generator=gen, device=cuda) / 8,
+         "wv": torch.randn(d, kv * hd, generator=gen, device=cuda) / 8,
+         "wo": torch.randn(h * hd, d, generator=gen, device=cuda) / 8,
+         "q_norm": {"scale": torch.ones(hd, device=cuda)},
+         "k_norm": {"scale": torch.ones(hd, device=cuda)}}
+    p = {k: v.to(dtype) if k.startswith("w") else v for k, v in p.items()}
+    x = torch.randn(1, 4096, d, generator=gen, device=cuda).to(dtype)
+    ct = torch.randn(1, 4096, d, generator=gen, device=cuda).to(dtype)
+
+    def run(threshold):
+        monkeypatch.setattr(L, "FLASH_SEQ_THRESHOLD", threshold)
+        tp = T.map_leaves(lambda a: a.detach().requires_grad_(), p)
+        tx = x.detach().requires_grad_()
+        out = L.attn_forward(tp, tx, cfg, is_global=is_global)
+        return [out.detach(),
+                *torch.autograd.grad(out, [tx, *T.leaves(tp)], ct)]
+
+    blocked, full = run(2048), run(8192)
+    for a, b in zip(blocked, full):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        tol = 1e-5 * scale if dtype == torch.float32 else 2 ** -6 * scale
+        assert float((a - b).abs().max()) <= tol
+
+
+def test_moe_layer_on_the_card_matches_cpu(cuda):
+    """One float32 MoE layer of the deepseek-moe smoke config over 4 x 96
+    tokens (groups of 32, capacity overflow), forward and backward, on the
+    card against the same layer on the CPU: the routes agree (the outputs
+    to 1e-5) and every gradient to 1e-5 of its largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek_moe_16b", smoke=True)
+    moe = T.map_leaves(lambda a: a[0], init_params(
+        cfg, generator=torch.Generator().manual_seed(0),
+        device="cpu")["layers"]["moe"])
+    x = torch.randn(4, 96, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+
+    def run(device):
+        tp = T.map_leaves(lambda a: a.to(device).requires_grad_(), moe)
+        tx = x.to(device).requires_grad_()
+        out = L.moe_forward(tp, tx, cfg)
+        grads = torch.autograd.grad(out, [tx, *T.leaves(tp)], ct.to(device))
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            float(b.abs().max()), 1.0)
