@@ -2,9 +2,7 @@
 
 Each ``<id>.py`` defines ``FULL`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), with the
-reference's values.  The port carries the seven decoder-only attention
-architectures; ``hymba_1p5b``, ``xlstm_125m`` and ``whisper_tiny`` (the
-SSM, hybrid and encoder-decoder families) are still to port.
+reference's values: all ten of the reference's architectures.
 """
 from __future__ import annotations
 
@@ -15,14 +13,17 @@ ARCH_IDS = (
     "phi3_vision_4p2b",
     "llama4_scout_17b_a16e",
     "deepseek_moe_16b",
+    "whisper_tiny",
+    "hymba_1p5b",
     "qwen3_0p6b",
     "gemma3_27b",
     "qwen2p5_14b",
     "starcoder2_15b",
+    "xlstm_125m",
 )
 
-#: the reference's architectures whose families are still to port
-NOT_PORTED = ("whisper_tiny", "hymba_1p5b", "xlstm_125m")
+#: the reference's architectures still to port: none
+NOT_PORTED = ()
 
 #: assignment-table ids -> module names
 ALIASES = {
@@ -41,10 +42,6 @@ ALIASES = {
 
 def get_config(arch_id: str, smoke: bool = False):
     name = ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "p"))
-    if name in NOT_PORTED:
-        raise KeyError(f"architecture {arch_id!r} is not ported yet: its "
-                       f"family is the next slice (ROADMAP queue 1 item 5); "
-                       f"available: {ARCH_IDS}")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}; available: "
                        f"{ARCH_IDS}")

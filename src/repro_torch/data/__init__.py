@@ -1,6 +1,6 @@
 """Synthetic data pipelines of the port."""
-from .pipeline import (ClassificationTask, MarkovLM, Prefetcher,
-                       SyntheticLMStream, make_cluster_task)
+from .pipeline import (ClassificationTask, FramesStream, MarkovLM,
+                       Prefetcher, SyntheticLMStream, make_cluster_task)
 
-__all__ = ["ClassificationTask", "MarkovLM", "Prefetcher",
+__all__ = ["ClassificationTask", "FramesStream", "MarkovLM", "Prefetcher",
            "SyntheticLMStream", "make_cluster_task"]

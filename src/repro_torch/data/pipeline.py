@@ -1,12 +1,15 @@
 """Deterministic synthetic data (port of ``repro/data/pipeline.py``).
 
   * :class:`MarkovLM` — a learnable token stream sampled from a fixed
-    random first-order Markov chain.  Its transition table is
-    ``vocab x vocab`` floats on the host: at a full vocabulary (151,936
-    for qwen3) that is about 185 GB, so full-width runs use
-    ``learnable=False``.
+    random first-order Markov chain.  The reference draws a ``vocab x
+    vocab`` float64 matrix to choose each token's successors (185 GB at
+    qwen3's 151,936 tokens); this port draws the same numbers a block of
+    rows at a time and keeps only each row's successors, so a full
+    vocabulary needs ``vocab x topk`` integers and one block.
   * :class:`SyntheticLMStream` — step-seeded batches: the batch at step k
     is a pure function of (seed, k, host).
+  * :class:`FramesStream` — a token stream's batches with an
+    encoder-decoder's stub ``frames`` added, seeded by the step.
   * :class:`Prefetcher` — background-thread prefetch over any iterator.
   * :class:`ClassificationTask` / :func:`make_cluster_task` — Gaussian
     cluster classification, the accuracy harness's tasks.
@@ -23,6 +26,25 @@ from typing import Iterator
 import numpy as np
 
 
+#: float64 draws held at once while choosing successors (128 MiB)
+SUCCESSOR_BLOCK = 2 ** 24
+
+
+def _successors(rng: np.random.RandomState, vocab: int, k: int) -> np.ndarray:
+    """``np.argsort(rng.rand(vocab, vocab), axis=1)[:, :k]``, drawn in
+    blocks of rows: ``rand`` fills row-major from one stream, so the
+    blocks hold the same numbers; each row keeps the indices of its k
+    smallest (``argpartition``), ordered by value."""
+    succ = np.empty((vocab, k), np.intp)
+    rows = max(1, SUCCESSOR_BLOCK // vocab)
+    for r0 in range(0, vocab, rows):
+        block = rng.rand(min(rows, vocab - r0), vocab)
+        part = np.argpartition(block, k - 1, axis=1)[:, :k]
+        order = np.argsort(np.take_along_axis(block, part, axis=1), axis=1)
+        succ[r0:r0 + len(block)] = np.take_along_axis(part, order, axis=1)
+    return succ
+
+
 class MarkovLM:
     """First-order Markov chain over ``vocab`` tokens, peaked transitions."""
 
@@ -32,7 +54,7 @@ class MarkovLM:
         k = min(topk, vocab)
         self.vocab = vocab
         # sparse transition structure: each token has k successors
-        self.succ = np.argsort(rng.rand(vocab, vocab), axis=1)[:, :k]
+        self.succ = _successors(rng, vocab, k)
         logits = rng.gumbel(size=(vocab, k)) / concentration
         p = np.exp(logits - logits.max(axis=1, keepdims=True))
         self.probs = p / p.sum(axis=1, keepdims=True)
@@ -83,6 +105,29 @@ class SyntheticLMStream:
 
     def __iter__(self) -> Iterator[dict]:
         step = self.start_step
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class FramesStream:
+    """A token stream whose batches also carry an encoder-decoder's stub
+    ``frames`` (B, ``frames``, ``width``) float32, drawn from a numpy
+    RandomState keyed on the step (whisper's conv frontend is a stub in
+    the reference too, fed precomputed frame embeddings)."""
+
+    def __init__(self, tokens, frames: int, width: int):
+        self.tokens, self.frames, self.width = tokens, frames, width
+
+    def batch_at(self, step: int) -> dict:
+        batch = self.tokens.batch_at(step)
+        rng = np.random.RandomState(1_000 + step)
+        batch["frames"] = rng.randn(len(batch["tokens"]), self.frames,
+                                    self.width).astype(np.float32)
+        return batch
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
         while True:
             yield self.batch_at(step)
             step += 1
@@ -162,3 +207,4 @@ def make_cluster_task(num_classes: int, dim: int = 64, *,
     centers = np.stack([supers[i % n_super] + rng.randn(dim) * 0.35
                         for i in range(num_classes)])
     return ClassificationTask(num_classes, dim, centers, noise=0.55, seed=seed)
+

@@ -1,9 +1,11 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
 Same flags as ``python -m repro.launch.train``.  ``--arch`` takes the
-seven ported architectures (``repro_torch.configs.ARCH_IDS``, or their
+ported architectures (``repro_torch.configs.ARCH_IDS``, or their
 published names), ``--smoke`` their reduced configs; a VLM is fed tokens
-only, as the reference's launcher feeds it.  ``--mesh W,1`` (or
+only, as the reference's launcher feeds it.  An encoder-decoder
+(``whisper_tiny``) is refused: its forward reads ``frames``, which the
+launcher's token stream does not carry, in the reference as here.  ``--mesh W,1`` (or
 ``P,D,1``) runs W (= P*D) data-parallel workers; a model axis other
 than 1 raises, since tensor parallelism is still to port.  ``--device``
 picks the device (``cuda`` by default).  Started by ``torchrun`` (which
@@ -111,6 +113,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch}: an encoder-decoder model reads "
+                 f"batch['frames'] of shape (B, {cfg.encoder_seq}, "
+                 f"{cfg.d_model}), and this launcher's SyntheticLMStream "
+                 f"carries tokens only, as the reference's launcher's "
+                 f"does; train it through Trainer with a stream whose "
+                 f"batches carry frames")
     data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=args.seq_len,
                              batch=args.global_batch, seed=args.seed)
     opt_cls = AdamW if args.optimizer == "adamw" else SgdMomentum

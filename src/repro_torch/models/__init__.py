@@ -1,4 +1,4 @@
-"""Model definitions of the port (the decoder-only attention families)."""
+"""Model definitions of the port: every family of the reference's zoo."""
 from .config import SHAPES, ModelConfig, MoEConfig, ShapeCell, SsmConfig
 from .transformer import (Transformer, count_params, forward,
                           global_attention_flags, init_params, loss_fn,

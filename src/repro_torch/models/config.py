@@ -3,10 +3,8 @@
 One config dataclass covers every architecture the reference carries:
 dense decoders (qwen3, qwen2.5, gemma3, starcoder2), MoE decoders
 (llama4-scout, deepseek-moe), SSM and hybrid stacks (xlstm, hymba), the
-encoder-decoder (whisper) and the VLM backbone (phi-3-vision).  The
-port's model runs the decoder-only attention families (``dense``,
-``moe``, ``vlm``); ``ssm``, ``hybrid`` and ``encdec`` are still to port
-(ROADMAP queue 1 item 5) and raise in ``init_params``.
+encoder-decoder (whisper) and the VLM backbone (phi-3-vision); the
+port's model runs all of them.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Building-block layers: RMSNorm, RoPE, GQA attention, MLP, MoE.
+"""Building-block layers: RMSNorm, RoPE, GQA attention, cross-attention,
+MLP, MoE.
 
 Port of ``repro/models/layers.py``.  Plain functions on a parameter
 dict, in the reference's layout: weights stored ``(in, out)`` and used
@@ -6,8 +7,9 @@ as ``x @ w``.  Attention takes the reference's two paths: up to
 ``FLASH_SEQ_THRESHOLD`` tokens full (B, K, G, S, T) float32 scores with
 the ``-1e30`` mask; above it the reference's double-blocked online
 softmax (:func:`_flash_attention`), block by block in plain PyTorch.
-The MoE layer is the reference's grouped top-k capacity dispatch with
-shared experts.
+Cross-attention (whisper's decoder) takes neither RoPE nor qk-norm, on
+the queries or on the encoder's keys and values.  The MoE layer is the
+reference's grouped top-k capacity dispatch with shared experts.
 """
 from __future__ import annotations
 
@@ -26,6 +28,14 @@ FLASH_BLOCK_K = 1024
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _normal(shape, std, gen, device, dtype) -> torch.Tensor:
+    """N(0, std^2) in ``dtype`` (drawn in float32); shapes only on the
+    ``meta`` device."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -217,6 +227,34 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal=causal, window=window, is_global=is_global)
     scores = scores.masked_fill(~mask, -1e30)
     return _gqa_out(torch.softmax(scores, dim=-1), v)
+
+
+def cross_attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       enc_k: torch.Tensor,
+                       enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's projected K/V.
+
+    x: (B,S,d); enc_k / enc_v: (B,T_enc,K,hd) from :func:`cross_kv`.  No
+    mask: every query sees every frame."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.hd)
+    probs = torch.softmax(_gqa_scores(q, enc_k), dim=-1)
+    return _gqa_out(probs, enc_v) @ p["wo"]
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder's output projected to cross-attention K/V."""
+    b, t, _ = enc_out.shape
+    k, hd = cfg.num_kv_heads, cfg.hd
+    kk = (enc_out @ p["wk"]).reshape(b, t, k, hd)
+    v = (enc_out @ p["wv"]).reshape(b, t, k, hd)
+    if cfg.qkv_bias:
+        kk = kk + p["bk"].reshape(k, hd)
+        v = v + p["bv"].reshape(k, hd)
+    return kk, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,280 @@
+"""State-space and recurrent blocks: xLSTM (mLSTM + sLSTM) and the
+Mamba-style heads of Hymba (port of ``repro/models/ssm.py``, the
+training half).
+
+  * ``xlstm-125m`` alternates mLSTM blocks (matrix memory, exponential
+    gating) with an sLSTM block (scalar memory, recurrent gating) every
+    ``slstm_every`` blocks (arXiv:2405.04517);
+  * ``hymba-1.5b`` runs a selective-SSM head beside attention in every
+    layer (arXiv:2411.13676); the fusion lives in
+    :mod:`repro_torch.models.transformer`.
+
+Each recurrence is a Python loop over time (the reference's
+``lax.scan``), split into ``int(sqrt(T))``-step chunks under
+``torch.utils.checkpoint`` when a backward pass will follow, so that
+the backward keeps one state per chunk boundary rather than one per
+step (:func:`chunked_scan`).  The reference's float32 leaves and
+products stay float32 in a bfloat16 model: ``w_if``, ``if_bias``, ``r``,
+``bias``, ``w_dt``, ``dt_bias``, ``w_bc``, ``a_log`` and ``skip_scale``,
+and the gate products ``xu @ w_if``, ``x @ w_dt`` and ``x @ w_bc``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .config import ModelConfig
+from .layers import _dtype, _normal
+
+
+# ---------------------------------------------------------------------------
+# two-level checkpointed scan (O(sqrt(T)) backward memory)
+# ---------------------------------------------------------------------------
+
+def _scan(step, state, xs: tuple):
+    """``lax.scan`` over the leading (time) axis of each of ``xs``.
+
+    ``unbind`` gives one backward per input (a stack of the per-step
+    gradients) where indexing each step would build one zero-filled
+    copy of the whole input per step."""
+    ys = []
+    for inp in zip(*(x.unbind(0) for x in xs)):
+        state, y = step(state, inp)
+        ys.append(y)
+    return state, torch.stack(ys)
+
+
+def chunked_scan(step, state0, xs: tuple, seq_len: int, chunk: int = 0):
+    """Scan ``step(state, inp) -> (state, y)`` over time, the reference's
+    chunking rule: ``chunk = int(sqrt(T))`` unless given, and the scan
+    stays flat when ``T <= chunk`` or ``T % chunk != 0``.
+
+    Chunked, each chunk runs under a non-reentrant checkpoint when grad
+    is enabled: the backward keeps only the states at chunk boundaries
+    and recomputes a chunk's steps when it reaches it, so memory goes as
+    ``(T / chunk + chunk)`` states.  The values are the flat scan's.
+    ``xs`` is a tuple of time-major tensors; returns ``(state, ys)``
+    with ``ys`` stacked on a leading time axis."""
+    if chunk <= 0:
+        chunk = max(int(math.sqrt(seq_len)), 1)
+    if seq_len <= chunk or seq_len % chunk != 0:
+        return _scan(step, state0, xs)
+    nc = seq_len // chunk
+    chunks = zip(*(x.reshape(nc, chunk, *x.shape[1:]).unbind(0) for x in xs))
+    remat = torch.is_grad_enabled()
+    state, ys = state0, []
+    for xc in chunks:
+        if remat:
+            state, y = checkpoint(_scan, step, state, xc, use_reentrant=False)
+        else:
+            state, y = _scan(step, state, xc)
+        ys.append(y)
+    return state, torch.cat(ys)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix-memory LSTM) block
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg: ModelConfig, gen, device) -> dict:
+    """xLSTM mLSTM block: up-projection by ``proj_factor``, H heads over
+    the inner width (the reference's scales and dtypes)."""
+    d = cfg.d_model
+    di = int(d * cfg.ssm.proj_factor)
+    h = cfg.num_heads
+    std, stdi, dt = 1.0 / math.sqrt(d), 1.0 / math.sqrt(di), _dtype(cfg)
+    f32 = torch.float32
+    return {
+        "w_up": _normal((d, di), std, gen, device, dt),
+        "w_q": _normal((di, di), stdi, gen, device, dt),
+        "w_k": _normal((di, di), stdi, gen, device, dt),
+        "w_v": _normal((di, di), stdi, gen, device, dt),
+        "w_ogate": _normal((d, di), std, gen, device, dt),
+        "w_if": _normal((di, 2 * h), stdi, gen, device, f32),
+        "if_bias": torch.cat([torch.zeros((h,), device=device),
+                              torch.full((h,), 3.0, device=device)]),
+        "w_down": _normal((di, d), stdi, gen, device, dt),
+    }
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
+    di = int(cfg.d_model * cfg.ssm.proj_factor)
+    h = cfg.num_heads
+    hd = di // h
+    z = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, h, hd, hd), **z),
+            "n": torch.zeros((batch, h, hd), **z),
+            "m": torch.zeros((batch, h), **z)}
+
+
+def _mlstm_cell(state: dict, qkvif):
+    """One stabilized mLSTM step (arXiv:2405.04517 eqs. 19-27)."""
+    q, k, v, it, ft = qkvif          # (B,H,hd) x3, (B,H), (B,H)
+    c_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
+    m_t = torch.maximum(ft + m_prev, it)
+    i_p = torch.exp(it - m_t)
+    f_p = torch.exp(ft + m_prev - m_t)
+    c_t = (f_p[..., None, None] * c_prev
+           + i_p[..., None, None] * (v[..., :, None] * k[..., None, :]))
+    n_t = f_p[..., None] * n_prev + i_p[..., None] * k
+    denom = torch.clamp_min(torch.abs(torch.sum(n_t * q, dim=-1)), 1.0)
+    h_t = torch.einsum("bhvk,bhk->bhv", c_t, q) / denom[..., None]
+    return {"C": c_t, "n": n_t, "m": m_t}, h_t
+
+
+def scale_qk(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``t / math.sqrt(hd)`` as the reference computes it: JAX casts the
+    weakly typed Python float to ``t``'s dtype first (19.625 in bfloat16
+    for hd = 384), so the divisor is rounded to that dtype here too.  It
+    lies on ``t``'s device: PyTorch's CUDA division multiplies by the
+    reciprocal of a divisor held on the host."""
+    return t / torch.full((), math.sqrt(hd), dtype=t.dtype, device=t.device)
+
+
+def _mlstm_preact(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    di = p["w_up"].shape[1]
+    h = cfg.num_heads
+    hd = di // h
+    xu = x @ p["w_up"]
+    q = scale_qk((xu @ p["w_q"]).reshape(b, s, h, hd), hd)
+    k = scale_qk((xu @ p["w_k"]).reshape(b, s, h, hd), hd)
+    v = (xu @ p["w_v"]).reshape(b, s, h, hd)
+    gif = (xu.to(torch.float32) @ p["w_if"]) + p["if_bias"]
+    it, ft = gif[..., :h], gif[..., h:]
+    o = torch.sigmoid(x @ p["w_ogate"])
+    return q, k, v, it, ft, o
+
+
+def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence mLSTM block (training / prefill)."""
+    b, s, _ = x.shape
+    di = p["w_up"].shape[1]
+    q, k, v, it, ft, o = _mlstm_preact(p, x, cfg)
+    f32 = torch.float32
+    xs = (q.transpose(0, 1).to(f32), k.transpose(0, 1).to(f32),
+          v.transpose(0, 1).to(f32), it.transpose(0, 1), ft.transpose(0, 1))
+    _, hs = chunked_scan(_mlstm_cell, mlstm_init_state(cfg, b, x.device), xs,
+                         s)
+    hs = hs.transpose(0, 1).reshape(b, s, di).to(x.dtype)       # (B,S,di)
+    return (o * hs) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory LSTM with recurrent gating) block
+# ---------------------------------------------------------------------------
+
+def init_slstm(cfg: ModelConfig, gen, device) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    std, dt = 1.0 / math.sqrt(d), _dtype(cfg)
+    return {
+        # input weights for z, i, f, o stacked: (d, 4d)
+        "w_in": _normal((d, 4 * d), std, gen, device, dt),
+        # block-diagonal recurrent weights per head: (H, hd, 4*hd)
+        "r": _normal((h, hd, 4 * hd), 1 / math.sqrt(hd), gen, device,
+                     torch.float32),
+        "bias": torch.cat([torch.zeros((3 * d,), device=device),
+                           torch.ones((d,), device=device)]),
+        "w_down": _normal((d, d), std, gen, device, dt),
+    }
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
+    z = dict(dtype=torch.float32, device=device)
+    d = cfg.d_model
+    return {"c": torch.zeros((batch, d), **z), "n": torch.ones((batch, d), **z),
+            "h": torch.zeros((batch, d), **z), "m": torch.zeros((batch, d), **z)}
+
+
+def _slstm_cell(p: dict, cfg: ModelConfig, state: dict, x_in: torch.Tensor):
+    """x_in: (B, 4d) preactivation from the input; adds the recurrent
+    term.  The recurrent product is reshaped to (B, 4d) and split into
+    z, i, f and o along that flat axis, as in the reference, so a gate
+    is not a per-head block."""
+    b = x_in.shape[0]
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    h_prev = state["h"].reshape(b, h, hd)
+    rec = torch.einsum("bhk,hkf->bhf", h_prev, p["r"]).reshape(b, 4 * d)
+    pre = x_in + rec + p["bias"]
+    z, i_t, f_t, o_t = torch.split(pre, d, dim=-1)
+    z = torch.tanh(z)
+    o = torch.sigmoid(o_t)
+    m_t = torch.maximum(f_t + state["m"], i_t)     # exponential-gate stabilizer
+    i_p = torch.exp(i_t - m_t)
+    f_p = torch.exp(f_t + state["m"] - m_t)
+    c_t = f_p * state["c"] + i_p * z
+    n_t = f_p * state["n"] + i_p
+    h_t = o * (c_t / torch.clamp_min(n_t, 1e-6))
+    return {"c": c_t, "n": n_t, "h": h_t, "m": m_t}, h_t
+
+
+def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s, _ = x.shape
+    x_in = (x @ p["w_in"]).to(torch.float32)       # (B,S,4d)
+
+    def step(state, inp):
+        return _slstm_cell(p, cfg, state, inp[0])
+
+    _, hs = chunked_scan(step, slstm_init_state(cfg, b, x.device),
+                         (x_in.transpose(0, 1),), s)
+    return hs.transpose(0, 1).to(x.dtype) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective-SSM head (Hymba's parallel heads)
+# ---------------------------------------------------------------------------
+
+def init_mamba_head(cfg: ModelConfig, gen, device, lead: tuple = ()) -> dict:
+    """The head's parameters, stacked on ``lead`` (the layer axis)."""
+    d, n = cfg.d_model, cfg.ssm.state_size
+    std, dt, f32 = 1.0 / math.sqrt(d), _dtype(cfg), torch.float32
+    a_log = torch.log(torch.arange(1, n + 1, dtype=f32, device=device))
+    return {
+        "w_in": _normal((*lead, d, d), std, gen, device, dt),
+        "w_dt": _normal((*lead, d, d), std * 0.1, gen, device, f32),
+        "dt_bias": torch.full((*lead, d), -2.0, dtype=f32, device=device),
+        "w_bc": _normal((*lead, d, 2 * n), std, gen, device, f32),
+        "a_log": a_log.expand(*lead, d, n).contiguous(),
+        "skip_scale": torch.ones((*lead, d), dtype=f32, device=device),
+        "w_out": _normal((*lead, d, d), std, gen, device, dt),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, the reference's formula
+    (``F.softplus`` takes ``log1p(exp(x))`` below 20 and x above)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _mamba_scan_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    n = cfg.ssm.state_size
+    f32 = torch.float32
+    u = (x @ p["w_in"]).to(f32)                                   # (B,S,d)
+    dt = softplus(x.to(f32) @ p["w_dt"] + p["dt_bias"])
+    bc = x.to(f32) @ p["w_bc"]
+    b_in, c_out = bc[..., :n], bc[..., n:]
+    a = -torch.exp(p["a_log"])                                    # (d, n)
+    da = torch.exp(dt[..., None] * a)                             # (B,S,d,n)
+    db = dt[..., None] * b_in[..., None, :]                       # (B,S,d,n)
+    return u, da, db, c_out
+
+
+def _mamba_step(h, inp):
+    u_t, da_t, db_t, c_t = inp
+    h = da_t * h + db_t * u_t[..., None]                          # (B,d,n)
+    return h, torch.sum(h * c_t[:, None, :], dim=-1)              # (B,d)
+
+
+def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s, d = x.shape
+    u, da, db, c_out = _mamba_scan_inputs(p, x, cfg)
+    xs = tuple(t.transpose(0, 1) for t in (u, da, db, c_out))
+    h0 = torch.zeros((b, d, cfg.ssm.state_size), dtype=torch.float32,
+                     device=x.device)
+    _, ys = chunked_scan(_mamba_step, h0, xs, s)
+    y = ys.transpose(0, 1) + p["skip_scale"] * u                  # (B,S,d)
+    return y.to(x.dtype) @ p["w_out"]

@@ -1,15 +1,22 @@
-"""Decoder-only LMs: dense, MoE and the VLM backbone (port of
-``repro/models/transformer.py``).
+"""The model zoo's LMs (port of ``repro/models/transformer.py``): dense,
+MoE and VLM decoders, the hybrid (attention and a Mamba-style head in
+parallel in every layer), the SSM stack (xLSTM) and the
+encoder-decoder (whisper).
 
 The parameter tree keeps the reference's layout — stacked ``(L, ...)``
 layer tensors, weights ``(in, out)`` used as ``x @ w``, an optional tied
 embedding, DeepSeekMoE's dense first layers as a ``prefix`` list of
-unstacked layers, the VLM's ``embed/patch_proj`` — so the tree flattens
-to the same leaves, in the same order, as ``jax.tree_util`` gives the
-reference's (see :mod:`repro_torch.core.tree`), and the bucket layout is
-the same.  Per-layer local/global attention follows
-:func:`global_attention_flags`.  The SSM, hybrid and encoder-decoder
-families are still to port (ROADMAP queue 1 item 5).
+unstacked layers, the VLM's ``embed/patch_proj``, xLSTM's ``blocks``
+list of unstacked blocks with ``mlstm`` or ``slstm`` keys, whisper's
+``embed/frame_proj``, stacked ``encoder`` and cross-attending ``layers``
+— so the tree flattens to the same leaves, in the same order, as
+``jax.tree_util`` gives the reference's (see
+:mod:`repro_torch.core.tree`), and the bucket layout is the same.
+Per-layer local/global attention follows :func:`global_attention_flags`.
+Every layer runs under ``torch.utils.checkpoint`` when ``cfg.remat`` and
+grad are on, except xLSTM's blocks: the reference recomputes those only
+through the chunks of their scans (:func:`repro_torch.models.ssm.
+chunked_scan`).
 
     init_params(cfg, generator=..., device=...) -> params tree
     forward(params, cfg, batch)                 -> logits
@@ -32,10 +39,12 @@ from torch.utils.checkpoint import checkpoint
 from ..core import tree as T
 from ..core.device import resolve_device
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
+from .layers import _dtype, _normal
 
-#: the families this port runs
-PORTED_FAMILIES = ("dense", "moe", "vlm")
+#: the families this port runs: all of the reference's
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 
 
 def global_attention_flags(cfg: ModelConfig) -> np.ndarray:
@@ -52,14 +61,9 @@ def global_attention_flags(cfg: ModelConfig) -> np.ndarray:
     return np.zeros((n,), bool)               # pure sliding-window
 
 
-def _dtype(cfg: ModelConfig) -> torch.dtype:
-    return getattr(torch, cfg.dtype)
-
-
-def _normal(shape, std, gen, device, dtype) -> torch.Tensor:
-    if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+def _is_slstm_block(cfg: ModelConfig, i: int) -> bool:
+    e = cfg.ssm.slstm_every if cfg.ssm else 0
+    return bool(e) and (i % e == e - 1)
 
 
 def _init_mlp(cfg: ModelConfig, gen, device, lead: tuple, f: int) -> dict:
@@ -86,16 +90,13 @@ def _init_moe(cfg: ModelConfig, gen, device, lead: tuple) -> dict:
     return p
 
 
-def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
-                dense_ffn: bool = False) -> dict:
-    """Parameters of ``n`` decoder layers stacked on a leading axis, or of
-    one unstacked layer for ``n=None``.  ``dense_ffn`` gives a MoE
-    config's dense layer: an MLP of ``d_expert * (top_k + num_shared)``."""
+def _ones(lead: tuple, m: int, device) -> torch.Tensor:
+    return torch.ones((*lead, m), dtype=torch.float32, device=device)
+
+
+def _init_attention(cfg: ModelConfig, gen, device, lead: tuple) -> dict:
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt, std = _dtype(cfg), 1.0 / math.sqrt(d)
-    lead = () if n is None else (n,)
-    ones = lambda m: torch.ones((*lead, m), dtype=torch.float32,  # noqa: E731
-                                device=device)
     zeros = lambda m: torch.zeros((*lead, m), dtype=dt,  # noqa: E731
                                   device=device)
     attn = {
@@ -107,10 +108,23 @@ def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
     if cfg.qkv_bias:
         attn.update(bq=zeros(h * hd), bk=zeros(k * hd), bv=zeros(k * hd))
     if cfg.qk_norm:
-        attn["q_norm"] = {"scale": ones(hd)}
-        attn["k_norm"] = {"scale": ones(hd)}
-    p = {"norm1": {"scale": ones(d)}, "attn": attn,
-         "norm2": {"scale": ones(d)}}
+        attn["q_norm"] = {"scale": _ones(lead, hd, device)}
+        attn["k_norm"] = {"scale": _ones(lead, hd, device)}
+    return attn
+
+
+def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
+                dense_ffn: bool = False) -> dict:
+    """Parameters of ``n`` decoder layers stacked on a leading axis, or of
+    one unstacked layer for ``n=None``.  ``dense_ffn`` gives a MoE
+    config's dense layer: an MLP of ``d_expert * (top_k + num_shared)``."""
+    d = cfg.d_model
+    lead = () if n is None else (n,)
+    p = {"norm1": {"scale": _ones(lead, d, device)},
+         "attn": _init_attention(cfg, gen, device, lead),
+         "norm2": {"scale": _ones(lead, d, device)}}
+    if cfg.hybrid_parallel:
+        p["ssm_head"] = S.init_mamba_head(cfg, gen, device, lead)
     if cfg.moe is not None and not dense_ffn:
         p["moe"] = _init_moe(cfg, gen, device, lead)
     elif cfg.d_ff or dense_ffn:
@@ -119,6 +133,24 @@ def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
             f = cfg.moe.d_expert * (cfg.moe.top_k + cfg.moe.num_shared)
         p["mlp"] = _init_mlp(cfg, gen, device, lead, f)
     return p
+
+
+def _init_encoder_layer(cfg: ModelConfig, gen, device, n: int) -> dict:
+    d, lead = cfg.d_model, (n,)
+    return {"norm1": {"scale": _ones(lead, d, device)},
+            "attn": _init_attention(cfg, gen, device, lead),
+            "norm2": {"scale": _ones(lead, d, device)},
+            "mlp": _init_mlp(cfg, gen, device, lead, cfg.d_ff)}
+
+
+def _init_decoder_xlayer(cfg: ModelConfig, gen, device, n: int) -> dict:
+    d, lead = cfg.d_model, (n,)
+    return {"norm1": {"scale": _ones(lead, d, device)},
+            "attn": _init_attention(cfg, gen, device, lead),
+            "norm_x": {"scale": _ones(lead, d, device)},
+            "cross": _init_attention(cfg, gen, device, lead),
+            "norm2": {"scale": _ones(lead, d, device)},
+            "mlp": _init_mlp(cfg, gen, device, lead, cfg.d_ff)}
 
 
 def _n_prefix(cfg: ModelConfig) -> int:
@@ -132,8 +164,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     tree holds shapes and dtypes only and ``generator`` may be None."""
     device = resolve_device(device)
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} is still to "
-                                  f"port (ROADMAP queue 1 item 5)")
+        raise ValueError(f"unknown model family {cfg.family!r}; the port "
+                         f"runs {PORTED_FAMILIES}")
     d, v, dt = cfg.d_model, cfg.vocab_size, _dtype(cfg)
     params: dict[str, Any] = {
         "embed": {"tok": _normal((v, d), 0.02, generator, device, dt)},
@@ -147,6 +179,23 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
         f = cfg.vision_feat_dim
         params["embed"]["patch_proj"] = {
             "w": _normal((f, d), 1 / math.sqrt(f), generator, device, dt)}
+    if cfg.family == "ssm":      # xLSTM: unrolled heterogeneous blocks
+        params["blocks"] = [
+            {"norm1": {"scale": _ones((), d, device)},
+             "slstm": S.init_slstm(cfg, generator, device)}
+            if _is_slstm_block(cfg, i) else
+            {"norm1": {"scale": _ones((), d, device)},
+             "mlstm": S.init_mlstm(cfg, generator, device)}
+            for i in range(cfg.num_layers)]
+        return params
+    if cfg.family == "encdec":   # whisper: encoder + decoder stacks
+        params["embed"]["frame_proj"] = {
+            "w": _normal((d, d), 1 / math.sqrt(d), generator, device, dt)}
+        params["encoder"] = _init_encoder_layer(cfg, generator, device,
+                                                cfg.encoder_layers)
+        params["layers"] = _init_decoder_xlayer(cfg, generator, device,
+                                                cfg.num_layers)
+        return params
     n_prefix = _n_prefix(cfg)
     if n_prefix:
         params["prefix"] = [_init_layer(cfg, generator, device, None,
@@ -160,14 +209,41 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 def _layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                    is_global: bool, positions: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + L.attn_forward(p["attn"], h, cfg, is_global=is_global,
-                           positions=positions)
+    a = L.attn_forward(p["attn"], h, cfg, is_global=is_global,
+                       positions=positions)
+    if cfg.hybrid_parallel:
+        a = 0.5 * (a + S.mamba_forward(p["ssm_head"], h, cfg))
+    x = x + a
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
         return x + L.moe_forward(p["moe"], h, cfg)
     if "mlp" in p:
         return x + L.mlp_forward(p["mlp"], h, cfg)
     return x
+
+
+def _encoder_layer_forward(p: dict, x: torch.Tensor,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional self-attention encoder layer."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + L.attn_forward(p["attn"], h, cfg, causal=False)
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_forward(p["mlp"], h, cfg)
+
+
+def _decoder_xlayer_forward(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                            cfg: ModelConfig,
+                            positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention, cross-attention over the encoder's output
+    (its K/V projected here, inside the layer's recompute, as the
+    reference does), then the MLP."""
+    enc_k, enc_v = L.cross_kv(p["cross"], enc, cfg)
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + L.attn_forward(p["attn"], h, cfg, positions=positions)
+    h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    x = x + L.cross_attn_forward(p["cross"], h, cfg, enc_k, enc_v)
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_forward(p["mlp"], h, cfg)
 
 
 def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -198,21 +274,53 @@ def _unstack(layers: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
+def _remat(cfg: ModelConfig, fn, *args) -> torch.Tensor:
+    """``fn(*args)``, recomputed in the backward when ``cfg.remat`` (the
+    reference's per-layer ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """batch: {'tokens': (B, S)[, 'patch_feats': (B, P, F)]} -> logits
-    (B, S_total, V), S_total = P + S with patch features."""
+    """batch: {'tokens': (B, S)[, 'patch_feats': (B, P, F)][, 'frames':
+    (B, T, d)]} -> logits (B, S_total, V), S_total = P + S with patch
+    features.  An encoder-decoder batch must carry ``frames``."""
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
+            f"layers only; the 'dots' policy comes with tensor parallelism "
+            f"(ROADMAP queue 1 item 2)")
     x = _embed_tokens(params, cfg, batch["tokens"], batch.get("patch_feats"))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    if cfg.family == "ssm":      # no per-block remat, as in the reference
+        for blk in params["blocks"]:
+            h = L.rmsnorm(blk["norm1"], x, cfg.norm_eps)
+            if "slstm" in blk:
+                x = x + S.slstm_forward(blk["slstm"], h, cfg)
+            else:
+                x = x + S.mlstm_forward(blk["mlstm"], h, cfg)
+        return _logits(params, cfg, x)
+
+    if cfg.family == "encdec":
+        if "frames" not in batch:
+            raise KeyError("an encoder-decoder batch carries 'frames' of "
+                           "shape (B, encoder_seq, d_model)")
+        enc = batch["frames"].to(x.dtype) @ params["embed"]["frame_proj"]["w"]
+        for lp in _unstack(params["encoder"], cfg.encoder_layers):
+            enc = _remat(cfg, _encoder_layer_forward, lp, enc, cfg)
+        for lp in _unstack(params["layers"], cfg.num_layers):
+            x = _remat(cfg, _decoder_xlayer_forward, lp, x, enc, cfg,
+                       positions)
+        return _logits(params, cfg, x)
+
     flags = global_attention_flags(cfg)
     n_prefix = _n_prefix(cfg)
     layers = list(params.get("prefix", [])) + _unstack(
         params["layers"], cfg.num_layers - n_prefix)
     for lp, is_global in zip(layers, flags.tolist()):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_layer_forward, lp, x, cfg, is_global, positions,
-                           use_reentrant=False)
-        else:
-            x = _layer_forward(lp, x, cfg, is_global, positions)
+        x = _remat(cfg, _layer_forward, lp, x, cfg, is_global, positions)
     return _logits(params, cfg, x)
 
 

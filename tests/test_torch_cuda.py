@@ -783,3 +783,38 @@ def test_moe_layer_on_the_card_matches_cpu(cuda):
     for a, b in zip(run(cuda), run("cpu")):
         assert float((a - b).abs().max()) <= 1e-5 * max(
             float(b.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("block", ["mlstm", "slstm", "mamba"])
+def test_full_width_recurrent_block_on_the_card_matches_cpu(cuda, block):
+    """One block at full width (xlstm-125m's mLSTM, d 768 -> 1536 inner,
+    4 heads of 384, and its sLSTM; hymba-1.5b's Mamba head, d 1600,
+    state 16), float32, over 2 x 36 tokens (the chunked scan: 6 chunks
+    of 6, each under a checkpoint): output and every gradient on the
+    card against the port on the CPU, to 1e-4 of the largest value
+    (float32 sums in other orders, carried through 36 recurrent steps)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+    arch = "hymba_1p5b" if block == "mamba" else "xlstm_125m"
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    init = {"mlstm": S.init_mlstm, "slstm": S.init_slstm,
+            "mamba": S.init_mamba_head}[block]
+    fwd = {"mlstm": S.mlstm_forward, "slstm": S.slstm_forward,
+           "mamba": S.mamba_forward}[block]
+    params = init(cfg, gen, torch.device("cpu"))
+    x = torch.randn(2, 36, cfg.d_model, generator=gen)
+    ct = torch.randn(x.shape, generator=gen)
+
+    def run(device):
+        tp = T.map_leaves(lambda a: a.to(device).requires_grad_(), params)
+        tx = x.to(device).requires_grad_()
+        out = fwd(tp, tx, cfg)
+        grads = torch.autograd.grad(out, [tx, *T.leaves(tp)], ct.to(device))
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

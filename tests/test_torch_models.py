@@ -1,12 +1,14 @@
-"""The port's decoder-only model zoo against the reference's.
+"""The port's model zoo against the reference's.
 
 At smoke widths on the CPU, with the reference's parameters carried
 across (``params_from_jax``):
 
-  * each of the seven ported SMOKE configs (dense with qk-norm, qkv bias,
-    GELU and local/global layers; MoE with a dense prefix; the VLM with
-    patch features): logits, loss and every gradient leaf equal
-    ``jax.value_and_grad`` of ``repro.models.loss_fn`` under ``jit``;
+  * each of the ten SMOKE configs (dense with qk-norm, qkv bias, GELU
+    and local/global layers; MoE with a dense prefix; the VLM with patch
+    features; xLSTM's mLSTM and sLSTM blocks; hymba's attention beside a
+    Mamba head; whisper's encoder and cross-attending decoder): logits,
+    loss and every gradient leaf equal ``jax.value_and_grad`` of
+    ``repro.models.loss_fn`` under ``jit``;
   * the blocked attention path: ``_flash_attention`` with 64-token blocks
     and S not a multiple of the block, and ``attn_forward`` at S = 2304
     (over the 2048 threshold) on gemma3-smoke's global and window-8
@@ -15,10 +17,12 @@ across (``params_from_jax``):
   * ``moe_forward`` with capacity overflow and shared experts;
   * the FULL configs' leaf names, bucket layouts and gbin_packed traffic
     ratios, from shapes alone (``jax.eval_shape`` against the port's
-    ``meta`` tree), and the depth cuts of chip runs L and M;
+    ``meta`` tree), and the depth cuts of chip runs L to P;
   * two steps of the port's Trainer against the reference's Trainer (on
-    four forced host devices, in a subprocess), the launcher and the MoE
-    checkpoint in both packages.
+    four forced host devices, in a subprocess), the new families'
+    Trainer steps and aggregates against the reference's Fabric, the
+    launcher (and its refusal of whisper) and the MoE checkpoint in both
+    packages.
 """
 import dataclasses
 import os
@@ -51,7 +55,7 @@ from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core import Commander, codec_name  # noqa: E402
 from repro_torch.core import plan_traffic_ratio  # noqa: E402
 from repro_torch.core import tree as T  # noqa: E402
-from repro_torch.data import SyntheticLMStream  # noqa: E402
+from repro_torch.data import FramesStream, SyntheticLMStream  # noqa: E402
 from repro_torch.fabric import Fabric, TrainState, plan_presets  # noqa: E402
 from repro_torch.launch.train import main as launch_main  # noqa: E402
 from repro_torch.models import (Transformer, count_params, forward,  # noqa: E402
@@ -63,7 +67,8 @@ from repro_torch.runtime import Trainer  # noqa: E402
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 NEW = ("gemma3_27b", "qwen2p5_14b", "starcoder2_15b", "phi3_vision_4p2b",
-       "deepseek_moe_16b", "llama4_scout_17b_a16e")
+       "deepseek_moe_16b", "llama4_scout_17b_a16e", "xlstm_125m",
+       "hymba_1p5b", "whisper_tiny")
 
 #: gbin_packed's traffic ratio on each FULL config, the reference's
 #: (``Fabric.group_sizes`` and ``plan_traffic_ratio`` on its shapes)
@@ -74,6 +79,9 @@ FULL_RATIOS = {
     "gemma3_27b": 0.0818237320292636,
     "phi3_vision_4p2b": 0.08200166283090937,
     "qwen2p5_14b": 0.1334133419616287,
+    "xlstm_125m": 0.4391217050767943,
+    "hymba_1p5b": 0.10261667878570666,
+    "whisper_tiny": 0.5627112239971452,
 }
 
 
@@ -95,11 +103,13 @@ def _reference_params(arch: str, seed: int = 0):
                         j_init_params(jax.random.PRNGKey(seed), jcfg))
     host["embed"]["tok"] = host["embed"]["tok"] * 50.0
     rng = np.random.RandomState(seed + 1)
-    for layer in [host["layers"], *host.get("prefix", [])]:
-        for b in ("bq", "bk", "bv"):
-            if b in layer["attn"]:
-                layer["attn"][b] = rng.randn(
-                    *layer["attn"][b].shape).astype(np.float32) * 0.5
+    stacks = [host[k] for k in ("layers", "encoder") if k in host]
+    for layer in stacks + host.get("prefix", []):
+        for attn in (layer[k] for k in ("attn", "cross") if k in layer):
+            for b in ("bq", "bk", "bv"):
+                if b in attn:
+                    attn[b] = rng.randn(*attn[b].shape).astype(
+                        np.float32) * 0.5
     return jcfg, host
 
 
@@ -111,7 +121,15 @@ def _batch(cfg, b: int = 2, s: int = 16, seed: int = 0) -> dict:
         batch["patch_feats"] = rng.randn(
             b, cfg.vision_patches, cfg.vision_feat_dim).astype(np.float32)
         batch["loss_mask"] = (rng.rand(b, s) < 0.7).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.randn(b, cfg.encoder_seq,
+                                    cfg.d_model).astype(np.float32)
     return batch
+
+
+#: tokens of each SMOKE model's test batch: hymba's past its 16-token
+#: window, so the local layer masks; xLSTM's 16 run the chunked scan
+SMOKE_SEQ = {"hymba_1p5b": 24}
 
 
 def _grads(params: dict, cfg, batch: dict):
@@ -128,10 +146,11 @@ def _grads(params: dict, cfg, batch: dict):
 # ---------------------------------------------------------------------------
 
 def test_configs_are_the_references():
+    """All ten of the reference's architectures, with its values; an
+    unknown family and the 'dots' remat policy raise."""
     from repro.configs import ARCH_IDS as J_ARCH_IDS
-    assert ARCH_IDS == tuple(a for a in J_ARCH_IDS
-                             if a not in ("whisper_tiny", "hymba_1p5b",
-                                          "xlstm_125m"))
+    from repro_torch.configs import NOT_PORTED
+    assert ARCH_IDS == J_ARCH_IDS and NOT_PORTED == ()
     for arch in ARCH_IDS:
         for smoke in (False, True):
             got = dataclasses.asdict(get_config(arch, smoke))
@@ -141,13 +160,30 @@ def test_configs_are_the_references():
                 j_flags(j_get_config(arch, smoke)))
     assert get_config("gemma3-27b") is get_config("gemma3_27b")
     assert get_config("qwen2.5-14b", smoke=True).name == "qwen2.5-smoke"
-    for arch in ("hymba_1p5b", "xlstm-125m", "whisper_tiny"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
-    ssm = dataclasses.replace(get_config("qwen3_0p6b", smoke=True),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(ssm, device="meta")
+    assert get_config("xlstm-125m") is get_config("xlstm_125m")
+    assert get_config("hymba-1.5b", smoke=True).name == "hymba-smoke"
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("mamba2_2p7b")
+    other = dataclasses.replace(get_config("qwen3_0p6b", smoke=True),
+                                family="rwkv")
+    with pytest.raises(ValueError, match="unknown model family"):
+        init_params(other, device="meta")
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0p6b", "xlstm_125m"])
+def test_dots_remat_policy_raises(arch):
+    """``remat_policy="dots"`` (save the dot outputs) is not silently run
+    as full recompute: the forward raises and names the queue item that
+    ports it; "full" runs."""
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, s=4).items()}
+    dots = dataclasses.replace(cfg, remat=True, remat_policy="dots")
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        forward(params, dots, batch)
+    full = dataclasses.replace(cfg, remat=True)
+    assert forward(params, full, batch).shape == (2, 4, cfg.vocab_size)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -180,7 +216,7 @@ def test_smoke_model_matches_reference(arch):
     assert [(p, tuple(t.shape), t.dtype) for p, t in
             T.flatten(init_params(cfg, device="meta"))] == \
         [(p, tuple(t.shape), t.dtype) for p, t in T.flatten(params)]
-    batch = _batch(cfg)
+    batch = _batch(cfg, s=SMOKE_SEQ.get(arch, 16))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jlogits = np.asarray(jax.jit(lambda p, b: j_forward(p, jcfg, b))(host, jb))
     jl, jg = jax.jit(jax.value_and_grad(
@@ -365,11 +401,19 @@ def test_top_k_breaks_ties_toward_the_lower_index():
 # FULL configs: leaves, layouts and traffic from shapes alone
 # ---------------------------------------------------------------------------
 
-#: (config, depth) of chip runs L and M: buckets, low-bit buckets and the
-#: reference's gbin_packed traffic ratio
-CHIP_CUTS = {"L": ("gemma3_27b", 6, 9, 7, 0.3825361348161055, 3_886_618_368),
-             "M": ("deepseek_moe_16b", 3, 15, 12, 0.27310381290117447,
-                   1_681_143_808)}
+#: chip runs L to P: (config, depth, workers, buckets, low-bit buckets,
+#: float32 low-bit buckets, the reference's gbin_packed traffic ratio,
+#: parameters)
+CHIP_CUTS = {"L": ("gemma3_27b", 6, 2, 9, 7, 0, 0.3825361348161055,
+                   3_886_618_368),
+             "M": ("deepseek_moe_16b", 3, 4, 15, 12, 0, 0.27310381290117447,
+                   1_681_143_808),
+             "N": ("xlstm_125m", 12, 2, 11, 8, 1, 0.4391217050767943,
+                   183_565_128),
+             "O": ("hymba_1p5b", 5, 2, 12, 9, 2, 0.3576435484125606,
+                   304_036_800),
+             "P": ("whisper_tiny", 4, 4, 4, 1, 0, 0.5627112239971452,
+                   36_586_752)}
 
 
 def _layouts_agree(cfg, jcfg, workers: int = 4):
@@ -410,14 +454,19 @@ def test_full_config_layout_and_traffic_match_reference(arch):
 
 @pytest.mark.parametrize("run", sorted(CHIP_CUTS))
 def test_chip_run_depth_cuts(run):
-    arch, depth, buckets, lowbit, ratio, n = CHIP_CUTS[run]
+    """The layouts the chip runs check: buckets, low-bit buckets and the
+    float32 ones among them (xLSTM's w_if and r, hymba's w_dt, w_bc and
+    a_log: their decodes are float32 launches)."""
+    arch, depth, workers, buckets, lowbit, lowbit_f32, ratio, n = \
+        CHIP_CUTS[run]
     cfg = dataclasses.replace(get_config(arch), num_layers=depth)
     jcfg = dataclasses.replace(j_get_config(arch), num_layers=depth)
-    layout, sizes, meta = _layouts_agree(cfg, jcfg,
-                                         workers=2 if run == "L" else 4)
+    layout, sizes, meta = _layouts_agree(cfg, jcfg, workers=workers)
     assert len(layout.buckets) == buckets
-    assert sum(codec_name(b.key.mode) != "fp32"
-               for b in layout.buckets) == lowbit
+    low = [b for b in layout.buckets if codec_name(b.key.mode) != "fp32"]
+    assert len(low) == lowbit
+    assert sum(b.key.dtype == "float32" for b in low) == lowbit_f32
+    assert {b.key.dtype for b in low} <= {"float32", "bfloat16"}
     assert abs(plan_traffic_ratio(sizes, plan_presets()["gbin_packed"])
                - ratio) <= 1e-12
     assert count_params(meta) == n
@@ -584,16 +633,79 @@ def test_trainer_matches_reference_trainer(arch, reference_trainer):
                 atol=1e-6, err_msg=f"step {k}: {p}")
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "phi3_vision_4p2b"])
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "phi3_vision_4p2b",
+                                  "xlstm_125m", "hymba_1p5b"])
 def test_launcher_runs_a_new_architecture_on_cpu(arch, capsys):
-    """The MoE model, and the VLM fed tokens only (as the reference's
-    launcher feeds it: its patch projector's gradient is zero)."""
+    """The MoE model, the VLM fed tokens only (as the reference's
+    launcher feeds it: its patch projector's gradient is zero), xLSTM and
+    hymba."""
     history = launch_main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--mesh", "4,1", "--steps", "2", "--seq-len",
                            "16", "--plan", "gbin_packed"])
     assert len(history) == 2
     assert all(np.isfinite(h["loss"]) for h in history)
     assert "workers=4" in capsys.readouterr().out
+
+
+def test_launcher_refuses_whisper_by_name(capsys):
+    """The reference's launcher feeds whisper tokens only and its forward
+    then fails on ``batch["frames"]`` (a KeyError); the port's launcher
+    refuses the architecture up front and says why."""
+    with pytest.raises(SystemExit) as exc:
+        launch_main(["--arch", "whisper_tiny", "--smoke", "--device", "cpu",
+                     "--mesh", "4,1", "--steps", "1"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "batch['frames']" in err and "tokens only" in err
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1p5b", "whisper_tiny"])
+def test_new_family_trains_and_aggregates_as_the_reference(arch):
+    """Two gbin_packed steps of the port's Trainer at W = 4 on the SMOKE
+    config (whisper on a stream with frames), then one batch's worker
+    gradients through the port's Fabric and through the reference's
+    (``jax.vmap`` over four virtual workers): every packed float32
+    bucket (xLSTM's w_if and r, hymba's w_dt, w_bc and a_log among them)
+    votes byte for byte as the reference; FP32 means to rtol 1e-6 plus
+    1e-6 of the leaf's largest (sums in other orders)."""
+    cfg = get_config(arch, smoke=True)
+    seq = SMOKE_SEQ.get(arch, 16)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=seq, batch=8,
+                             seed=0)
+    if cfg.family == "encdec":
+        data = FramesStream(data, cfg.encoder_seq, cfg.d_model)
+    plan = plan_presets()["gbin_packed"]
+    trainer = Trainer(cfg, AdamW(), data, plan=plan,
+                      fabric=Fabric(num_workers=W), device="cpu")
+    history = trainer.run(2)
+    assert all(np.isfinite(h["loss"]) for h in history)
+    model = trainer.state.model
+    params = model.tree()
+    if cfg.family == "ssm":      # a list of blocks with their own keys
+        assert [sorted(b) for b in params["blocks"]] == \
+            [["mlstm", "norm1"]] * 3 + [["norm1", "slstm"]]
+    fabric = trainer.fabric
+    layout = fabric.layout_for(params, plan)
+    packed = {s.name for b in layout.buckets
+              if b.key.schedule == "packed_a2a" for s in b.slots}
+    assert packed
+    batch = {k: torch.from_numpy(v) for k, v in data.batch_at(2).items()}
+    grads, _ = fabric.worker_grads(params, batch, model.loss)
+    agg, _ = fabric.aggregate(grads, plan)
+
+    jfab = JFabric(dp_axes=("w",), num_workers=W)
+    jplan = j_plan_presets()["gbin_packed"]
+    host = T.map_leaves(lambda g: g.numpy(), grads)
+    jagg = jax.jit(jax.vmap(lambda g: jfab.aggregate(g, jplan)[0],
+                            axis_name="w"))(host)
+    for (p, u), want in zip(T.flatten(agg), jax.tree.leaves(jagg)):
+        want = np.asarray(want)[0]
+        if p in packed:
+            np.testing.assert_array_equal(u.numpy(), want, err_msg=p)
+        else:
+            np.testing.assert_allclose(u.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max(),
+                                       err_msg=p)
 
 
 def _moe_state(seed: int):

@@ -301,6 +301,29 @@ def test_launcher_runs_on_cpu(capsys):
     assert "workers=4" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("vocab", [512, 3001])
+@pytest.mark.parametrize("block", ["one", "rows"])
+def test_markov_successors_are_the_references_drawn_in_blocks(
+        vocab, block, monkeypatch):
+    """``MarkovLM`` draws the reference's ``vocab x vocab`` matrix a block
+    of rows at a time (at 50,304 tokens the whole matrix is 20.2 GB):
+    ``succ`` and ``probs`` byte-equal to the reference's at the SMOKE
+    vocabulary and at 3001 tokens, in one block and in blocks of 7 rows
+    and a ragged last one."""
+    from repro.data.pipeline import MarkovLM as JMarkovLM
+    from repro_torch.data import pipeline
+    if block == "rows":
+        monkeypatch.setattr(pipeline, "SUCCESSOR_BLOCK", 7 * vocab + 3)
+    got, want = pipeline.MarkovLM(vocab, seed=5), JMarkovLM(vocab, seed=5)
+    assert got.succ.dtype == want.succ.dtype
+    assert got.succ.shape == want.succ.shape == (vocab, 16)
+    np.testing.assert_array_equal(got.succ, want.succ)
+    assert got.probs.tobytes() == want.probs.tobytes()
+    rng, jrng = np.random.RandomState(1), np.random.RandomState(1)
+    np.testing.assert_array_equal(got.sample(rng, 3, 20),
+                                  want.sample(jrng, 3, 20))
+
+
 def test_launcher_rejects_a_model_axis_and_unported_flags():
     for argv in (["--mesh", "2,2"], ["--device-count", "2"],
                  ["--controller", "static", "--plan", "adaptive"]):
