@@ -156,8 +156,28 @@ Phases (any failure exits non-zero before the result line):
      twins, its launches a step by kernel and by decode dtype (bf16 and
      float32 unpack_ternary, a count each from the layout), and its
      losses, step seconds, peak memory and layout printed;
-  8. print the kernels line (launches summed over the runs), the card,
-     then ``{"ok": true, "device": {...}}`` last.
+  8. tensor parallelism and ZeRO-1:
+       Q. tp        full qwen3-0.6B on a (data 2) x (model 2) process
+                    mesh: four gloo ranks spawned on cuda:0 (``chip_smoke.py
+                    --run-q-rank r dir``), gbin_packed, AdamW with ZeRO-1,
+                    2 x 4 x 128 tokens, 2 steps of "full" remat: finite
+                    losses equal on every rank, 7 launches a step each of
+                    sign_pack, vote_combine and bf16 unpack_ternary (the
+                    five tensor-parallel leaves per leaf, wk and wv a
+                    bucket each), step 0's aggregates byte-equal to the
+                    plain twins' per-shard vote on the data ranks'
+                    gathered gradients, replicated leaves bit-equal on
+                    every rank and blocks on both data ranks after each
+                    step, the traffic ratio 0.2842221000549753, ZeRO-1
+                    moments half of whole, one "dots" and one "full"
+                    backward (the same gradients, one model-group
+                    all-reduce fewer a layer); then, in this process, the
+                    unsharded model on the same parameters and data rank
+                    0's batch: its loss, and each step-0 gradient block
+                    no further from the float32 gradient than twice the
+                    unsharded bf16 gradient's distance (plus 2^-8);
+  9. print the kernels line (launches summed over the runs, run Q's from
+     rank 0), the card, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -2235,6 +2255,332 @@ def run_gloo_on_card() -> dict:
     return {"launches": {}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: tensor parallelism and ZeRO-1 (run Q)
+# ---------------------------------------------------------------------------
+
+Q_MESH = (2, 2)             # (data, model)
+Q_STEPS = 2
+Q_SHARD = 4                 # sequences of 128 tokens a data rank
+#: the step-0 gradients' tolerance, in bf16 noise: per leaf, the tensor-
+#: parallel gradient's distance from the unsharded model's gradient in
+#: float32 (relative L2 norm) may be at most Q_GRAD_NOISE times the
+#: unsharded bf16 gradient's own distance from it, plus 2^-8 (the
+#: row-parallel and vocab-parallel sums add in another order, in bf16)
+Q_GRAD_NOISE = 2.0
+Q_LOSS_RTOL = 1e-3
+
+
+def q_config():
+    """Run Q's model: the full qwen3-0.6B (28 layers, d 1024, vocab
+    151,936, bf16, remat)."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3_0p6b")
+
+
+def q_data(cfg):
+    from repro_torch.data import SyntheticLMStream
+    return SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128,
+                             batch=Q_MESH[0] * Q_SHARD, seed=0,
+                             learnable=False)
+
+
+def _q_same_across(group, x: torch.Tensor) -> bool:
+    """Is ``x`` bit-equal on every rank of ``group`` (against the group's
+    rank 0, broadcast)?"""
+    ref = x.detach().clone()
+    group.broadcast(ref, src=0)
+    flag = torch.tensor([int(same(ref, x.detach()))], device=x.device)
+    return int(group.all_reduce(flag).item()) == group.size
+
+
+def run_q_rank(rank: int, out: str) -> None:
+    """One rank of run Q: full qwen3-0.6B on a (data 2) x (model 2) mesh,
+    four gloo ranks on cuda:0, gbin_packed, AdamW with ZeRO-1."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core import ProcessMesh, codec_name
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=Q_MESH[0] * Q_MESH[1],
+                            timeout=timedelta(seconds=120))
+    mesh = ProcessMesh(Q_MESH, device="cuda:0")
+    cfg = q_config()
+    data = q_data(cfg)
+    plan = plan_presets()["gbin_packed"]
+    fabric = Fabric(mesh=mesh)
+    trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
+                                 total_steps=Q_STEPS), data, plan=plan,
+                      fabric=fabric, seed=0, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.init_state()
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0, "coords": mesh.coords}
+    model = trainer.state.model
+    params = model.tree()
+    layout = fabric.layout_for(params, plan, trainer.pspecs)
+    packed = [(key, n) for key, n in layout.launches()
+              if codec_name(key.mode) != "fp32"]
+    if any(key.schedule != "packed_a2a" for key, _ in packed):
+        fail(f"Q: low-bit launches off the packed schedule: {packed}")
+    specs = dict(T.flatten(trainer.pspecs))
+    res["unfused"] = [u.name for u in layout.unfused]
+    res["buckets"] = [[s.name for s in b.slots] for b in layout.buckets]
+    # the low-bit launches' leaves: a bucket's, or one per-leaf leaf
+    lowbit = [[s.name for s in b.slots] for b in layout.buckets
+              if codec_name(b.key.mode) != "fp32"] + \
+        [[u.name] for u in layout.unfused if codec_name(u.key.mode) != "fp32"]
+    st = trainer.state.opt
+    res["moment_bytes"] = sum(m.numel() * 4 for m in
+                              T.leaves(st.mu) + T.leaves(st.nu))
+    res["whole_moment_bytes"] = sum(2 * 4 * p.numel()
+                                    for p in T.leaves(params))
+    res["params_local"] = sum(p.numel() for p in T.leaves(params))
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    decode_by = wrappers["unpack_ternary"].launches_by_dtype
+    res.update(loss=[], step_s=[], launches=[], calls=[], replicas=[])
+    for k in range(Q_STEPS):
+        batch = {n: torch.as_tensor(v).cuda()
+                 for n, v in data.batch_at(k).items()}
+        if k == 0:
+            # this step's gradients, recomputed, for the twins and the
+            # parent's unsharded model
+            grads, _ = fabric.worker_grads(params, batch, model.loss)
+            if mesh.data_index == 0:
+                torch.save({p: g[0].cpu() for p, g in T.flatten(grads)},
+                           os.path.join(out, f"grads{rank}.pt"))
+            names = {n for group in lowbit for n in group}
+            peers = {p: mesh.data_group.all_gather(g[None])
+                     for p, g in T.flatten(grads) if p in names}
+            del grads
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        dtype_before = dict(decode_by)
+        mesh.reset_counts()
+        trainer.run(k + 1)
+        rec = trainer.history[-1]
+        delta = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+        split = {str(dt): n - dtype_before[dt] for dt, n in decode_by.items()}
+        want = {n: len(packed) if n in ("sign_pack", "vote_combine",
+                                        "unpack_ternary") else 0
+                for n in wrappers}
+        if delta != want or split["torch.bfloat16"] != len(packed):
+            fail(f"Q rank {rank} step {k}: launches {delta} ({split} by "
+                 f"decode dtype), the layout models {want}, all bf16")
+        if not np.isfinite(rec["loss"]):
+            fail(f"Q rank {rank} step {k}: loss {rec['loss']}")
+        res["loss"].append(rec["loss"])
+        res["step_s"].append(rec["step_time_s"])
+        res["traffic_ratio"] = rec["traffic_ratio"]
+        res["launches"].append({n: d for n, d in delta.items() if d})
+        res["calls"].append({
+            name: (dict(g.calls_by_op), dict(g.bytes_by_op))
+            for name, g in (("data", mesh.data_group),
+                            ("model", mesh.model_group),
+                            ("world", mesh.world))})
+        agg = dict(T.flatten(trainer.last_aggregates))
+        if k == 0:
+            for names in lowbit:
+                flat = torch.cat([peers[n].reshape(Q_MESH[0], -1)
+                                  for n in names], dim=1)
+                got = torch.cat([agg[n].reshape(-1) for n in names])
+                for c in range(0, got.numel(), TWIN_CHUNK):
+                    if not same(got[c:c + TWIN_CHUNK],
+                                twin_vote(flat[:, c:c + TWIN_CHUNK])):
+                        fail(f"Q rank {rank}: aggregate {names} differs "
+                             f"from the per-shard twins")
+            res["twin_checked"] = len(peers)
+            del peers, flat, got
+        del agg
+        # replicas: a replicated leaf on all four ranks, a block on both
+        # data ranks that hold it
+        bad = []
+        for p, x in T.flatten(model.tree()):
+            sharded = any(e is not None for e in specs[p])
+            group = mesh.data_group if sharded else mesh.world
+            if not _q_same_across(group, x):
+                bad.append(p)
+        if bad:
+            fail(f"Q rank {rank} step {k}: replicas differ on {bad}")
+        res["replicas"].append(True)
+
+    # "dots" against "full": the same gradients, fewer all-reduces
+    batch = {n: torch.as_tensor(v).cuda()[mesh.data_index * Q_SHARD:
+                                          (mesh.data_index + 1) * Q_SHARD]
+             for n, v in data.batch_at(Q_STEPS).items()}
+    leaves = T.leaves(params)
+    got = {}
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        mesh.model_group.reset_counts()
+        g = torch.autograd.grad(loss_fn(params, c, batch, trainer.tp),
+                                leaves)
+        got[policy] = (g, mesh.model_group.calls_by_op["all_reduce"])
+    res["remat_all_reduce"] = {p: n for p, (_, n) in got.items()}
+    res["dots_equal"] = all(same(a, b) for a, b in
+                            zip(got["full"][0], got["dots"][0]))
+    del got
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["kernel_launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    res["kernel_launches_bf16"] = decode_by[torch.bfloat16]
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_tp_on_card() -> dict:
+    """Run Q: the full qwen3-0.6B on a (data 2) x (model 2) process mesh,
+    four gloo ranks spawned on cuda:0 (the machine has one card), 2 steps
+    of gbin_packed with AdamW and ZeRO-1; then the step-0 gradients and
+    loss of data rank 0's ranks against the unsharded model on the same
+    parameters and batch, in this process."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.core import tree as T
+    from repro_torch.models import Transformer, loss_fn
+    from repro_torch.models.transformer import param_pspecs
+    from repro_torch.runtime.shardings import sanitize_pspecs, shard_of
+
+    world = Q_MESH[0] * Q_MESH[1]
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--run-q-rank", str(r), out])
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"Q: rank exit codes {[p.returncode for p in procs]}")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                 for r in range(world)]
+        grads = {r: torch.load(os.path.join(out, f"grads{r}.pt"))
+                 for r in range(Q_MESH[1])}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        if res["loss"] != r0["loss"]:
+            fail(f"Q: rank {r}'s losses {res['loss']}, rank 0's "
+                 f"{r0['loss']}")
+        if res["traffic_ratio"] != 0.2842221000549753:
+            fail(f"Q: rank {r}'s traffic ratio {res['traffic_ratio']}")
+        if not res["dots_equal"]:
+            fail(f"Q: rank {r}'s 'dots' gradients differ from 'full'")
+        n = res["remat_all_reduce"]
+        if n["full"] - n["dots"] != q_config().num_layers:
+            fail(f"Q: rank {r}'s model-group all-reduces {n}: 'dots' "
+                 f"should run one fewer a layer")
+        if 2 * res["moment_bytes"] != res["whole_moment_bytes"]:
+            fail(f"Q: rank {r}'s ZeRO-1 moments {res['moment_bytes']} B, "
+                 f"not half of {res['whole_moment_bytes']} B")
+    # the unsharded model on the same parameters and data rank 0's batch
+    cfg = q_config()
+    data = q_data(cfg)
+    model = Transformer(cfg, device="cuda", seed=0)
+    params = model.tree()
+    full_batch = {n: torch.as_tensor(v).cuda()
+                  for n, v in data.batch_at(0).items()}
+    shards = [{n: v[d * Q_SHARD:(d + 1) * Q_SHARD]
+               for n, v in full_batch.items()} for d in range(Q_MESH[0])]
+    with torch.no_grad():
+        mean = sum(float(loss_fn(params, cfg, b)) for b in shards) / \
+            Q_MESH[0]
+    leaves = T.leaves(params)
+    whole = torch.autograd.grad(loss_fn(params, cfg, shards[0]), leaves)
+    # the same model in float32: the yardstick of the bf16 noise
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.map_leaves(
+        lambda x: x.detach().to(torch.float32).requires_grad_(), params)
+    whole32 = torch.autograd.grad(loss_fn(params32, cfg32, shards[0]),
+                                  T.leaves(params32))
+    del params32
+    extents = {"data": Q_MESH[0], "model": Q_MESH[1]}
+    specs = T.leaves(sanitize_pspecs(param_pspecs(cfg), params, extents))
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    errs = {}                   # leaf -> (tensor-parallel, unsharded bf16)
+    for r, blocks in grads.items():
+        coords = {"data": 0, "model": r}
+        for (p, _), g, g32, spec in zip(T.flatten(params), whole, whole32,
+                                        specs):
+            want = shard_of(g32, spec, extents, coords)
+            e = (rel(blocks[p].cuda().to(torch.float32), want),
+                 rel(shard_of(g, spec, extents, coords).to(torch.float32),
+                     want))
+            errs[p] = max(errs.get(p, e), e)
+    del whole, whole32, grads, model, params, leaves
+    bad = {p: e for p, e in errs.items()
+           if e[0] > Q_GRAD_NOISE * e[1] + 2 ** -8}
+    if bad:
+        fail(f"Q: step-0 gradient blocks (relative L2 distance from the "
+             f"float32 gradient, tensor-parallel and unsharded bf16) "
+             f"beyond {Q_GRAD_NOISE}x the bf16 noise: {bad}")
+    worst = max(errs, key=lambda p: errs[p][0] / max(errs[p][1], 1e-30))
+    loss_err = abs(r0["loss"][0] - mean) / abs(mean)
+    if loss_err > Q_LOSS_RTOL:
+        fail(f"Q: step-0 loss {r0['loss'][0]} against the unsharded "
+             f"{mean} (relative {loss_err})")
+    print(f"[Q tp] {world} gloo ranks on cuda:0 as a (data, model) = "
+          f"{Q_MESH} mesh, {cfg.name} ({cfg.num_layers} layers, "
+          f"{r0['params_local']} parameters a rank), gbin_packed, AdamW "
+          f"with ZeRO-1, {Q_MESH[0]} x {Q_SHARD} x 128 tokens", flush=True)
+    print(f"[Q tp] per-leaf (tensor-parallel) low-bit leaves "
+          f"{r0['unfused']}; buckets {r0['buckets']}", flush=True)
+    print(f"[Q tp] losses {r0['loss']} (the unsharded model's step-0 "
+          f"loss {mean:.6f}, relative {loss_err:.3e}); traffic ratio "
+          f"{r0['traffic_ratio']}", flush=True)
+    print(f"[Q tp] step seconds by rank "
+          f"{[res['step_s'] for res in ranks]}; init seconds "
+          f"{[round(res['init_s'], 2) for res in ranks]}; spawn "
+          f"{spawn_s:.2f} s", flush=True)
+    print(f"[Q tp] peak memory by rank (GiB) "
+          f"{[round(res['peak_gib'], 2) for res in ranks]}", flush=True)
+    print(f"[Q tp] optimizer state a rank: {r0['moment_bytes']} B with "
+          f"ZeRO-1, {r0['whole_moment_bytes']} B without", flush=True)
+    print(f"[Q tp] launches a step by kernel (rank 0) {r0['launches']}, "
+          f"every decode bf16", flush=True)
+    for k, calls in enumerate(r0["calls"]):
+        print(f"[Q tp] step {k} collectives of rank 0 (calls, bytes) by "
+              f"group: {calls}", flush=True)
+    print(f"[Q tp] step 0's aggregates byte-equal to the per-shard twins "
+          f"on {r0['twin_checked']} low-bit leaves a rank; replicated "
+          f"leaves bit-equal on all ranks and blocks on both data ranks "
+          f"after every step; step-0 gradient blocks within "
+          f"{Q_GRAD_NOISE}x the bf16 noise (relative L2 distance from the "
+          f"float32 gradient, tensor-parallel against unsharded bf16: "
+          f"{ {p: (round(a, 5), round(b, 5)) for p, (a, b) in errs.items()} }"
+          f"; the largest ratio {worst}); "
+          f"'dots' gradients bit-equal to 'full' with model-group "
+          f"all-reduces {r0['remat_all_reduce']}", flush=True)
+    launches = dict(r0["kernel_launches"])
+    launches["unpack_ternary_bf16"] = r0["kernel_launches_bf16"]
+    launches["unpack_ternary"] -= r0["kernel_launches_bf16"]
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -2284,7 +2630,7 @@ def main() -> None:
     run_gloo_on_card()
     free()
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
-               run_xlstm, run_hymba, run_whisper):
+               run_xlstm, run_hymba, run_whisper, run_tp_on_card):
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v
@@ -2308,5 +2654,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--run-k-rank"]:
         run_k_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-q-rank"]:
+        run_q_rank(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -25,6 +25,12 @@
     a half-written step.  Error-feedback rows are gathered to the
     ``(W, ...)`` layout a virtual group holds, so W processes write what
     ``Fabric(num_workers=W)`` writes.
+  * **Process meshes** — under tensor parallelism and ZeRO-1
+    (:class:`MeshLayout`) the checkpoint still holds whole arrays in the
+    reference's format: parameters, moments and ``(W, ...)`` EF rows are
+    gathered over the model and data groups before the write, and a
+    restore cuts each rank's blocks out of them, on any mesh of the same
+    world size (EF rows only at the same data extent W).
   * **Controller threading** — pass ``controller=`` to ``maybe_save`` /
     ``restore`` and its ``state_dict()`` rides in ``extra`` and is
     loaded back on restore.
@@ -142,42 +148,121 @@ def _per_rank_group(group) -> bool:
     return group is not None and len(group.rank()) != group.size
 
 
-def train_state_arrays(state, group=None) -> dict:
+class MeshLayout:
+    """Where a rank's train state lies on a
+    :class:`~repro_torch.core.collectives.ProcessMesh`: ``pspecs`` (the
+    sanitized partition specs of the whole parameter tree, None off a
+    model axis) and ``zero`` (the :class:`~repro_torch.optim.Zero1`
+    partition of the moments, or None)."""
+
+    def __init__(self, mesh, pspecs=None, zero=None):
+        self.mesh, self.zero = mesh, zero
+        self.specs = None if pspecs is None else T.leaves(pspecs)
+
+    def _model_dim(self, i: int):
+        from ..runtime.shardings import dim_of
+        return None if self.specs is None else dim_of(self.specs[i], "model")
+
+    def whole(self, x: torch.Tensor, i: int, lead: int = 0) -> torch.Tensor:
+        """Leaf ``i``'s block ``x`` gathered over the model group (a
+        collective every rank joins); ``lead`` leading axes come first."""
+        d = self._model_dim(i)
+        return x if d is None else \
+            self.mesh.model_group.all_gather_dim(x.detach(), d + lead)
+
+    def block(self, full: torch.Tensor, i: int,
+              lead: int = 0) -> torch.Tensor:
+        """This rank's block of leaf ``i``'s whole array."""
+        d = self._model_dim(i)
+        if d is None:
+            return full
+        n = full.shape[d + lead] // self.mesh.model_size
+        return full.narrow(d + lead, self.mesh.model_index * n, n)
+
+
+def _leaf_index(state) -> dict:
+    return {p: i for i, (p, _) in enumerate(T.flatten(state.model.tree()))}
+
+
+def train_state_arrays(state, group=None,
+                       layout: MeshLayout | None = None) -> dict:
     """A :class:`~repro_torch.fabric.TrainState` as the reference's tree:
     name -> tensor, in the reference's leaf order.  Under a process group
     each rank's EF rows are gathered (a collective every rank joins) to
-    the ``(W, ...)`` rows of a virtual group."""
+    the ``(W, ...)`` rows of a virtual group; on a mesh (``layout``) the
+    blocks and ZeRO-1 slices are gathered to whole arrays as well."""
     out: dict[str, Any] = {}
+    whole = (lambda x, i, lead=0: x) if layout is None else layout.whole
+    index = _leaf_index(state)
     for path, p in T.flatten(state.model.tree()):
-        out[f"params/{path}"] = p
+        out[f"params/{path}"] = whole(p, index[path])
     opt = state.opt
     out["opt/step"] = opt.step
     for part in ("mu", "nu"):
         tree = getattr(opt, part)
         if tree is not None:
             for path, x in T.flatten(tree):
-                out[f"opt/{part}/{path}"] = x
+                i = index[path]
+                if layout is not None and layout.zero is not None:
+                    x = layout.zero.gather(x, i)
+                out[f"opt/{part}/{path}"] = whole(x, i)
     gather = _per_rank_group(group)
     for path, e in T.flatten(state.ef):
         # (1, *shape) rows -> (W, *shape)
-        out[f"ef/{path}"] = group.all_gather(e[None]) if gather and e.dim() \
-            else e
+        if gather and e.dim():
+            e = whole(group.all_gather(e[None]), index[path], 1)
+        out[f"ef/{path}"] = e
     out["step"] = torch.tensor(int(state.step), dtype=torch.int32)
     return out
 
 
+def _rank_arrays(state, arrays, layout: MeshLayout) -> dict:
+    """A whole-array checkpoint cut to this rank's blocks and ZeRO-1
+    slices (EF rows: its data index's row, kept as a ``(1, ...)`` row)."""
+    index = _leaf_index(state)
+    out = {}
+    for name, x in arrays.items():
+        kind, _, path = name.partition("/")
+        if kind == "opt" and path != "step":
+            _, _, path = path.partition("/")
+        i = index.get(path)
+        if i is None or x.dim() == 0:
+            out[name] = x
+        elif kind == "ef":
+            w = layout.mesh.data_size
+            if x.shape[0] != w:
+                raise ValueError(
+                    f"checkpoint holds error-feedback residuals {name} of "
+                    f"shape {tuple(x.shape)}, written by another number "
+                    f"of workers than this run's {w}: EF rows cannot be "
+                    f"restored at another world size")
+            row = x[layout.mesh.data_index:layout.mesh.data_index + 1]
+            out[name] = layout.block(row, i, 1)
+        else:
+            x = layout.block(x, i)
+            if kind == "opt" and layout.zero is not None:
+                x = layout.zero.part(x, i)
+            out[name] = x
+    return out
+
+
 def load_train_state(state, arrays: Mapping[str, torch.Tensor],
-                     group=None):
+                     group=None, layout: MeshLayout | None = None):
     """Copy a checkpoint's arrays into ``state`` in place (parameters,
     moments, EF rows) and return the restored TrainState.
 
     Parameters and moments keep their tensors, so steps built on the
     model stay valid.  Under a process group each rank takes its own EF
     rows; EF rows written by another number of workers raise, since a
-    residual belongs to one worker's gradient stream.
+    residual belongs to one worker's gradient stream.  On a mesh
+    (``layout``) each rank takes its blocks of the whole arrays, so a
+    checkpoint restores on any mesh of the world size it was written at.
     """
     from ..fabric import TrainState
 
+    if layout is not None:
+        arrays = _rank_arrays(state, arrays, layout)
+        group = None                   # the EF rows are this rank's now
     want = train_state_arrays(state)
     missing = sorted(set(want) - set(arrays))
     unexpected = sorted(set(arrays) - set(want))

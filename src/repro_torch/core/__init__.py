@@ -4,7 +4,8 @@ from .buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan, Bucket, BucketGate,
                       GroupRules, UnfusedLeaf, assign_groups, group_sizes,
                       leaf_bucket_key, plan_buckets, resolve_policies)
 from .admission import Commander, ControlEvent, CusumGuard, Supervisor
-from .collectives import DistributedGroup, LocalGroup, VirtualGroup
+from .collectives import (DistributedGroup, LocalGroup, ProcessMesh,
+                          VirtualGroup)
 from .device import rank_device, resolve_device
 from .diagnostics import (cosines_to_host, group_cosines_from_mean,
                           group_cosines_from_workers)
@@ -18,8 +19,8 @@ __all__ = [
     "DEFAULT_BUCKET_BYTES", "AdmissionPlan", "AggregationMode", "Bucket",
     "BucketGate", "BucketKey", "BucketLayout", "BucketSlot", "Commander",
     "ControlEvent", "CusumGuard", "DistributedGroup", "GroupPolicy",
-    "GroupRules", "LeafPolicy",
-    "LocalGroup", "Schedule", "Supervisor", "UnfusedLeaf", "VirtualGroup",
+    "GroupRules", "LeafPolicy", "LocalGroup", "ProcessMesh", "Schedule",
+    "Supervisor", "UnfusedLeaf", "VirtualGroup",
     "assign_groups", "bits_per_element", "canonical_mode", "codec_name",
     "cosines_to_host", "fp32_allreduce", "group_cosines_from_mean",
     "group_cosines_from_workers", "group_sizes", "leaf_bucket_key",

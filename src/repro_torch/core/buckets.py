@@ -7,14 +7,15 @@ Port of ``repro/core/buckets.py``:
                  --(plan_buckets)------> BucketLayout (fused flat buckets)
 
 Compatible leaves (same codec / wire schedule / error-feedback flag /
-gate phase / dtype) are concatenated into fixed-budget flat buckets
+gate phase / model spec / dtype) are concatenated into fixed-budget flat buckets
 (32 MiB by default, the paper's bucket size, Section 5.2) so the fabric
 runs one collective per bucket instead of one per leaf.  The layout is a
 pure function of (leaf order, shapes, dtypes, policies, bucket_bytes).
 
 Trees are nested dicts (:mod:`repro_torch.core.tree`); a leaf only needs
 ``shape`` and ``dtype`` (a torch dtype, numpy dtype or its name).
-Tensor-parallel ``model_spec`` fields are not ported yet (ROADMAP).
+A tensor-parallel leaf (a ``model_spec`` that shards it) is never
+bucketed: it stays on the per-leaf path, as in the reference.
 """
 from __future__ import annotations
 
@@ -157,16 +158,34 @@ class AdmissionPlan:
 
 
 def resolve_policies(params: Any, plan: AdmissionPlan,
+                     pspecs: Any | None = None,
                      rules: GroupRules | None = None) -> dict:
-    """Params tree -> LeafPolicy tree."""
+    """Params tree (+ optional partition-spec tree) -> LeafPolicy tree.
+
+    ``pspecs`` gives each leaf's tensor-parallel spec (tuples, see
+    :mod:`repro_torch.runtime.shardings`); a spec that replicates every
+    dimension is stored as None."""
     rules = rules or GroupRules()
+    items = T.flatten(params)
+    if pspecs is None:
+        specs = [None] * len(items)
+    else:
+        specs = T.leaves(pspecs)
+    if len(specs) != len(items):
+        raise ValueError(f"pspec tree mismatch: {len(specs)} specs vs "
+                         f"{len(items)} leaves")
     out = []
-    for path, _ in T.flatten(params):
+    for (path, _), spec in zip(items, specs):
         gp = plan.policy_for(rules.group_of(path))
-        out.append((path, LeafPolicy(mode=gp.mode,
-                                     schedule=gp.resolved_schedule(),
-                                     error_feedback=gp.error_feedback)))
+        out.append((path, LeafPolicy(
+            mode=gp.mode, schedule=gp.resolved_schedule(),
+            model_spec=None if _trivial(spec) else tuple(spec),
+            error_feedback=gp.error_feedback)))
     return T.unflatten(out)
+
+
+def _trivial(spec) -> bool:
+    return spec is None or all(e is None for e in spec)
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +207,7 @@ class BucketKey:
     schedule: str
     error_feedback: bool
     gate_phase: int
+    model_spec: tuple | None
     dtype: str
 
 
@@ -271,10 +291,13 @@ def leaf_bucket_key(policy, dtype) -> BucketKey:
     # only gated codecs read the gate phase; normalizing it for the others
     # keeps otherwise-compatible leaves in one bucket
     phase = int(policy.gate_phase) if _codec(mode).gated else 0
+    spec = getattr(policy, "model_spec", None)
     return BucketKey(mode=mode,
                      schedule=wire_schedule(policy.mode, policy.schedule),
                      error_feedback=bool(policy.error_feedback),
-                     gate_phase=phase, dtype=dtype_name(dtype))
+                     gate_phase=phase,
+                     model_spec=None if _trivial(spec) else tuple(spec),
+                     dtype=dtype_name(dtype))
 
 
 def plan_buckets(params_like: Any, policies: Any, *,
@@ -284,8 +307,9 @@ def plan_buckets(params_like: Any, policies: Any, *,
 
     Greedy first-fit in leaf order: a bucket closes when adding the next
     leaf would exceed ``bucket_bytes``; a leaf larger than the budget gets
-    a bucket of its own.  Leaves whose wire schedule fails ``fusable``
-    stay on the per-leaf path as :class:`UnfusedLeaf`.
+    a bucket of its own.  Leaves whose wire schedule fails ``fusable``,
+    or that are tensor-parallel (a ``model_spec``), stay on the per-leaf
+    path as :class:`UnfusedLeaf`.
     """
     leaves = T.flatten(params_like)
     pol_leaves = T.leaves(policies)
@@ -305,7 +329,8 @@ def plan_buckets(params_like: Any, policies: Any, *,
         shape = tuple(leaf.shape)
         size = _numel(shape)
         key = leaf_bucket_key(pol, leaf.dtype)
-        if fusable is not None and not fusable(key.schedule):
+        if key.model_spec is not None or (fusable is not None
+                                          and not fusable(key.schedule)):
             unfused.append(UnfusedLeaf(leaf=i, name=name, key=key, size=size))
             continue
         budget = max(1, bucket_bytes // dtype_itemsize(leaf.dtype))

@@ -20,11 +20,18 @@ tells the schedules that no collective separates their stages.
 :class:`DistributedGroup` is one rank per process over a
 ``torch.distributed`` process group (NCCL on the card, gloo on the
 CPU): the reference's ``shard_map`` over its data-parallel mesh axes.
+:class:`ProcessMesh` lays ranks out on the reference's ``(data, model)``
+(or ``(pod, data, model)``) mesh and holds a data group and a model
+group for this rank.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class VirtualGroup:
@@ -164,9 +171,14 @@ class DistributedGroup:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over ranks (integer inputs sum in their own dtype)."""
-        out = self._local(x)[0].clone(memory_format=torch.contiguous_format)
+        return self.all_reduce(self._local(x)[0])
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` (no leading rank axis) reduced over the ranks by ``op``
+        (``"sum"`` or ``"max"``) into a new tensor."""
+        out = self._on_device(x).clone(memory_format=torch.contiguous_format)
         self._count("all_reduce", out)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.process_group)
+        dist.all_reduce(out, op=_REDUCE_OPS[op], group=self.process_group)
         return out
 
     def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
@@ -197,10 +209,18 @@ class DistributedGroup:
         dist.all_gather_into_tensor(out, send, group=self.process_group)
         return out
 
+    def all_gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` (no leading rank axis) concatenated along
+        ``dim``, in rank order."""
+        out = self.all_gather(x.movedim(dim, 0)[None])
+        return out.movedim(0, dim)
+
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Overwrite ``x`` (no leading rank axis) with rank ``src``'s
-        value, in place; returns ``x``."""
+        """Overwrite ``x`` (no leading rank axis) with the value of the
+        group's rank ``src``, in place; returns ``x``."""
         self._count("broadcast", self._on_device(x))
+        if self.process_group is not None:
+            src = dist.get_global_rank(self.process_group, src)
         dist.broadcast(x, src=src, group=self.process_group)
         return x
 
@@ -215,3 +235,76 @@ class DistributedGroup:
     def __repr__(self) -> str:
         return (f"DistributedGroup(rank={self._rank}, size={self.size}, "
                 f"backend={self.backend}, device={self.device})")
+
+
+class ProcessMesh:
+    """One rank a process on the reference's device mesh.
+
+    ``shape`` gives the extents of ``("data", "model")`` (two entries) or
+    ``("pod", "data", "model")`` (three), and the world size must be
+    their product.  Rank ``r`` sits at the row-major coordinates of
+    ``r`` (``r = d * M + m`` on two axes), the order in which
+    ``jax.make_mesh`` lays out devices.  The data axes are every axis but
+    ``"model"``: ``data_group`` holds the ``W = P * D`` ranks that share
+    this rank's model index (the gradient aggregation's workers, ranked
+    by their data index ``p * D + d``), ``model_group`` the ``M`` ranks
+    that share its data coordinates (the tensor-parallel shards, ranked
+    by ``m``), and ``world`` every rank.  Every rank creates every group,
+    in one order, as ``dist.new_group`` requires.
+    """
+
+    def __init__(self, shape, *, device):
+        shape = tuple(int(s) for s in shape)
+        if len(shape) not in (2, 3):
+            raise ValueError(f"a mesh is (data, model) or (pod, data, "
+                             f"model), got {shape}")
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessMesh needs an initialised "
+                               "torch.distributed process group")
+        names = ("data", "model") if len(shape) == 2 else \
+            ("pod", "data", "model")
+        world = dist.get_world_size()
+        if math.prod(shape) != world:
+            raise ValueError(f"mesh {shape} holds {math.prod(shape)} ranks, "
+                             f"the process group {world}")
+        self.axis_names = names
+        self.extents = dict(zip(names, shape))
+        self.rank = dist.get_rank()
+        self.coords = self.coords_of(self.rank)
+        self.model_size = self.extents["model"]
+        self.data_axes = names[:-1]
+        self.data_size = world // self.model_size
+        self.data_index = self.rank // self.model_size
+        self.model_index = self.coords["model"]
+        m = self.model_size
+        data_groups = [dist.new_group(list(range(k, world, m)))
+                       for k in range(m)]
+        model_groups = [dist.new_group(list(range(k * m, (k + 1) * m)))
+                        for k in range(self.data_size)]
+        self.data_group = DistributedGroup(data_groups[self.model_index],
+                                           device=device)
+        self.model_group = DistributedGroup(model_groups[self.data_index],
+                                            device=device)
+        self.world = DistributedGroup(device=device)
+
+    def coords_of(self, rank: int) -> dict:
+        """The row-major coordinates of ``rank``."""
+        out = {}
+        for name in reversed(self.axis_names):
+            rank, out[name] = divmod(rank, self.extents[name])
+        return {n: out[n] for n in self.axis_names}
+
+    def shard_view(self, spec, shape):
+        """This rank's :class:`~repro_torch.runtime.shardings.ShardView`
+        of a model-sharded leaf whose block has ``shape``."""
+        from ..runtime.shardings import ShardView
+        return ShardView(spec, shape, self.extents, self.coords,
+                         self.model_group)
+
+    def reset_counts(self) -> None:
+        for g in (self.data_group, self.model_group, self.world):
+            g.reset_counts()
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{n}={s}" for n, s in self.extents.items())
+        return f"ProcessMesh({dims}; rank {self.rank} at {self.coords})"

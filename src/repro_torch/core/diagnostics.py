@@ -20,11 +20,15 @@ from . import tree as T
 from .lowbit import _flat_index_gate, signum
 
 
+_KEYS = ("num_b", "num_t", "gg", "bb", "tt")
+
+
 def _accumulate(acc: dict, group: str, g: torch.Tensor, ubin: torch.Tensor,
-                gate_phase: int) -> None:
-    uter = ubin * _flat_index_gate(g.shape, gate_phase, device=g.device)
-    d = acc.setdefault(group, {"num_b": [], "num_t": [],
-                               "gg": [], "bb": [], "tt": []})
+                gate_phase: int, gate: torch.Tensor | None = None) -> None:
+    if gate is None:
+        gate = _flat_index_gate(g.shape, gate_phase, device=g.device)
+    uter = ubin * gate
+    d = acc.setdefault(group, {k: [] for k in _KEYS})
     d["num_b"].append(torch.sum(ubin * g))
     d["num_t"].append(torch.sum(uter * g))
     d["gg"].append(torch.sum(g * g))
@@ -46,17 +50,37 @@ def _finish(acc: dict) -> dict:
 
 
 def group_cosines_from_mean(grads_mean: Any, groups: Any,
-                            gate_phase: int = 0) -> dict:
+                            gate_phase: int = 0, shards=None) -> dict:
     """Per-group cosine between the FP32 mean aggregate and its low-bit
     image ``sign(mean)``, the controller-visible proxy of the majority
     direction during FP32 phases.
 
+    ``shards`` (one entry a leaf: None, or the
+    :class:`~repro_torch.runtime.shardings.ShardView` of a
+    tensor-parallel leaf's block) makes the sums the whole leaves': a
+    block's sums, with the gate at its global flat indices, are added
+    over the model group in one all-reduce, a replicated leaf counts once.
     Returns ``{group: {'gbinary': cos, 'gternary': cos}}`` of 0-d tensors.
     """
     acc: dict = {}
-    for leaf, group in zip(T.leaves(grads_mean), T.leaves(groups)):
-        g = leaf.to(torch.float32).reshape(-1)
-        _accumulate(acc, group, g, signum(g), gate_phase)
+    part: dict = {}
+    leaves, names = T.leaves(grads_mean), T.leaves(groups)
+    for leaf, group, sh in zip(leaves, names, shards or [None] * len(leaves)):
+        g = leaf.to(torch.float32)
+        if sh is None:
+            g = g.reshape(-1)
+            _accumulate(acc, group, g, signum(g), gate_phase)
+        else:
+            gate = sh.gate(gate_phase, device=g.device).reshape(-1)
+            g = g.reshape(-1)
+            _accumulate(part, group, g, signum(g), gate_phase, gate)
+            model_group = sh.group
+    if part:
+        order = [(grp, k) for grp in sorted(part) for k in _KEYS]
+        sums = model_group.all_reduce(torch.stack(
+            [sum(part[grp][k]) for grp, k in order]))
+        for (grp, k), x in zip(order, sums.unbind(0)):
+            acc.setdefault(grp, {kk: [] for kk in _KEYS})[k].append(x)
     return _finish(acc)
 
 

@@ -18,6 +18,15 @@ without it.  Semantics (paper Section 2, identical across schedules):
 FP32 aggregation stays available per bucket (:func:`fp32_allreduce`),
 and so do the paper's Section 9 baselines (:func:`majority_sign_sgd`,
 :func:`sign_of_mean`).
+
+Tensor-parallel leaves (a ``model_spec`` that shards them over the model
+axis) arrive as this rank's block.  The two vote schedules see them as
+the reference does: ``packed_a2a`` votes the block as a fully local
+payload (the reference's inner ``shard_map``: rows padded per block, the
+gate's flat index restarting at 0, EF ``beta`` the block's own mean),
+``vote_psum`` works on the whole GSPMD leaf (the gate at the block's
+global flat indices, ``beta`` the whole leaf's mean, through a
+:class:`~repro_torch.runtime.shardings.ShardView`).
 Optional per-worker error feedback (EF-signSGD) is injected before the
 vote and updated after it: in the fused kernels on ``packed_a2a`` with a
 kernel set, in plain torch everywhere else.
@@ -70,11 +79,15 @@ def _ef_inject(g: torch.Tensor, ef: torch.Tensor | None):
     return g + ef.to(g.dtype), ef
 
 
-def _ef_update(g_eff: torch.Tensor, ef: torch.Tensor | None):
-    """Residual e' = x - beta * sgn(x), beta = mean|x| per worker."""
+def _ef_update(g_eff: torch.Tensor, ef: torch.Tensor | None, shard=None):
+    """Residual e' = x - beta * sgn(x), beta = mean|x| per worker (over
+    the whole leaf for a ``shard`` of it)."""
     if ef is None:
         return None
-    beta = g_eff.abs().reshape(g_eff.shape[0], -1).mean(dim=1)
+    if shard is None:
+        beta = g_eff.abs().reshape(g_eff.shape[0], -1).mean(dim=1)
+    else:
+        beta = shard.mean_abs(g_eff)
     beta = beta.reshape((-1,) + (1,) * (g_eff.dim() - 1))
     return (g_eff - beta * torch.sign(g_eff)).to(ef.dtype)
 
@@ -86,21 +99,30 @@ def _ef_update(g_eff: torch.Tensor, ef: torch.Tensor | None):
 def lowbit_vote_psum(g: torch.Tensor, group, num_workers: int, *,
                      ternary: bool = False, gate_phase: int = 0,
                      ef: torch.Tensor | None = None,
-                     gate: torch.Tensor | None = None):
+                     gate: torch.Tensor | None = None, shard=None):
     """Sign votes, one integer all-reduce, majority (+ optional gate).
 
     The margin accumulates in int32 (int8 wraps at W >= 128).  ``gate``
     overrides the flat-index 2-of-3 gate with an explicit {0, 1} keep
-    vector.  Returns ``(u, new_ef)``, ``u`` in {-1, 0, +1} (dtype of g).
+    vector.  ``shard`` (a :class:`~repro_torch.runtime.shardings.
+    ShardView`) marks ``g`` as a block of a tensor-parallel leaf: the gate
+    and the EF ``beta`` are then the whole leaf's, as the reference's
+    vote on the GSPMD array gives them.  Returns ``(u, new_ef)``, ``u``
+    in {-1, 0, +1} (dtype of g).
     """
     g_eff, ef = _ef_inject(g, ef)
     votes = torch.where(g_eff > 0, 1, -1).to(torch.int32)
     margin = group.psum(votes)
     u = torch.sign(margin.to(torch.float32))
     if ternary:
-        u = u * (_flat_index_gate(g.shape[1:], gate_phase, device=g.device)
-                 if gate is None else gate.to(u.dtype))
-    return u.to(g.dtype), _ef_update(g_eff, ef)
+        if gate is not None:
+            u = u * gate.to(u.dtype)
+        elif shard is not None:
+            u = u * shard.gate(gate_phase, device=g.device)
+        else:
+            u = u * _flat_index_gate(g.shape[1:], gate_phase,
+                                     device=g.device)
+    return u.to(g.dtype), _ef_update(g_eff, ef, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +130,9 @@ def lowbit_vote_psum(g: torch.Tensor, group, num_workers: int, *,
 # ---------------------------------------------------------------------------
 
 def lowbit_packed_a2a(g: torch.Tensor, group, num_workers: int, *,
-                      ternary: bool = False, gate_phase: int = 0,
-                      ef: torch.Tensor | None = None, gate_mask=None,
-                      kernels=None):
+                      model_spec=None, ternary: bool = False,
+                      gate_phase: int = 0, ef: torch.Tensor | None = None,
+                      gate_mask=None, kernels=None):
     """Controller-schedule aggregation of a fully local payload.
 
     The reference's ``_packed_a2a_local``.  ``kernels`` (a codec's vote
@@ -122,8 +144,14 @@ def lowbit_packed_a2a(g: torch.Tensor, group, num_workers: int, *,
     On a host-local group the fused chain is one ``vote_pipeline``
     launch, and the staged chain runs with identity collectives.
     ``gate_mask`` (boolean (N,) keep vector, host array or tensor)
-    overrides the flat-index 2-of-3 gate.  Tensor-parallel leaves are still to port.
+    overrides the flat-index 2-of-3 gate.  A tensor-parallel leaf
+    (``model_spec`` shards it) arrives as this rank's block and is voted
+    as a fully local payload, the reference's inner ``shard_map`` over
+    the model axis; it takes no ``gate_mask``, as the reference asserts.
     """
+    if model_spec is not None and any(e is not None for e in model_spec) \
+            and gate_mask is not None:
+        raise ValueError("gate_mask requires a fully local payload")
     if kernels is not None and kernels.votes:
         return kernels.packed_vote(g, group, num_workers, ternary=ternary,
                                    gate_phase=gate_phase, ef=ef,
@@ -170,8 +198,11 @@ class LeafPolicy:
 
     ``mode`` names the codec and ``schedule`` the transport, each a
     built-in enum member or the name of a registered codec / backend.
+    ``model_spec`` is the leaf's sanitized partition spec when it is
+    tensor-parallel (None for a replicated leaf).
     """
     mode: AggregationMode | str
     schedule: Schedule | str
+    model_spec: tuple | None = None     # the leaf's TP spec over "model"
     gate_phase: int = 0
     error_feedback: bool = False

@@ -7,6 +7,14 @@ fusable: besides the per-leaf ``aggregate`` they implement
 ``aggregate_flat`` over a (ranks, N) bucket payload, one collective per
 bucket.  A codec's kernel set runs the packed vote (``packed_a2a``) or
 the encode around the mean (``psum``, the int4 and top-k kernels).
+
+A tensor-parallel leaf (its policy's ``model_spec`` shards it over the
+model axis) reaches ``aggregate`` as this rank's block
+(``repro/fabric/backends.py:150-175``): ``packed_a2a`` votes the block
+alone, ``vote_psum`` sees the whole leaf through the session mesh's model
+group, and the FP32 mean and ``sign_of_mean`` are elementwise.  A mean
+codec with an encode of its own (int4's absmax, top-k's threshold) spans
+the whole leaf and raises there: it is still to port (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import torch
 
 from ..core.lowbit import (fp32_allreduce, lowbit_packed_a2a,
                            lowbit_vote_psum, sign_of_mean)
-from ..core.modes import Schedule
+from ..core.modes import Schedule, codec_name
 from .codecs import get_codec, resolve_leaf_gate_mask, ring_wire_bytes
 from .registry import AggregationContext, register_schedule
 
@@ -26,6 +34,19 @@ def _codec_kernels(ctx: AggregationContext, codec):
     fall back on, so the switch leaves it on its kernels."""
     ks = codec.kernel_set()
     return ks if ks is None or ks.means or ctx.fused_kernels else None
+
+
+def _shard(ctx: AggregationContext, g, policy):
+    """The :class:`~repro_torch.runtime.shardings.ShardView` of a
+    tensor-parallel leaf's block (``g`` carries the local ranks on its
+    leading axis), or None for a replicated leaf."""
+    spec = getattr(policy, "model_spec", None)
+    if spec is None:
+        return None
+    if ctx.mesh is None:
+        raise ValueError(f"a tensor-parallel leaf (spec {spec}) needs a "
+                         f"session on a ProcessMesh")
+    return ctx.mesh.shard_view(spec, tuple(g.shape[1:]))
 
 
 @register_schedule(Schedule.PSUM, "fp32")
@@ -42,6 +63,13 @@ class Fp32AllreduceBackend:
 
     def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
         codec = get_codec(policy.mode)
+        if getattr(policy, "model_spec", None) is not None and \
+                codec_name(policy.mode) not in ("fp32", "identity"):
+            raise NotImplementedError(
+                f"the {codec_name(policy.mode)} codec on a tensor-parallel "
+                f"leaf: its encode spans the whole leaf (an absmax or a "
+                f"threshold over every block), still to port (ROADMAP "
+                f"queue 1)")
         ks = _codec_kernels(ctx, codec)
         if ks is not None and ks.means:
             u = self.aggregate_flat(ctx, g.reshape(g.shape[0], -1), codec)
@@ -80,12 +108,18 @@ class VotePsumBackend:
 
     def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
         codec = get_codec(policy.mode)
-        mask = resolve_leaf_gate_mask(codec, g.shape[1:], policy.gate_phase)
-        gate = None if mask is None else \
-            torch.from_numpy(mask).to(g.device, g.dtype).reshape(g.shape[1:])
+        shard = _shard(ctx, g, policy)
+        shape = g.shape[1:] if shard is None else shard.global_shape
+        mask = resolve_leaf_gate_mask(codec, shape, policy.gate_phase)
+        gate = None
+        if mask is not None:
+            gate = torch.from_numpy(mask).reshape(shape)
+            if shard is not None:       # the whole leaf's mask, this block
+                gate = shard.block(gate)
+            gate = gate.to(g.device, g.dtype)
         return lowbit_vote_psum(
             g, ctx.group, ctx.num_workers, ternary=codec.gated,
-            gate_phase=policy.gate_phase, gate=gate, ef=ef)
+            gate_phase=policy.gate_phase, gate=gate, ef=ef, shard=shard)
 
     def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
                        gate=None):
@@ -112,8 +146,9 @@ class PackedA2ABackend:
     def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
         codec = get_codec(policy.mode)
         return lowbit_packed_a2a(
-            g, ctx.group, ctx.num_workers, ternary=codec.gated,
-            gate_phase=policy.gate_phase,
+            g, ctx.group, ctx.num_workers,
+            model_spec=getattr(policy, "model_spec", None),
+            ternary=codec.gated, gate_phase=policy.gate_phase,
             gate_mask=resolve_leaf_gate_mask(codec, g.shape[1:],
                                              policy.gate_phase),
             ef=ef, kernels=_codec_kernels(ctx, codec))

@@ -28,11 +28,16 @@ class AggregationContext:
     ``num_workers``   — its size, the paper's W;
     ``fused_kernels`` — run vote codecs' fused kernel sets; False pins
                         the staged four-kernel chain (the session's
-                        ``fused_kernels=False`` A/B switch; same bits).
+                        ``fused_kernels=False`` A/B switch; same bits);
+    ``mesh``          — the :class:`~repro_torch.core.collectives.
+                        ProcessMesh` of a tensor-parallel session (its
+                        model group serves the schedules that see a TP
+                        leaf whole), else None.
     """
     group: Any = None
     num_workers: int = 1
     fused_kernels: bool = True
+    mesh: Any = None
 
 
 @runtime_checkable

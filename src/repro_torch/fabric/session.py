@@ -15,6 +15,12 @@ all W workers, ``(W, *shape)`` per leaf; for a process of a
 Error-feedback trees hold one residual row per local rank where EF is on
 and a scalar 0 sentinel elsewhere; the W rows of a virtual group are the
 reference's global EF tree.
+
+On a :class:`~repro_torch.core.collectives.ProcessMesh` with a model axis
+above 1 (tensor parallelism) every leaf is this rank's block: the data
+group aggregates it, policies carry the leaves' partition specs (a
+tensor-parallel leaf stays off the buckets), and the step's norms and
+cosines are the whole model's, summed over the model group.
 """
 from __future__ import annotations
 
@@ -256,19 +262,28 @@ class Fabric:
     ``unpack_ternary``) in place of the vote codecs' fused kernel sets:
     the reference's A/B check, with the same bits.  The mean codecs
     (``int4``, ``topk``) have no staged kernels and run their kernel
-    sets either way.
+    sets either way.  ``Fabric(mesh=ProcessMesh(...))`` aggregates over
+    the mesh's data group; with a model axis above 1 the partition specs
+    passed as ``pspecs=`` reach the policies (at a model axis of 1 they
+    are dropped, so the layouts stay the data-parallel ones).
     """
 
     def __init__(self, num_workers: int | None = None, *, group=None,
-                 rules: GroupRules | None = None,
+                 mesh=None, rules: GroupRules | None = None,
                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                  fused: bool = True, fused_kernels: bool = True):
+        if mesh is not None:
+            if group is not None and group is not mesh.data_group:
+                raise ValueError("a session on a mesh aggregates over the "
+                                 "mesh's data group")
+            group = mesh.data_group
         if group is None:
             group = VirtualGroup(1 if num_workers is None else num_workers)
         elif num_workers is not None and num_workers != group.size:
             raise ValueError(f"num_workers={num_workers} disagrees with "
                              f"the group's {group.size} workers")
         self.group = group
+        self.mesh = mesh
         self.num_workers = self.group.size
         self.rules = rules or GroupRules()
         self.bucket_bytes = int(bucket_bytes)
@@ -295,14 +310,25 @@ class Fabric:
         return controller
 
     @property
-    def context(self) -> AggregationContext:
-        return AggregationContext(group=self.group,
-                                  num_workers=self.num_workers,
-                                  fused_kernels=self.fused_kernels)
+    def tensor_parallel(self) -> bool:
+        """Is this a session on a mesh with a model axis above 1?"""
+        return self.mesh is not None and self.mesh.model_size > 1
 
-    def resolve(self, params_like: Any, plan: AdmissionPlan) -> dict:
-        """Params tree -> LeafPolicy tree."""
-        return resolve_policies(params_like, plan, rules=self.rules)
+    @property
+    def context(self) -> AggregationContext:
+        return AggregationContext(
+            group=self.group, num_workers=self.num_workers,
+            fused_kernels=self.fused_kernels,
+            mesh=self.mesh if self.tensor_parallel else None)
+
+    def resolve(self, params_like: Any, plan: AdmissionPlan,
+                pspecs: Any | None = None) -> dict:
+        """Params tree (+ the sanitized partition specs) -> LeafPolicy
+        tree; the specs count only on a tensor-parallel session."""
+        return resolve_policies(
+            params_like, plan,
+            pspecs=pspecs if self.tensor_parallel else None,
+            rules=self.rules)
 
     def group_sizes(self, params_like: Any) -> dict[str, int]:
         return group_sizes(params_like, self.rules)
@@ -324,11 +350,11 @@ class Fabric:
             return torch.zeros(shape, dtype=dtype, device=p.device)
         return T.map_leaves(make, params, policies)
 
-    def layout_for(self, params_like: Any,
-                   plan: AdmissionPlan | Any) -> BucketLayout:
+    def layout_for(self, params_like: Any, plan: AdmissionPlan | Any,
+                   pspecs: Any | None = None) -> BucketLayout:
         """Bucket layout for a (tree, plan) pair, cached: it is a pure
         function of leaf order/shapes/dtypes, policies and bucket_bytes."""
-        policies = (self.resolve(params_like, plan)
+        policies = (self.resolve(params_like, plan, pspecs)
                     if isinstance(plan, AdmissionPlan) else plan)
         key = (tuple((p, tuple(x.shape), dtype_name(x.dtype))
                      for p, x in T.flatten(params_like)),
@@ -403,10 +429,32 @@ class Fabric:
         gtree = T.unflatten([(p, g) for (p, _), g in zip(items, grads)])
         return gtree, self.group.all_reduce_mean(torch.stack(losses))
 
+    def _shards(self, params_like: Any, policies: Any) -> list | None:
+        """The ShardView of each tensor-parallel leaf (None for the
+        others), or None off a tensor-parallel session."""
+        if not self.tensor_parallel:
+            return None
+        return [None if pol.model_spec is None else
+                self.mesh.shard_view(pol.model_spec, tuple(x.shape))
+                for x, pol in zip(T.leaves(params_like), T.leaves(policies))]
+
+    def _norm(self, agg: Any, shards: list | None) -> torch.Tensor:
+        """The aggregate's L2 norm over the whole model: a block's sum of
+        squares added over the model group, a replicated leaf once."""
+        sq = [torch.sum(x.to(torch.float32) ** 2) for x in T.leaves(agg)]
+        if shards is None:
+            return torch.sqrt(sum(sq))
+        rep = sum(x for x, sh in zip(sq, shards) if sh is None)
+        blocks = sum(x for x, sh in zip(sq, shards) if sh is not None)
+        if isinstance(blocks, torch.Tensor):
+            rep = rep + self.mesh.model_group.all_reduce(blocks)
+        return torch.sqrt(rep)
+
     def build_step(self, optimizer, plan: AdmissionPlan, params_like: Any,
                    loss: Callable[[dict, dict], torch.Tensor], *,
                    with_diagnostics: bool = False,
-                   grad_accum: int = 1) -> Callable:
+                   grad_accum: int = 1, pspecs: Any | None = None,
+                   zero=None) -> Callable:
         """One data-parallel train step under ``plan``.
 
         The step computes each virtual worker's loss and gradients on its
@@ -418,11 +466,16 @@ class Fabric:
         :meth:`worker_grads`); a step still runs one aggregation.
         ``with_diagnostics`` adds the per-group cosines of the aggregate
         (``metrics["cos/{group}/gbinary"]`` and ``.../gternary``).
+        On a tensor-parallel session ``params_like`` holds this rank's
+        blocks and ``pspecs`` the sanitized specs of the whole leaves;
+        ``zero`` (a :class:`~repro_torch.optim.Zero1`) partitions the
+        optimizer's moments over the data group.
         Returns ``step(state, batch) -> (state, metrics, aggregates)``.
         """
-        policies = self.resolve(params_like, plan)
+        policies = self.resolve(params_like, plan, pspecs)
         layout = self.layout_for(params_like, policies) if self.fused else None
         groups = self.groups(params_like)
+        shards = self._shards(params_like, policies)
         ctx = self.context
 
         def step(state: TrainState, batch: dict):
@@ -437,14 +490,15 @@ class Fabric:
             del gtree
             metrics = {"loss": lval}
             if with_diagnostics:
-                cos = group_cosines_from_mean(agg, groups)
+                cos = group_cosines_from_mean(agg, groups, shards=shards)
                 for g, d in sorted(cos.items()):
                     metrics[f"cos/{g}/gbinary"] = d["gbinary"]
                     metrics[f"cos/{g}/gternary"] = d["gternary"]
-            metrics["agg_norm"] = torch.sqrt(sum(
-                torch.sum(x.to(torch.float32) ** 2) for x in T.leaves(agg)))
+            metrics["agg_norm"] = self._norm(agg, shards)
             with torch.no_grad():
-                opt = optimizer.apply(params, agg, state.opt)
+                opt = (optimizer.apply(params, agg, state.opt)
+                       if zero is None else
+                       optimizer.apply(params, agg, state.opt, zero=zero))
             return (TrainState(model=state.model, opt=opt, ef=new_ef,
                                step=state.step + 1), metrics, agg)
 
@@ -455,21 +509,25 @@ class Fabric:
     def step_for(self, optimizer, plan: AdmissionPlan, params_like: Any,
                  loss: Callable[[dict, dict], torch.Tensor], *,
                  with_diagnostics: bool = False,
-                 grad_accum: int = 1) -> Callable:
+                 grad_accum: int = 1, pspecs: Any | None = None,
+                 zero=None) -> Callable:
         """Cached :meth:`build_step`: one built step per plan signature
         (the controller's mode latch), keyed as the reference keys its
         compiled steps, also on the optimizer and the loss, the session's
         ``fused`` and ``fused_kernels`` switches, the kernel signatures of
-        the plan's codecs and the worker count."""
+        the plan's codecs, the worker count, the partition specs and the
+        ZeRO-1 partition."""
         kern_sig = tuple(sorted(
             (codec_name(m), _codec_kernel_sig(m)) for m in plan_modes(plan)))
+        specs = None if pspecs is None else tuple(T.flatten(pspecs))
         key = (plan.signature(), with_diagnostics, grad_accum, optimizer,
                loss, self.fused, self.fused_kernels, kern_sig,
-               self.num_workers)
+               self.num_workers, specs, zero)
         if key not in self._steps:
             self._steps[key] = self.build_step(
                 optimizer, plan, params_like, loss,
-                with_diagnostics=with_diagnostics, grad_accum=grad_accum)
+                with_diagnostics=with_diagnostics, grad_accum=grad_accum,
+                pspecs=pspecs, zero=zero)
         return self._steps[key]
 
     def clear_cache(self) -> None:

@@ -5,14 +5,16 @@ ported architectures (``repro_torch.configs.ARCH_IDS``, or their
 published names), ``--smoke`` their reduced configs; a VLM is fed tokens
 only, as the reference's launcher feeds it.  An encoder-decoder
 (``whisper_tiny``) is refused: its forward reads ``frames``, which the
-launcher's token stream does not carry, in the reference as here.  ``--mesh W,1`` (or
-``P,D,1``) runs W (= P*D) data-parallel workers; a model axis other
-than 1 raises, since tensor parallelism is still to port.  ``--device``
-picks the device (``cuda`` by default).  Started by ``torchrun`` (which
-sets ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``), each process is one
-rank of a ``torch.distributed`` group — NCCL on ``cuda:LOCAL_RANK`` for
-``--device cuda``, gloo for ``--device cpu`` — and the mesh's data
-extent must equal ``WORLD_SIZE``; otherwise the W workers are virtual,
+launcher's token stream does not carry, in the reference as here.
+``--mesh W,1`` (or ``P,D,1``) runs W (= P*D) data-parallel workers;
+``--mesh D,M`` (or ``P,D,M``) with M > 1 adds tensor parallelism over a
+model axis of M, with ZeRO-1 moments over the data axes, and runs only
+under ``torchrun`` (one rank a process).  ``--device`` picks the device
+(``cuda`` by default).  Started by ``torchrun`` (which sets
+``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``), each process is one rank
+of a ``torch.distributed`` group — NCCL on ``cuda:LOCAL_RANK`` for
+``--device cuda``, gloo for ``--device cpu`` — and the mesh's size
+(P*D*M) must equal ``WORLD_SIZE``; otherwise the W workers are virtual,
 on the one device.  Examples, on the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
@@ -21,6 +23,11 @@ on the one device.  Examples, on the CPU:
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch qwen3_0p6b --smoke \\
       --device cpu --mesh 2,1 --steps 2 --plan gbin_packed
+
+  # tensor parallelism: a (data 2) x (model 2) mesh of four ranks
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch qwen3_0p6b --smoke \\
+      --device cpu --mesh 2,2 --steps 1 --plan gbin_packed
 
   # the paper controller (warm-up -> calibrate -> admit -> guarded):
   ... --controller paper --warmup-steps 1    # equivalent: --plan adaptive
@@ -55,8 +62,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--mesh", default="1,1",
-                    help="data,model (or pod,data,model) mesh shape; the "
-                         "model axis must be 1")
+                    help="data,model (or pod,data,model) mesh shape; a "
+                         "model axis above 1 runs under torchrun")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -89,22 +96,25 @@ def main(argv=None):
             ap.error(f"--{name.replace('_', '-')} is not ported to "
                      f"repro_torch yet (see ROADMAP.md queue 1)")
     shape = tuple(int(x) for x in args.mesh.split(","))
-    if len(shape) not in (2, 3) or shape[-1] != 1:
-        ap.error(f"--mesh {args.mesh}: the port runs data parallelism only; "
-                 f"give data,1 or pod,data,1")
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        ap.error(f"--mesh {args.mesh}: give data,model or pod,data,model")
     workers = 1
     for s in shape[:-1]:
         workers *= s
     world = os.environ.get("WORLD_SIZE")
-    if world is not None and int(world) != workers:
-        ap.error(f"--mesh {args.mesh} has a data extent of {workers}, but "
+    if world is None and shape[-1] != 1:
+        ap.error(f"--mesh {args.mesh}: a model axis above 1 runs one rank "
+                 f"a process; start the launcher under torchrun with "
+                 f"{workers * shape[-1]} processes")
+    if world is not None and int(world) != workers * shape[-1]:
+        ap.error(f"--mesh {args.mesh} holds {workers * shape[-1]} ranks, but "
                  f"torchrun started WORLD_SIZE={world} processes")
 
     import torch
     import torch.distributed as dist
 
     from ..configs import get_config
-    from ..core import DistributedGroup, rank_device
+    from ..core import DistributedGroup, ProcessMesh, rank_device
     from ..data import SyntheticLMStream
     from ..fabric import Fabric, plan_presets
     from ..optim import AdamW, SgdMomentum
@@ -131,7 +141,9 @@ def main(argv=None):
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 timeout=_GROUP_TIMEOUT)
-        fabric = Fabric(group=DistributedGroup(device=device))
+        fabric = (Fabric(group=DistributedGroup(device=device))
+                  if shape[-1] == 1 else
+                  Fabric(mesh=ProcessMesh(shape, device=device)))
     else:
         device = args.device
         fabric = Fabric(num_workers=workers)
@@ -158,11 +170,12 @@ def main(argv=None):
         if world is not None:
             dist.destroy_process_group()
     last = history[-1]
-    rank = "" if world is None else f" rank={fabric.group.rank()[0]}"
+    rank = "" if world is None else f" rank={os.environ['RANK']}"
     # one write a line: under torchrun the ranks share one stdout, and an
     # unbuffered print writes the line and its newline apart
     print(f"final: step={last['step']} loss={last['loss']:.4f} "
           f"traffic={last['traffic_ratio']:.4f} workers={workers} "
+          f"model={shape[-1]} "
           f"device={trainer.device}{rank}\n", end="", flush=True)
     return history
 

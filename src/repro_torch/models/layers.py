@@ -10,6 +10,13 @@ softmax (:func:`_flash_attention`), block by block in plain PyTorch.
 Cross-attention (whisper's decoder) takes neither RoPE nor qk-norm, on
 the queries or on the encoder's keys and values.  The MoE layer is the
 reference's grouped top-k capacity dispatch with shared experts.
+
+Tensor parallelism (``tp=``, a :class:`~repro_torch.models.tp.
+TensorParallel`) follows the reference's partition specs
+(:func:`attention_pspecs`, :func:`mlp_pspecs`): attention runs this
+rank's query heads against the K/V heads they read, K and V projected
+from the replicated ``wk`` / ``wv``, and the MLP runs its column block;
+each ends in the sum over the model group.
 """
 from __future__ import annotations
 
@@ -64,9 +71,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+def attention_pspecs(cfg: ModelConfig) -> dict:
+    """TP specs: Q and O sharded over heads, K and V replicated."""
+    p = {"wq": (None, "model"), "wk": (), "wv": (), "wo": ("model", None)}
+    if cfg.qkv_bias:
+        p.update({"bq": ("model",), "bk": (), "bv": ()})
+    if cfg.qk_norm:
+        p.update({"q_norm": {"scale": ()}, "k_norm": {"scale": ()}})
+    return p
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
+         heads=None):
     b, s, _ = x.shape
-    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    h, k = heads or (cfg.num_heads, cfg.num_kv_heads)
+    hd = cfg.hd
     q, kk, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
@@ -192,29 +211,73 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :s].to(q.dtype)
 
 
+def _tp_heads(p: dict, cfg: ModelConfig, tp) -> tuple[dict, tuple]:
+    """This rank's attention parameters and ``(heads, kv heads)``.
+
+    Rank ``m`` holds query heads ``[m h/M, (m+1) h/M)``, which read K/V
+    heads ``[m h/M / G, ...)`` (``G = h / kv``): whole GQA groups when
+    ``G`` divides ``h/M``, else a part of one group's single K/V head.
+    The replicated K/V weights (and biases, and the qk-norm scales) pass
+    through :meth:`~repro_torch.models.tp.TensorParallel.copy`, so their
+    gradients, partial to this rank's heads, are summed over the group.
+    """
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    h_loc = p["wq"].shape[-1] // hd
+    g = h // kv
+    if h_loc % g == 0:
+        kv_loc = h_loc // g
+    elif g % h_loc == 0:
+        kv_loc = 1
+    else:
+        raise NotImplementedError(
+            f"{h_loc} query heads a rank split GQA groups of {g} unevenly; "
+            f"the port lays out whole groups or parts of one")
+    k0 = tp.index * h_loc // g
+    cols = slice(k0 * hd, (k0 + kv_loc) * hd)
+    q = dict(p)
+    for name in ("wk", "wv"):
+        q[name] = tp.copy(p[name])[:, cols]
+    for name in ("bk", "bv"):
+        if name in p:
+            q[name] = tp.copy(p[name])[cols]
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            q[name] = {"scale": tp.copy(p[name]["scale"])}
+    return q, (h_loc, kv_loc)
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  is_global: bool = True, positions=None,
-                 causal: bool = True) -> torch.Tensor:
+                 causal: bool = True, tp=None) -> torch.Tensor:
     """Full-sequence GQA attention (training / prefill).
 
     ``is_global`` picks full causal attention over the sliding window on
     a config with one; sequences over ``FLASH_SEQ_THRESHOLD`` take the
-    blocked path."""
+    blocked path.  With ``tp`` and the heads split over its group, this
+    rank's heads run and the output is summed over the group."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg, positions)
-    kv, hd = cfg.num_kv_heads, cfg.hd
-    g = cfg.num_heads // kv
+    heads = (cfg.num_heads, cfg.num_kv_heads)
+    split = tp is not None and tp.split(p["wq"].shape[-1],
+                                        cfg.num_heads * cfg.hd, "attn/wq")
+    if split:
+        x = tp.copy(x)
+        p, heads = _tp_heads(p, cfg, tp)
+    q, k, v = _qkv(p, x, cfg, positions, heads)
+    kv, hd = heads[1], cfg.hd
+    g = heads[0] // kv
     if s > FLASH_SEQ_THRESHOLD:
         out = _flash_attention(q.reshape(b, s, kv, g, hd), k, v,
                                causal=causal, window=cfg.sliding_window,
                                is_global=is_global,
                                scale=1.0 / math.sqrt(hd))
-        return out.reshape(b, s, kv * g * hd) @ p["wo"]
-    out = _full_attention(q, k, v, causal=causal, window=cfg.sliding_window,
-                          is_global=is_global)
-    return out @ p["wo"]
+        out = out.reshape(b, s, kv * g * hd) @ p["wo"]
+    else:
+        out = _full_attention(q, k, v, causal=causal,
+                              window=cfg.sliding_window,
+                              is_global=is_global) @ p["wo"]
+    return tp.reduce(out) if split else out
 
 
 def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -266,13 +329,39 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU MLP, or the GELU MLP where the tree has no ``w_gate``."""
+def mlp_pspecs(cfg: ModelConfig) -> dict:
+    """TP specs: column-parallel in, row-parallel out."""
+    if cfg.mlp_variant == "swiglu":
+        return {"w_gate": (None, "model"), "w_up": (None, "model"),
+                "w_down": ("model", None)}
+    return {"w_up": (None, "model"), "w_down": ("model", None)}
+
+
+def moe_pspecs(cfg: ModelConfig) -> dict:
+    """The reference's expert-parallel specs (experts over the model
+    axis); the port does not run them yet (ROADMAP queue 1)."""
+    p = {"router": (), "w_gate": ("model", None, None),
+         "w_up": ("model", None, None), "w_down": ("model", None, None)}
+    if cfg.moe.num_shared:
+        p["shared"] = mlp_pspecs(cfg)
+    return p
+
+
+def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                tp=None) -> torch.Tensor:
+    """SwiGLU MLP, or the GELU MLP where the tree has no ``w_gate``.
+    With ``tp`` and the hidden width split over its group, this rank's
+    columns run and the output is summed over the group."""
+    split = tp is not None and tp.split(p["w_up"].shape[-1], cfg.d_ff,
+                                        "mlp/w_up")
+    if split:
+        x = tp.copy(x)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = _gelu(x @ p["w_up"])
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return tp.reduce(out) if split else out
 
 
 def _top_k(x: torch.Tensor, k: int):

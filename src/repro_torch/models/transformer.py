@@ -19,12 +19,22 @@ through the chunks of their scans (:func:`repro_torch.models.ssm.
 chunked_scan`).
 
     init_params(cfg, generator=..., device=...) -> params tree
-    forward(params, cfg, batch)                 -> logits
-    loss_fn(params, cfg, batch)                 -> scalar CE loss
+    forward(params, cfg, batch[, tp])           -> logits
+    loss_fn(params, cfg, batch[, tp])           -> scalar CE loss
     Transformer(cfg, device=..., seed=...)      -> nn.Module over the tree
+    param_pspecs(cfg)                           -> the reference's TP specs
 
 ``init_params(cfg, device="meta")`` gives the tree's shapes and dtypes
 without allocating it (what a bucket layout needs).
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.models.tp.
+TensorParallel` over the model group) runs the dense decoder-only family:
+each rank holds the blocks :func:`param_pspecs` gives it
+(:func:`shard_params`; a rank initialises the whole tree from the seed
+and keeps its blocks, so it starts from the unsharded run's weights),
+the embedding and the tied or untied head are vocab-parallel and the
+loss is the vocab-parallel float32 cross-entropy.  The other families
+raise at a model axis above 1 (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -34,7 +44,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core import tree as T
 from ..core.device import resolve_device
@@ -42,9 +53,12 @@ from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
 from .layers import _dtype, _normal
+from .tp import TP_ALL_REDUCE, TensorParallel
 
 #: the families this port runs: all of the reference's
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
+#: the families it runs on a model axis above 1
+TP_FAMILIES = ("dense",)
 
 
 def global_attention_flags(cfg: ModelConfig) -> np.ndarray:
@@ -153,6 +167,90 @@ def _init_decoder_xlayer(cfg: ModelConfig, gen, device, n: int) -> dict:
             "mlp": _init_mlp(cfg, gen, device, lead, cfg.d_ff)}
 
 
+# ---------------------------------------------------------------------------
+# partition specs (the reference's ``param_pspecs``; tuples of axis names)
+# ---------------------------------------------------------------------------
+
+def _layer_pspecs(cfg: ModelConfig, dense_ffn: bool = False) -> dict:
+    p = {"norm1": {"scale": ()}, "attn": L.attention_pspecs(cfg),
+         "norm2": {"scale": ()}}
+    if cfg.hybrid_parallel:
+        p["ssm_head"] = {
+            "w_in": (None, "model"), "w_dt": (), "dt_bias": (), "w_bc": (),
+            "a_log": ("model", None), "skip_scale": ("model",),
+            "w_out": ("model", None)}
+    if cfg.moe is not None and not dense_ffn:
+        p["moe"] = L.moe_pspecs(cfg)
+    elif cfg.d_ff or dense_ffn:
+        p["mlp"] = L.mlp_pspecs(cfg)
+    return p
+
+
+def _encoder_layer_pspecs(cfg: ModelConfig) -> dict:
+    return {"norm1": {"scale": ()}, "attn": L.attention_pspecs(cfg),
+            "norm2": {"scale": ()}, "mlp": L.mlp_pspecs(cfg)}
+
+
+def _decoder_xlayer_pspecs(cfg: ModelConfig) -> dict:
+    return {"norm1": {"scale": ()}, "attn": L.attention_pspecs(cfg),
+            "norm_x": {"scale": ()}, "cross": L.attention_pspecs(cfg),
+            "norm2": {"scale": ()}, "mlp": L.mlp_pspecs(cfg)}
+
+
+def _stack(tree):
+    """Specs of stacked ``(L, ...)`` leaves: a replicated layer axis."""
+    if isinstance(tree, dict):
+        return {k: _stack(v) for k, v in tree.items()}
+    return (None, *tree)
+
+
+def param_pspecs(cfg: ModelConfig) -> dict:
+    """The spec tree of :func:`init_params`'s tree (tensor parallelism
+    over ``"model"``), the reference's ``param_pspecs`` entry for entry;
+    :func:`~repro_torch.runtime.shardings.sanitize_pspecs` replicates
+    what a mesh does not divide."""
+    specs: dict[str, Any] = {"embed": {"tok": ("model", None)},
+                             "final_norm": {"scale": ()}}
+    if not cfg.tie_embeddings:
+        specs["head"] = {"w": (None, "model")}
+    if cfg.vision_patches:
+        specs["embed"]["patch_proj"] = {"w": (None, "model")}
+    if cfg.family == "ssm":
+        specs["blocks"] = [
+            {"norm1": {"scale": ()}, "slstm": {
+                "w_in": (None, "model"), "r": ("model", None, None),
+                "bias": ("model",), "w_down": ("model", None)}}
+            if _is_slstm_block(cfg, i) else
+            {"norm1": {"scale": ()}, "mlstm": {
+                "w_up": (None, "model"), "w_q": ("model", None),
+                "w_k": ("model", None), "w_v": ("model", None),
+                "w_ogate": (None, "model"), "w_if": ("model", None),
+                "if_bias": (), "w_down": ("model", None)}}
+            for i in range(cfg.num_layers)]
+        return specs
+    if cfg.family == "encdec":
+        specs["embed"]["frame_proj"] = {"w": (None, "model")}
+        specs["encoder"] = _stack(_encoder_layer_pspecs(cfg))
+        specs["layers"] = _stack(_decoder_xlayer_pspecs(cfg))
+        return specs
+    n_prefix = _n_prefix(cfg)
+    if n_prefix:
+        specs["prefix"] = [_layer_pspecs(cfg, dense_ffn=True)
+                           for _ in range(n_prefix)]
+    specs["layers"] = _stack(_layer_pspecs(cfg))
+    return specs
+
+
+def shard_params(params: Any, cfg: ModelConfig, extents, coords) -> dict:
+    """The blocks of a whole parameter tree (tensors or arrays) that the
+    rank at ``coords`` of a mesh of ``extents`` holds, under the
+    sanitized :func:`param_pspecs` (views, not copies)."""
+    from ..runtime.shardings import sanitize_pspecs, shard_of
+    specs = T.leaves(sanitize_pspecs(param_pspecs(cfg), params, extents))
+    return T.unflatten([(p, shard_of(x, s, extents, coords))
+                        for (p, x), s in zip(T.flatten(params), specs)])
+
+
 def _n_prefix(cfg: ModelConfig) -> int:
     return cfg.moe.first_dense if cfg.moe else 0
 
@@ -207,10 +305,11 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 
 
 def _layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                   is_global: bool, positions: torch.Tensor) -> torch.Tensor:
+                   is_global: bool, positions: torch.Tensor,
+                   tp: TensorParallel | None = None) -> torch.Tensor:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     a = L.attn_forward(p["attn"], h, cfg, is_global=is_global,
-                       positions=positions)
+                       positions=positions, tp=tp)
     if cfg.hybrid_parallel:
         a = 0.5 * (a + S.mamba_forward(p["ssm_head"], h, cfg))
     x = x + a
@@ -218,7 +317,7 @@ def _layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if "moe" in p:
         return x + L.moe_forward(p["moe"], h, cfg)
     if "mlp" in p:
-        return x + L.mlp_forward(p["mlp"], h, cfg)
+        return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp)
     return x
 
 
@@ -246,8 +345,17 @@ def _decoder_xlayer_forward(p: dict, x: torch.Tensor, enc: torch.Tensor,
     return x + L.mlp_forward(p["mlp"], h, cfg)
 
 
+def _vocab_split(params: dict, cfg: ModelConfig, tp) -> bool:
+    """Are the embedding and the head split over the vocabulary?"""
+    return tp is not None and tp.split(params["embed"]["tok"].shape[0],
+                                       cfg.vocab_size, "embed/tok")
+
+
 def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  patch_feats: torch.Tensor | None = None) -> torch.Tensor:
+                  patch_feats: torch.Tensor | None = None,
+                  tp: TensorParallel | None = None) -> torch.Tensor:
+    if _vocab_split(params, cfg, tp):
+        return tp.embed(params["embed"]["tok"], tokens)
     x = params["embed"]["tok"][tokens]
     if cfg.vision_patches and patch_feats is not None:
         proj = patch_feats.to(x.dtype) @ params["embed"]["patch_proj"]["w"]
@@ -255,10 +363,15 @@ def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            tp: TensorParallel | None = None) -> torch.Tensor:
+    """Logits over the vocabulary, or over this rank's block of it when
+    the vocabulary is split over ``tp``'s group."""
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     w = (params["embed"]["tok"].T if cfg.tie_embeddings
          else params["head"]["w"])
+    if _vocab_split(params, cfg, tp):
+        x = tp.copy(x)
     return x @ w
 
 
@@ -274,24 +387,62 @@ def _unstack(layers: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
+#: the ops whose outputs ``remat_policy="dots"`` saves: the matrix
+#: products (``jax.checkpoint_policies.checkpoint_dots``'s dot_general)
+#: and the tensor-parallel all-reduce that follows a row-parallel product
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default, TP_ALL_REDUCE})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(cfg: ModelConfig, fn, *args) -> torch.Tensor:
     """``fn(*args)``, recomputed in the backward when ``cfg.remat`` (the
-    reference's per-layer ``jax.checkpoint``)."""
-    if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    reference's per-layer ``jax.checkpoint``).  ``remat_policy="full"``
+    recomputes the whole layer (with its tensor-parallel all-reduces up
+    to the last one the backward needs); ``"dots"`` saves every matrix
+    product and all-reduce output and recomputes the rest, so the
+    backward runs no forward collective again."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def _check_tp(cfg: ModelConfig, tp) -> TensorParallel | None:
+    """``tp`` when it splits anything (a model axis above 1), else None;
+    raises for the families whose tensor parallelism is still to port."""
+    if tp is None or tp.size == 1:
+        return None
+    if cfg.family not in TP_FAMILIES or cfg.vision_patches:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a model axis of {tp.size}: the "
+            f"port runs tensor parallelism for the dense decoder-only "
+            f"family; the MoE (expert-parallel), VLM, SSM, hybrid and "
+            f"encoder-decoder families are still to port (ROADMAP queue 1)")
+    return tp
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            tp: TensorParallel | None = None) -> torch.Tensor:
     """batch: {'tokens': (B, S)[, 'patch_feats': (B, P, F)][, 'frames':
     (B, T, d)]} -> logits (B, S_total, V), S_total = P + S with patch
-    features.  An encoder-decoder batch must carry ``frames``."""
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
-            f"layers only; the 'dots' policy comes with tensor parallelism "
-            f"(ROADMAP queue 1 item 2)")
-    x = _embed_tokens(params, cfg, batch["tokens"], batch.get("patch_feats"))
+    features.  An encoder-decoder batch must carry ``frames``.  With
+    ``tp`` the parameters are this rank's blocks, and the logits cover
+    its block of the vocabulary where the vocabulary is split."""
+    tp = _check_tp(cfg, tp)
+    x = _embed_tokens(params, cfg, batch["tokens"], batch.get("patch_feats"),
+                      tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     if cfg.family == "ssm":      # no per-block remat, as in the reference
@@ -320,21 +471,26 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     layers = list(params.get("prefix", [])) + _unstack(
         params["layers"], cfg.num_layers - n_prefix)
     for lp, is_global in zip(layers, flags.tolist()):
-        x = _remat(cfg, _layer_forward, lp, x, cfg, is_global, positions)
-    return _logits(params, cfg, x)
+        x = _remat(cfg, _layer_forward, lp, x, cfg, is_global, positions, tp)
+    return _logits(params, cfg, x, tp)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            tp: TensorParallel | None = None) -> torch.Tensor:
     """Mean next-token cross entropy in float32 over the text positions
     (a VLM's patch positions dropped), weighted by ``loss_mask`` if the
-    batch has one."""
-    logits = forward(params, cfg, batch).to(torch.float32)
+    batch has one; vocab-parallel under ``tp``."""
+    tp = _check_tp(cfg, tp)
+    logits = forward(params, cfg, batch, tp).to(torch.float32)
     labels = batch["labels"].long()
     if logits.shape[1] != labels.shape[1]:         # VLM: drop patch positions
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    ce = logz - gold
+    if _vocab_split(params, cfg, tp):
+        ce = tp.cross_entropy(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = logz - gold
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask.to(torch.float32)
@@ -356,17 +512,25 @@ class Transformer(nn.Module):
     Parameters register under their tree path with '/' written as '__'
     (a module name may not hold '/' or '.'); :meth:`tree` gives them back
     as the nested dict the functional code, the fabric and the optimizer
-    read.
+    read.  With ``tp`` (a model axis above 1) the module holds this
+    rank's blocks: drawn whole from the seed and sliced, or ``params``
+    already sliced (:func:`shard_params`).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
-                 params: dict | None = None):
+                 params: dict | None = None,
+                 tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = _check_tp(cfg, tp)
         device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             params = init_params(cfg, generator=gen, device=device)
+            if self.tp is not None:
+                params = T.map_leaves(torch.Tensor.clone, shard_params(
+                    params, cfg, {"model": self.tp.size},
+                    {"model": self.tp.index}))
         self._paths = []
         for path, t in T.flatten(params):
             self.register_parameter(path.replace("/", "__"),
@@ -378,19 +542,26 @@ class Transformer(nn.Module):
                             for p in self._paths])
 
     def forward(self, batch: dict) -> torch.Tensor:
-        return forward(self.tree(), self.cfg, batch)
+        return forward(self.tree(), self.cfg, batch, self.tp)
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        return loss_fn(params, self.cfg, batch)
+        return loss_fn(params, self.cfg, batch, self.tp)
 
 
-def params_from_jax(tree_of_numpy: Any, *, device="cuda") -> dict:
+def params_from_jax(tree_of_numpy: Any, *, device="cuda",
+                    cfg: ModelConfig | None = None, extents=None,
+                    coords=None) -> dict:
     """The reference's parameter tree, as numpy arrays, -> a torch tree
     of the same dicts and lists.
 
-    bfloat16 arrays (``ml_dtypes``) are read bit for bit.
+    bfloat16 arrays (``ml_dtypes``) are read bit for bit.  With ``cfg``,
+    ``extents`` and ``coords`` (a mesh and a rank's place on it) each
+    leaf arrives as that rank's block (:func:`shard_params`).
     """
     device = resolve_device(device)
+    if cfg is not None:
+        tree_of_numpy = shard_params(tree_of_numpy, cfg, extents, coords)
+
     def conv(a):
         a = np.ascontiguousarray(a)
         if a.dtype.name == "bfloat16":

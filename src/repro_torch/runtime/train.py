@@ -23,6 +23,16 @@ On a fabric over a
 one rank: it takes its shard of every global batch, rank 0's initial
 parameters are broadcast once, every rank runs its own controller on
 replicated telemetry, and only rank 0 logs and writes checkpoints.
+
+On a fabric over a :class:`~repro_torch.core.collectives.ProcessMesh`
+(``Fabric(mesh=...)``: the reference's ``shard_map`` over the data axes
+with GSPMD over ``"model"``) each rank takes its data index's shard of
+the batch; with a model axis above 1 it holds its blocks of the
+parameters under the sanitized :func:`~repro_torch.models.transformer.
+param_pspecs` and runs the model tensor-parallel over its model group.
+With ``TrainerConfig.zero1`` (the default, as in the reference) the
+moments are partitioned over the data group (ZeRO-1).  The traffic ratio
+is priced on the whole leaves' sizes, and checkpoints hold whole arrays.
 """
 from __future__ import annotations
 
@@ -34,13 +44,17 @@ import torch
 
 from ..checkpoint import (CheckpointManager, load_train_state,
                           train_state_arrays)
+from ..checkpoint.manager import MeshLayout
 from ..core import (AdmissionPlan, DistributedGroup, plan_traffic_ratio,
                     resolve_device)
 from ..core import tree as T
 from ..fabric import Fabric, TrainState
 from ..fabric.control import Telemetry, make_controller
-from ..models import ModelConfig, Transformer
-from ..optim import Optimizer
+from ..models import ModelConfig, Transformer, init_params
+from ..models.tp import TensorParallel
+from ..models.transformer import param_pspecs
+from ..optim import Optimizer, Zero1, optimizer_state_pspecs
+from .shardings import sanitize_pspecs
 from .fault import (FailureInjector, SimulatedFailure, StepTimer,
                     StragglerWatchdog)
 
@@ -64,6 +78,7 @@ class TrainerConfig:
     checkpoint_keep: int = 3
     log_interval: int = 10
     max_restarts: int = 10
+    zero1: bool = True        # ZeRO-1 moments on a ProcessMesh's data group
 
 
 class Trainer:
@@ -111,13 +126,20 @@ class Trainer:
             raise ValueError(f"the fabric's {group!r} holds tensors on "
                              f"{group.device}, the Trainer runs on "
                              f"{self.device}")
-        self._logs = not self.distributed or group.rank() == (0,)
+        self.mesh = fabric.mesh
+        # the whole world: the writer of checkpoints and their barrier
+        world = group if self.mesh is None else self.mesh.world
+        self._logs = not self.distributed or world.rank() == (0,)
+        self.tp = (TensorParallel(self.mesh.model_group)
+                   if fabric.tensor_parallel else None)
+        self.pspecs = None            # the sanitized specs, on a mesh
+        self.zero = None              # the ZeRO-1 partition, on a mesh
         self.failure_injector = failure_injector
         self.watchdog = StragglerWatchdog()
         self.ckpt = (CheckpointManager(ckpt_dir,
                                        interval=tcfg.checkpoint_interval,
                                        keep=tcfg.checkpoint_keep,
-                                       group=group)
+                                       group=world)
                      if ckpt_dir else None)
         self.state: TrainState | None = None
         self.history: list[dict] = []
@@ -129,18 +151,38 @@ class Trainer:
     # -- state ----------------------------------------------------------
 
     def init_state(self) -> TrainState:
-        model = Transformer(self.cfg, device=self.device, seed=self.seed)
+        model = Transformer(self.cfg, device=self.device, seed=self.seed,
+                            tp=self.tp)
         params = model.tree()
         if self.distributed:
-            # one set of parameters for every rank: rank 0's
+            # one set of parameters for every rank of the data group: its
+            # rank 0's
             for p in T.leaves(params):
                 self.fabric.group.broadcast(p.detach())
-        policies = self.fabric.resolve(params, self._current_plan())
-        self.state = TrainState(model=model,
-                                opt=self.optimizer.init(params),
+        whole = params
+        if self.mesh is not None:
+            whole = init_params(self.cfg, device="meta")
+            self.pspecs = sanitize_pspecs(param_pspecs(self.cfg), whole,
+                                          self.mesh.extents)
+            if self.tcfg.zero1 and self.mesh.data_size > 1:
+                dp = self.mesh.data_axes
+                self.zero = Zero1.from_specs(
+                    self.fabric.group, optimizer_state_pspecs(
+                        self.pspecs, whole, dp_axes=dp,
+                        dp_size=self.mesh.data_size), dp)
+        policies = self.fabric.resolve(params, self._current_plan(),
+                                       self.pspecs)
+        opt = (self.optimizer.init(params) if self.zero is None
+               else self.optimizer.init(params, zero=self.zero))
+        self.state = TrainState(model=model, opt=opt,
                                 ef=self.fabric.init_ef(params, policies))
-        self._sizes = self.fabric.group_sizes(params)
+        self._sizes = self.fabric.group_sizes(whole)
         return self.state
+
+    def _layout(self) -> MeshLayout | None:
+        return (None if self.mesh is None else
+                MeshLayout(self.mesh, self.pspecs if self.tp else None,
+                           self.zero))
 
     def _current_plan(self) -> AdmissionPlan:
         if self.controller is not None:
@@ -148,7 +190,8 @@ class Trainer:
         return self.static_plan or AdmissionPlan.fp32_all()
 
     def _checkpoint_tree(self) -> dict:
-        return train_state_arrays(self.state, self.fabric.group)
+        return train_state_arrays(self.state, self.fabric.group,
+                                  self._layout())
 
     def _restore(self) -> bool:
         """Load the newest checkpoint (and the controller's state) into
@@ -157,7 +200,8 @@ class Trainer:
         if restored is None:
             return False
         step, arrays, _ = restored
-        self.state = load_train_state(self.state, arrays, self.fabric.group)
+        self.state = load_train_state(self.state, arrays, self.fabric.group,
+                                      self._layout())
         self._just_restarted = True
         if self._logs:
             log.info("restored checkpoint at step %d", step)
@@ -218,9 +262,12 @@ class Trainer:
             calibrating = bool(self.controller is not None and getattr(
                 self.controller, "wants_diagnostics", False))
             model = self.state.model
+            mesh_kw = ({} if self.mesh is None else
+                       {"pspecs": self.pspecs, "zero": self.zero})
             step_fn = self.fabric.step_for(self.optimizer, plan,
                                            model.tree(), model.loss,
-                                           with_diagnostics=calibrating)
+                                           with_diagnostics=calibrating,
+                                           **mesh_kw)
             batch = self._batch(step, it)
             # the last step's aggregates are a model's worth of memory
             self.last_aggregates = None

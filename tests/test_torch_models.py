@@ -171,19 +171,26 @@ def test_configs_are_the_references():
 
 
 @pytest.mark.parametrize("arch", ["qwen3_0p6b", "xlstm_125m"])
-def test_dots_remat_policy_raises(arch):
-    """``remat_policy="dots"`` (save the dot outputs) is not silently run
-    as full recompute: the forward raises and names the queue item that
-    ports it; "full" runs."""
+def test_dots_remat_policy_matches_full(arch):
+    """``remat_policy="dots"`` (save the matrix products, recompute the
+    rest) gives the logits and every gradient of ``"full"`` bit for bit
+    (xLSTM's blocks take no per-block remat, so both run alike)."""
     cfg = get_config(arch, smoke=True)
     params = init_params(cfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, s=4).items()}
-    dots = dataclasses.replace(cfg, remat=True, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        forward(params, dots, batch)
-    full = dataclasses.replace(cfg, remat=True)
-    assert forward(params, full, batch).shape == (2, 4, cfg.vocab_size)
+    leaves = [t.requires_grad_() for t in T.leaves(params)]
+    out = {}
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        logits = forward(params, c, batch)
+        assert logits.shape == (2, 4, cfg.vocab_size)
+        grads = torch.autograd.grad(loss_fn(params, c, batch), leaves)
+        out[policy] = (logits.detach(), grads)
+    assert torch.equal(out["dots"][0], out["full"][0])
+    for (p, _), a, b in zip(T.flatten(params), out["dots"][1],
+                            out["full"][1]):
+        assert torch.equal(a, b), p
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

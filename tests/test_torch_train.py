@@ -16,8 +16,13 @@ the reference's parameters carried across (``params_from_jax``):
     ``rtol=1e-5`` and parameters to the step tolerance;
   * the ``static`` controller gives the ``plan=`` path's history bit for
     bit; error feedback stays off after admission, as in the reference;
-  * the launcher runs the paper controller on the CPU.
+  * the launcher runs the paper controller on the CPU, refuses a model
+    axis outside torchrun and trains a (2, 2) mesh under it.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -51,6 +56,7 @@ from repro_torch.models import (Transformer, params_from_jax,  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.runtime import Trainer  # noqa: E402
 
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 W = 4
 # Adam's update g / (|g| + eps) turns a float32 difference dg in a
 # near-zero FP32-mean gradient into an update difference of up to
@@ -325,11 +331,44 @@ def test_markov_successors_are_the_references_drawn_in_blocks(
 
 
 def test_launcher_rejects_a_model_axis_and_unported_flags():
+    """A model axis above 1 runs one rank a process: outside torchrun the
+    launcher refuses it, as it refuses the flags still to port."""
     for argv in (["--mesh", "2,2"], ["--device-count", "2"],
                  ["--controller", "static", "--plan", "adaptive"]):
         with pytest.raises(SystemExit):
             launch_main(["--arch", "qwen3_0p6b", "--smoke", "--device",
                          "cpu", *argv])
+
+
+def test_launcher_under_torchrun_trains_a_2x2_mesh(tmp_path):
+    """``torchrun --nproc-per-node 4 ... --mesh 2,2``: one step on a
+    (data 2) x (model 2) mesh over gloo; every rank prints the same loss
+    and the whole model's traffic ratio."""
+    env = dict(os.environ)
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "XLA_FLAGS"):
+        env.pop(k, None)
+    env.update(PYTHONPATH=SRC, OMP_NUM_THREADS="1", TMPDIR=str(tmp_path))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+           "--arch", "qwen3_0p6b", "--smoke", "--device", "cpu", "--mesh",
+           "2,2", "--steps", "1", "--plan", "gbin_packed",
+           "--global-batch", "4", "--seq-len", "16"]
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=300, cwd=tmp_path)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    finals = [line for line in r.stdout.splitlines()
+              if line.startswith("final:")]
+    assert len(finals) == 4, r.stdout
+    assert len({line.split("loss=")[1].split()[0] for line in finals}) == 1
+    assert {line.rsplit("rank=", 1)[1] for line in finals} == \
+        {"0", "1", "2", "3"}
+    assert all("workers=2 model=2" in line for line in finals)
+    single = launch_main(["--arch", "qwen3_0p6b", "--smoke", "--device",
+                          "cpu", "--mesh", "1,1", "--steps", "1", "--plan",
+                          "gbin_packed", "--global-batch", "4",
+                          "--seq-len", "16"])
+    ratio = finals[0].split("traffic=")[1].split()[0]
+    assert ratio == f"{single[-1]['traffic_ratio']:.4f}"
 
 
 # ---------------------------------------------------------------------------
