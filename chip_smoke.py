@@ -176,7 +176,27 @@ Phases (any failure exits non-zero before the result line):
                     0's batch: its loss, and each step-0 gradient block
                     no further from the float32 gradient than twice the
                     unsharded bf16 gradient's distance (plus 2^-8);
-  9. print the kernels line (launches summed over the runs, run Q's from
+  9. hop plans and the simulator:
+       R. hier      full qwen3-0.6B under ``hier_fp32_gbinary`` on W = 16
+                    virtual workers as ``VirtualGroup((2, 8))``: hop 0 the
+                    FP32 mean over each inner 8, hop 1 the vote_psum
+                    G-Binary vote over the outer 2; 16 x 128 tokens,
+                    AdamW, 3 steps, no kernel launch a step; each step's
+                    aggregates byte-equal to sign(sum_outer(vote(
+                    mean_inner(g)))) on the step's own gradients through
+                    the same group sums; then on step 0's gradients the
+                    same route with a ``packed_a2a`` backbone (a
+                    registered plan): 7 each of sign_pack, vote_combine
+                    and float32 unpack_ternary over the outer group (hop 0
+                    hands float32 on, as the reference's does), byte-equal
+                    to R's; the per-hop wire bytes summing to each
+                    launch's; the traffic ratio the reference's
+                    0.2842221000549753; ``fabric.simulate`` of R's layout
+                    on ``ici_ring`` and ``multihop`` and the paper's
+                    operating points (full_miss exposed within 1.67%,
+                    bandwidth_pressure 0), printed as modeled figures
+                    under the reference's constants;
+ 10. print the kernels line (launches summed over the runs, run Q's from
      rank 0), the card, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -873,7 +893,10 @@ def drive(name: str, fabric, plan, steps: int, expect: dict,
     if got != tuple(buckets):
         fail(f"{name}: layout has (buckets, low-bit, float32 low-bit) "
              f"{got}; expected {buckets}")
-    votes = get_codec(lowbit[0].key.mode).reduction == "vote"
+    codec = get_codec(lowbit[0].key.mode)
+    if codec.reduction == "hierarchical":       # a hop plan: its backbone
+        codec = get_codec(codec.plan.hops[-1].codec)
+    votes = codec.reduction == "vote"
     backbone = {s.name for b in lowbit for s in b.slots}
     print(f"[{name}] model {cfg.name}: "
           f"{sum(p.numel() for p in T.leaves(params))} params, "
@@ -2581,6 +2604,208 @@ def run_tp_on_card() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: hop plans and the simulator
+# ---------------------------------------------------------------------------
+
+R_SHAPE = (2, 8)            # (outer, inner) virtual workers: W = 16
+R_STEPS = 3
+#: the reference's traffic ratio of qwen3-0.6B under hier_fp32_gbinary
+#: (tests/test_torch_hierarchical.py computes it with the reference)
+R_TRAFFIC_RATIO = 0.2842221000549753
+R_LOWBIT = 7                # low-bit buckets (= backbone leaves)
+
+
+def twin_hier(g: torch.Tensor) -> torch.Tensor:
+    """The plain twin of hier_fp32_gbinary on one (W, N) leaf:
+    sign(sum_outer(vote(mean_inner(g)))), the inner means through the same
+    group sums as hop 0 (whole rows of the leaf, as its bucket holds
+    them), the votes summed in int32."""
+    from repro_torch.core import VirtualGroup
+    outer, inner = R_SHAPE
+    inner_group = VirtualGroup(inner)
+    margin = None
+    for o in range(outer):
+        m = inner_group.all_reduce_mean(
+            g[o * inner:(o + 1) * inner].to(torch.float32))
+        v = torch.where(m > 0, 1, -1).to(torch.int32)
+        margin = v if margin is None else margin + v
+        del m
+    return torch.sign(margin.to(torch.float32))
+
+
+def run_hier() -> dict:
+    """Run R: full qwen3-0.6B under hier_fp32_gbinary on W = 16 virtual
+    workers as (outer 2) x (inner 8): hop 0 the FP32 mean over each inner
+    8, hop 1 the vote_psum G-Binary vote over the outer 2; 16 x 128
+    tokens, AdamW, R_STEPS steps, each step's aggregates byte-equal to
+    ``twin_hier`` on the step's own stacked gradients.  On step 0's
+    gradients the same route with a packed_a2a backbone (a registered
+    plan): byte-equal, with one sign_pack, vote_combine and float32
+    unpack_ternary launch a bucket over the outer group (hop 0 hands
+    float32 to hop 1, as the reference's fp32_allreduce does).  Then the
+    per-hop wire bytes of the layout and the simulator on it (modeled,
+    the reference's constants)."""
+    from repro_torch import sim
+    from repro_torch.core import (AdmissionPlan, VirtualGroup, codec_name,
+                                  hop_wire_bytes_per_device,
+                                  wire_bytes_per_device)
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import (HopPlan, HopSpec, register_hop_plan,
+                                    unregister_hop_plan)
+    from repro_torch.fabric import session as S
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.kernels import kernel_wrappers
+
+    plan = plan_presets()["hier_fp32_gbinary"]
+    fabric = Fabric(group=VirtualGroup(R_SHAPE))
+    stash: dict = {}
+    real = S.aggregate_tree_bucketed
+
+    def keep(ctx, grads, policies, ef_states=None, **kw):
+        out = real(ctx, grads, policies, ef_states=ef_states, **kw)
+        stash["grads"], stash["agg"] = grads, out[0]
+        # the step's peak: its gradients and aggregation (the optimizer
+        # after it allocates less); read before the stash holds the
+        # gradients past the step
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    wrappers = kernel_wrappers()
+    packed_name = "r_hier_fp32_gbinary_packed"
+    peaks: list = []            # GiB: a step's grads and aggregation
+    twin_s: list = []
+    packed: dict = {}
+
+    def on_step(k, ef_before, ef_after):
+        grads, agg = dict(T.flatten(stash.pop("grads"))), \
+            dict(T.flatten(stash.pop("agg")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for path in lowbit_paths:
+            g = grads[path].reshape(grads[path].shape[0], -1)
+            got = agg[path].reshape(-1)
+            if got.dtype != torch.float32 or not same(got, twin_hier(g)):
+                fail(f"R step {k}: aggregate {path} ({got.dtype}) differs "
+                     f"from sign(sum_outer(sign(mean_inner(g))))")
+        torch.cuda.synchronize()
+        twin_s.append(time.perf_counter() - t0)
+        if k == 0:
+            # the packed backbone on the same step-0 gradients
+            sub = T.unflatten([(p, grads[p]) for p in lowbit_paths])
+            for fn in wrappers.values():
+                fn.launches = 0
+            by_before = dict(wrappers["unpack_ternary"].launches_by_dtype)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            S.aggregate_tree_bucketed = real        # nothing to keep here
+            try:
+                got, _ = fabric.aggregate(sub, AdmissionPlan.lowbit_all(
+                    packed_name))
+            finally:
+                S.aggregate_tree_bucketed = keep
+            torch.cuda.synchronize()
+            packed["seconds"] = time.perf_counter() - t1
+            counts = {kn: fn.launches for kn, fn in wrappers.items()}
+            split = {dt: n - by_before[dt] for dt, n in
+                     wrappers["unpack_ternary"].launches_by_dtype.items()}
+            want = {kn: R_LOWBIT if kn in ("sign_pack", "vote_combine",
+                                           "unpack_ternary") else 0
+                    for kn in wrappers}
+            if counts != want or split[torch.float32] != R_LOWBIT:
+                fail(f"R packed: launches {counts}, decodes by dtype "
+                     f"{split}; expected {want}, all float32")
+            for p, u in T.flatten(got):
+                if not same(u, agg[p]):
+                    fail(f"R packed: aggregate {p} differs from the "
+                         f"vote_psum backbone's")
+            packed["launches"] = {"sign_pack": R_LOWBIT,
+                                  "vote_combine": R_LOWBIT,
+                                  "unpack_ternary": R_LOWBIT}
+            del got, sub
+        del grads, agg
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    like = init_params(get_config("qwen3_0p6b"), device="meta")
+    lowbit_paths = [s.name for b in fabric.layout_for(like, plan).buckets
+                    if codec_name(b.key.mode) != "fp32" for s in b.slots]
+    register_hop_plan(HopPlan(packed_name, (
+        HopSpec("fp32", workers=R_SHAPE[1]),
+        HopSpec("gbinary", schedule="packed_a2a"))))
+    S.aggregate_tree_bucketed = keep
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run = drive("R hier", fabric, plan, R_STEPS, {}, batch=16,
+                    buckets=(9, R_LOWBIT), on_step=on_step)
+    finally:
+        S.aggregate_tree_bucketed = real
+        unregister_hop_plan(packed_name)
+    run["peak_gib"] = max(peaks)
+    launches = {k: v for k, v in run["launches"].items() if v}
+    if launches != packed["launches"]:
+        fail(f"R: launches {launches}; only the packed variant's expected")
+    if run["traffic_ratio"] != R_TRAFFIC_RATIO:
+        fail(f"R: traffic ratio {run['traffic_ratio']!r}, the reference's "
+             f"{R_TRAFFIC_RATIO!r}")
+    w = fabric.num_workers
+    layout = fabric.layout_for(run["params"], plan)
+    legs_total = [0.0, 0.0]
+    for key, n in layout.launches():
+        legs = hop_wire_bytes_per_device(n, key.mode, key.schedule, w)
+        if sum(legs) != wire_bytes_per_device(n, key.mode, key.schedule, w):
+            fail(f"R: hop legs {legs} of a {n}-element launch do not sum "
+                 f"to its wire bytes")
+        if len(legs) == 2:
+            legs_total = [a + b for a, b in zip(legs_total, legs)]
+    card = card_line()
+    print(f"[R hier] {card}: W = {w} as (outer, inner) = {R_SHAPE}, "
+          f"plan hier_fp32_gbinary, 16 x 128 tokens, AdamW; launches a "
+          f"step 0 (the vote_psum backbone runs no kernel)", flush=True)
+    print(f"[R hier] {card}: step seconds {run['step_s']} (the twin check "
+          f"after each step, not in them, took {twin_s} s); peak memory "
+          f"by step {[round(p, 2) for p in peaks]} GiB (through the "
+          f"aggregation; the optimizer after it allocates less)",
+          flush=True)
+    print(f"[R hier] {card}: packed backbone on step 0's gradients: "
+          f"{packed['seconds']:.4f} s, launches "
+          f"{packed['launches']} (decodes float32), byte-equal to R's",
+          flush=True)
+    print(f"[R hier] per-hop wire bytes a device of the hierarchical "
+          f"launches (modeled ring bytes): hop0 {legs_total[0]:.0f}, hop1 "
+          f"{legs_total[1]:.0f}", flush=True)
+    like = T.map_leaves(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), run["params"])
+    for topology in ("ici_ring", "multihop"):
+        rep = fabric.simulate(like, plan, topology=topology)
+        util = rep.link_utilization
+        if topology == "multihop" and not {"hop0", "hop1"} <= set(util):
+            fail(f"R sim: multihop reports links {sorted(util)}")
+        print(f"[R sim] modeled, the reference's constants ({topology}, "
+              f"W = {w}): step {rep.step_time_s!r} s, comm "
+              f"{rep.comm_time_s!r} s, exposed {rep.exposed_pct!r} %, "
+              f"link utilisation {util}", flush=True)
+    points = sim.paper_operating_points()
+    full, bw = points["full_miss"], points["bandwidth_pressure"]
+    if not 0.0 < full.exposed_pct <= sim.PAPER_EXPOSED_BOUND_PCT:
+        fail(f"sim: full_miss exposed {full.exposed_pct}%, bound "
+             f"{sim.PAPER_EXPOSED_BOUND_PCT}%")
+    if bw.exposed_pct != 0.0 or not bw.hidden:
+        fail(f"sim: bandwidth_pressure exposed {bw.exposed_pct}%")
+    print(f"[R sim] the paper's operating points, modeled with the "
+          f"reference's constants: full_miss exposed "
+          f"{full.exposed_pct!r} % (bound {sim.PAPER_EXPOSED_BOUND_PCT} "
+          f"%), bandwidth_pressure exposed {bw.exposed_pct!r} % (hidden "
+          f"{bw.hidden})", flush=True)
+    report("R hier", run, f", step aggregates byte-equal to the twin "
+           f"every step")
+    return run
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -2630,7 +2855,8 @@ def main() -> None:
     run_gloo_on_card()
     free()
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
-               run_xlstm, run_hymba, run_whisper, run_tp_on_card):
+               run_xlstm, run_hymba, run_whisper, run_tp_on_card,
+               run_hier):
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v

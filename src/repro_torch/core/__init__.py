@@ -3,7 +3,8 @@ from .buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan, Bucket, BucketGate,
                       BucketKey, BucketLayout, BucketSlot, GroupPolicy,
                       GroupRules, UnfusedLeaf, assign_groups, group_sizes,
                       leaf_bucket_key, plan_buckets, resolve_policies)
-from .admission import Commander, ControlEvent, CusumGuard, Supervisor
+from .admission import (Commander, ControlEvent, CusumGuard, Predictor,
+                        Supervisor)
 from .collectives import (DistributedGroup, LocalGroup, ProcessMesh,
                           VirtualGroup)
 from .device import rank_device, resolve_device
@@ -13,18 +14,25 @@ from .lowbit import (LeafPolicy, fp32_allreduce, lowbit_packed_a2a,
                      lowbit_vote_psum, majority_sign_sgd, sign_of_mean)
 from .modes import (AggregationMode, Schedule, bits_per_element,
                     canonical_mode, codec_name, schedule_name, wire_schedule)
-from .traffic import payload_bytes, plan_traffic_ratio, wire_bytes_per_device
+from .exposure import ExposureModel, TpuDatapathModel, envelope_sweep
+from .traffic import (IciModel, MultiHopModel, hop_wire_bytes_per_device,
+                      modeled_comm_time, modeled_layout_comm_time,
+                      modeled_layout_multihop_time, payload_bytes,
+                      plan_traffic_ratio, wire_bytes_per_device)
 
 __all__ = [
     "DEFAULT_BUCKET_BYTES", "AdmissionPlan", "AggregationMode", "Bucket",
     "BucketGate", "BucketKey", "BucketLayout", "BucketSlot", "Commander",
-    "ControlEvent", "CusumGuard", "DistributedGroup", "GroupPolicy",
-    "GroupRules", "LeafPolicy", "LocalGroup", "ProcessMesh", "Schedule",
-    "Supervisor", "UnfusedLeaf", "VirtualGroup",
+    "ControlEvent", "CusumGuard", "DistributedGroup", "ExposureModel",
+    "GroupPolicy", "GroupRules", "IciModel", "LeafPolicy", "LocalGroup",
+    "MultiHopModel", "Predictor", "ProcessMesh", "Schedule", "Supervisor",
+    "TpuDatapathModel", "UnfusedLeaf", "VirtualGroup",
     "assign_groups", "bits_per_element", "canonical_mode", "codec_name",
-    "cosines_to_host", "fp32_allreduce", "group_cosines_from_mean",
-    "group_cosines_from_workers", "group_sizes", "leaf_bucket_key",
-    "lowbit_packed_a2a", "lowbit_vote_psum", "majority_sign_sgd",
+    "cosines_to_host", "envelope_sweep", "fp32_allreduce",
+    "group_cosines_from_mean", "group_cosines_from_workers", "group_sizes",
+    "hop_wire_bytes_per_device", "leaf_bucket_key", "lowbit_packed_a2a",
+    "lowbit_vote_psum", "majority_sign_sgd", "modeled_comm_time",
+    "modeled_layout_comm_time", "modeled_layout_multihop_time",
     "payload_bytes", "plan_buckets", "plan_traffic_ratio", "rank_device",
     "resolve_device",
     "resolve_policies", "schedule_name", "sign_of_mean",

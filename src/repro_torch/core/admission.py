@@ -1,6 +1,6 @@
-"""Admission control plane: Commander and Supervisor.
+"""Admission control plane: Predictor, Commander and Supervisor.
 
-Port of ``repro/core/admission.py:80-203``.  The paper's Section 3
+Port of ``repro/core/admission.py``.  The paper's Section 3
 organizes policy into three roles:
 
   * **Commander** — proposes a mode per layer group from the cosine
@@ -9,8 +9,10 @@ organizes policy into three roles:
   * **Supervisor** — the training-health guard: a one-sided CUSUM on the
     loss trend (Page, 1954) triggers recovery to FP32, enforces a
     cooldown, and allows re-admission afterwards.
-  * **Predictor** — forecasts collective pressure on an interconnect
-    model; it is still to port with that model (ROADMAP queue 1).
+  * **Predictor** — forecasts collective pressure (gradient volume,
+    wire bytes, all-reduce time) on the reference's modeled ring
+    constants (:class:`~repro_torch.core.traffic.IciModel`); it never
+    observes gradients, weights or the loss.
 
 This module holds the math of the roles; the control loop that
 sequences them is :mod:`repro_torch.fabric.control`.
@@ -23,6 +25,44 @@ from typing import Mapping
 
 from .buckets import AdmissionPlan, GroupPolicy
 from .modes import AggregationMode, Schedule
+from .traffic import IciModel, plan_traffic_ratio, wire_bytes_per_device
+
+
+# ---------------------------------------------------------------------------
+# Predictor
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Predictor:
+    """Communication-pressure forecasts from the traffic model.
+
+    The times are :class:`~repro_torch.core.traffic.IciModel` outputs
+    under the reference's modeled constants, not measurements.
+    """
+    num_workers: int
+    ici: IciModel = dataclasses.field(default_factory=IciModel)
+
+    def forecast(self, group_sizes: Mapping[str, int],
+                 plan: AdmissionPlan) -> dict:
+        grad_volume = sum(group_sizes.values()) * 4  # FP32 bytes produced
+        per_group = {}
+        total_time = 0.0
+        total_bytes = 0.0
+        for g, n in group_sizes.items():
+            pol = plan.policy_for(g)
+            b = wire_bytes_per_device(n, pol.mode, pol.resolved_schedule(),
+                                      self.num_workers)
+            t = self.ici.collective_time(b, self.num_workers)
+            per_group[g] = {"wire_bytes": b, "time_s": t}
+            total_time += t
+            total_bytes += b
+        return {
+            "gradient_volume_bytes": grad_volume,
+            "allreduce_time_s": total_time,
+            "wire_bytes_per_device": total_bytes,
+            "traffic_ratio": plan_traffic_ratio(group_sizes, plan),
+            "per_group": per_group,
+        }
 
 
 # ---------------------------------------------------------------------------

@@ -201,7 +201,9 @@ class BucketKey:
     """Fusion-compatibility key: leaves may share a bucket iff equal.
 
     ``schedule`` is the *wire* schedule (after
-    :func:`~repro_torch.core.modes.wire_schedule`).
+    :func:`~repro_torch.core.modes.wire_schedule`).  ``hops`` is the
+    codec's hop-plan signature (None for a flat codec), so buckets never
+    mix hierarchical routes.
     """
     mode: AggregationMode | str
     schedule: str
@@ -209,6 +211,7 @@ class BucketKey:
     gate_phase: int
     model_spec: tuple | None
     dtype: str
+    hops: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,7 +300,8 @@ def leaf_bucket_key(policy, dtype) -> BucketKey:
                      error_feedback=bool(policy.error_feedback),
                      gate_phase=phase,
                      model_spec=None if _trivial(spec) else tuple(spec),
-                     dtype=dtype_name(dtype))
+                     dtype=dtype_name(dtype),
+                     hops=getattr(_codec(mode), "hop_signature", None))
 
 
 def plan_buckets(params_like: Any, policies: Any, *,

@@ -9,7 +9,14 @@ A group is seen by the schedules through one interface:
     the replicated result once, without that axis, since every rank
     holds the same value;
   * ``all_to_all`` maps ``(local, W, ...)`` chunks addressed to each
-    destination to ``(local, W, ...)`` chunks received from each source.
+    destination to ``(local, W, ...)`` chunks received from each source;
+  * ``hop_groups(h)`` gives the worker groups of each hop of an
+    ``h``-hop route (:mod:`repro_torch.fabric.hierarchy`): for each hop a
+    tuple of groups, one for each block of this process's local ranks,
+    in order.  Hop 0 reduces over the innermost data axis and hop ``i``
+    over the axis ``i`` from it; each group's replicated result is one
+    local rank of the next hop.  A one-hop route runs over the whole
+    group.
 
 :class:`VirtualGroup` holds all W workers on one device, so its local
 ranks are ``0..W-1`` and its collectives are sums, views and reshapes.
@@ -35,15 +42,26 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class VirtualGroup:
-    """W virtual data-parallel workers held on one device."""
+    """W virtual data-parallel workers held on one device.
+
+    ``VirtualGroup(W)`` has one data axis; ``VirtualGroup((outer,
+    inner))`` (any number of extents, outermost first) lays its
+    ``W = outer * inner`` workers out row-major over the axes, as the
+    reference's nested ``vmap`` (``Fabric(dp_axes=("outer", "inner"))``):
+    worker ``o * inner + i`` sits at ``(o, i)``.  Its collectives span
+    all W workers; :meth:`hop_groups` splits them by axis.
+    """
 
     host_local = False
 
-    def __init__(self, num_workers: int):
-        if num_workers < 1:
-            raise ValueError(f"a group needs at least one worker, "
-                             f"got {num_workers}")
-        self.size = int(num_workers)
+    def __init__(self, num_workers):
+        shape = tuple(int(s) for s in num_workers) \
+            if isinstance(num_workers, (tuple, list)) else (int(num_workers),)
+        if not shape or min(shape) < 1:
+            raise ValueError(f"a group needs at least one worker on each "
+                             f"axis, got {num_workers}")
+        self.shape = shape
+        self.size = math.prod(shape)
 
     def rank(self) -> tuple[int, ...]:
         """The ranks whose data sits on the leading axis, in order."""
@@ -75,8 +93,27 @@ class VirtualGroup:
         """(W, rows, ...) -> (W * rows, ...), concatenated in rank order."""
         return self._local(x).reshape(-1, *x.shape[2:])
 
+    def hop_groups(self, hops: int) -> list[tuple]:
+        """Each hop's groups: hop ``h`` reduces over axis ``-1 - h``, one
+        :class:`VirtualGroup` of its extent for every index of the axes
+        outside it (row-major); a one-hop route takes the whole group."""
+        if hops == 1:
+            return [(self,)]
+        if hops != len(self.shape):
+            raise ValueError(_axes_error(hops, len(self.shape)))
+        return [(VirtualGroup(self.shape[-1 - h]),)
+                * math.prod(self.shape[:-1 - h]) for h in range(hops)]
+
     def __repr__(self) -> str:
+        if len(self.shape) > 1:
+            return f"VirtualGroup({self.shape})"
         return f"VirtualGroup({self.size})"
+
+
+def _axes_error(hops: int, axes: int) -> str:
+    return (f"a {hops}-hop route needs one data-parallel axis a hop, and "
+            f"the group has {axes}; map one axis per hop (the innermost "
+            f"is hop 0) or use a 1-hop plan")
 
 
 class LocalGroup(VirtualGroup):
@@ -97,6 +134,10 @@ class LocalGroup(VirtualGroup):
 
     def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
         return self._local(x)[0]
+
+    def hop_groups(self, hops: int) -> list[tuple]:
+        """Every hop runs as its local round trip on this one worker."""
+        return [(self,)] * hops
 
     def __repr__(self) -> str:
         return "LocalGroup()"
@@ -123,6 +164,11 @@ class DistributedGroup:
     ``bytes_by_op`` count each collective and the bytes handed to it
     (``reset_counts()`` clears them): an instrument for the structure of
     a step's traffic, not a timer.
+
+    ``axis_groups`` is None for a group with one data axis; on the data
+    group of a ``(pod, data, model)`` :class:`ProcessMesh` it holds this
+    rank's group along each data axis, outermost first, which
+    :meth:`hop_groups` hands to the hops.
     """
 
     host_local = False
@@ -143,10 +189,21 @@ class DistributedGroup:
         self._rank = dist.get_rank(process_group)
         self.calls_by_op: dict[str, int] = {}
         self.bytes_by_op: dict[str, int] = {}
+        self.axis_groups: tuple | None = None
 
     def rank(self) -> tuple[int, ...]:
         """This process's rank, the one local rank."""
         return (self._rank,)
+
+    def hop_groups(self, hops: int) -> list[tuple]:
+        """Each hop's group: hop ``h`` runs over ``axis_groups[-1 - h]``;
+        a one-hop route runs over this whole group."""
+        if hops == 1:
+            return [(self,)]
+        axes = self.axis_groups or (self,)
+        if hops != len(axes):
+            raise ValueError(_axes_error(hops, len(axes)))
+        return [(axes[-1 - h],) for h in range(hops)]
 
     def reset_counts(self) -> None:
         self.calls_by_op.clear()
@@ -249,8 +306,13 @@ class ProcessMesh:
     this rank's model index (the gradient aggregation's workers, ranked
     by their data index ``p * D + d``), ``model_group`` the ``M`` ranks
     that share its data coordinates (the tensor-parallel shards, ranked
-    by ``m``), and ``world`` every rank.  Every rank creates every group,
-    in one order, as ``dist.new_group`` requires.
+    by ``m``), and ``world`` every rank.  On three axes ``axis_groups``
+    adds this rank's group along each data axis: ``"pod"`` (the ``P``
+    ranks that share its data and model indices) and ``"data"`` (the
+    ``D`` ranks that share its pod and model indices), which the hops of
+    a hop plan run over (hop 0 over ``data``, hop 1 over ``pod``, as the
+    reference's ``dp_axes == ("pod", "data")`` places them).  Every rank
+    creates every group, in one order, as ``dist.new_group`` requires.
     """
 
     def __init__(self, shape, *, device):
@@ -286,6 +348,26 @@ class ProcessMesh:
         self.model_group = DistributedGroup(model_groups[self.data_index],
                                             device=device)
         self.world = DistributedGroup(device=device)
+        self.axis_groups: dict[str, DistributedGroup] = {}
+        if len(shape) == 3:
+            pods, dsize = shape[0], shape[1]
+            at = self.coords
+            along = {
+                "pod": {(d, k): [(p * dsize + d) * m + k
+                                 for p in range(pods)]
+                        for d in range(dsize) for k in range(m)},
+                "data": {(p, k): [(p * dsize + d) * m + k
+                                  for d in range(dsize)]
+                         for p in range(pods) for k in range(m)}}
+            mine = {"pod": (at["data"], at["model"]),
+                    "data": (at["pod"], at["model"])}
+            for name in self.data_axes:
+                groups = {key: dist.new_group(ranks)
+                          for key, ranks in along[name].items()}
+                self.axis_groups[name] = DistributedGroup(
+                    groups[mine[name]], device=device)
+            self.data_group.axis_groups = tuple(
+                self.axis_groups[n] for n in self.data_axes)
 
     def coords_of(self, rank: int) -> dict:
         """The row-major coordinates of ``rank``."""
@@ -302,7 +384,8 @@ class ProcessMesh:
                          self.model_group)
 
     def reset_counts(self) -> None:
-        for g in (self.data_group, self.model_group, self.world):
+        for g in (self.data_group, self.model_group, self.world,
+                  *self.axis_groups.values()):
             g.reset_counts()
 
     def __repr__(self) -> str:

@@ -70,12 +70,21 @@ def wire_schedule(mode, schedule) -> str:
     """Schedule name actually used for a (codec, schedule) pair.
 
     Mean codecs planned on a vote schedule ride ``psum`` (the paper's
-    bypass); vote codecs planned on ``psum`` ride ``vote_psum``.  Any
-    other schedule, registered custom backends included, is used as named.
+    bypass); vote codecs planned on ``psum`` ride ``vote_psum``; a
+    hierarchical codec (a registered
+    :class:`~repro_torch.fabric.hierarchy.HopPlan`) planned on any of the
+    three rides ``hierarchical``, since its hops fix their own
+    transports.  Any other schedule, registered custom backends included,
+    is used as named.
     """
     from ..fabric.codecs import get_codec
-    votes = get_codec(mode).reduction == "vote"
+    reduction = get_codec(mode).reduction
     name = schedule_name(schedule)
+    if reduction == "hierarchical":
+        if name in _VOTE_ONLY_SCHEDULES or name == Schedule.PSUM.value:
+            return "hierarchical"
+        return name
+    votes = reduction == "vote"
     if not votes and name in _VOTE_ONLY_SCHEDULES:
         return Schedule.PSUM.value
     if votes and name == Schedule.PSUM.value:

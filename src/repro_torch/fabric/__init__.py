@@ -1,8 +1,12 @@
-"""The aggregation fabric of the PyTorch port: sessions, codecs, schedules."""
+"""The aggregation fabric of the PyTorch port: sessions, codecs, schedules,
+hop plans."""
 from . import backends  # noqa: F401  (registers the built-in schedules)
 from . import extra_codecs  # noqa: F401  (registers int4 / topk)
-from .codecs import (Codec, GradientCodec, MaskGate, available_codecs,
-                     get_codec, register_codec, unregister_codec)
+from .codecs import (Codec, CodecLane, GradientCodec, MaskGate,
+                     available_codecs, get_codec, register_codec,
+                     unregister_codec)
+from .hierarchy import (INTRA_NODE_WORKERS, HierarchicalCodec, HopPlan,
+                        HopSpec, register_hop_plan, unregister_hop_plan)
 from .control import (Controller, ControlEvent, FP32Controller,
                       PaperController, Phase, PolicyProgram, StaticController,
                       Telemetry, available_controllers, get_controller,
@@ -17,8 +21,9 @@ from .session import (Fabric, TrainState, aggregate_leaf, aggregate_tree,
                       aggregate_tree_bucketed, layout_kernel_stats)
 
 __all__ = [
-    "AggregationContext", "Codec", "ControlEvent", "Controller",
-    "FP32Controller", "Fabric", "GradientCodec", "MaskGate",
+    "AggregationContext", "Codec", "CodecLane", "ControlEvent", "Controller",
+    "FP32Controller", "Fabric", "GradientCodec", "HierarchicalCodec",
+    "HopPlan", "HopSpec", "INTRA_NODE_WORKERS", "MaskGate",
     "PaperController", "Phase", "PolicyProgram", "ScheduleBackend",
     "StaticController", "Telemetry", "TrainState", "aggregate_leaf",
     "aggregate_tree", "aggregate_tree_bucketed", "available_codecs",
@@ -26,6 +31,7 @@ __all__ = [
     "get_controller", "get_schedule", "layout_kernel_stats",
     "make_controller", "plan_from_jsonable", "plan_presets",
     "plan_to_jsonable", "register_codec", "register_controller",
-    "register_plan_preset", "register_schedule", "unregister_codec",
+    "register_hop_plan", "register_plan_preset", "register_schedule",
+    "unregister_codec", "unregister_hop_plan",
     "unregister_controller", "unregister_plan_preset", "unregister_schedule",
 ]

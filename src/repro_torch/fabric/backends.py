@@ -1,12 +1,13 @@
 """Built-in schedule backends: the paper's collectives behind the registry.
 
-Port of ``repro/fabric/backends.py:38-217`` (psum, vote_psum, also
-registered as the ``majority_sign_sgd`` baseline, packed_a2a and the
-``sign_of_mean`` baseline).  Backends are codec-parametric and all
-fusable: besides the per-leaf ``aggregate`` they implement
-``aggregate_flat`` over a (ranks, N) bucket payload, one collective per
-bucket.  A codec's kernel set runs the packed vote (``packed_a2a``) or
-the encode around the mean (``psum``, the int4 and top-k kernels).
+Port of ``repro/fabric/backends.py`` (psum, vote_psum, also registered
+as the ``majority_sign_sgd`` baseline, packed_a2a, the ``sign_of_mean``
+baseline and the per-hop ``hierarchical`` route). Backends are codec-
+parametric and all fusable: besides the per-leaf ``aggregate`` they
+implement ``aggregate_flat`` over a (ranks, N) bucket payload, one
+collective per bucket. A codec's kernel set runs the packed vote
+(``packed_a2a``) or the encode around the mean (``psum``, the int4 and
+top-k kernels).
 
 A tensor-parallel leaf (its policy's ``model_spec`` shards it over the
 model axis) reaches ``aggregate`` as this rank's block
@@ -18,13 +19,16 @@ the whole leaf and raises there: it is still to port (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..core.lowbit import (fp32_allreduce, lowbit_packed_a2a,
+from ..core.lowbit import (LeafPolicy, _ef_inject, _ef_update,
+                           fp32_allreduce, lowbit_packed_a2a,
                            lowbit_vote_psum, sign_of_mean)
-from ..core.modes import Schedule, codec_name
+from ..core.modes import Schedule, codec_name, wire_schedule
 from .codecs import get_codec, resolve_leaf_gate_mask, ring_wire_bytes
-from .registry import AggregationContext, register_schedule
+from .registry import AggregationContext, get_schedule, register_schedule
 
 
 def _codec_kernels(ctx: AggregationContext, codec):
@@ -194,3 +198,130 @@ class SignOfMeanBackend:
         # the nominal codec: priced as the psum transport's fp32 payload
         return ring_wire_bytes(get_codec("fp32").payload_bytes(n_elements),
                                num_workers)
+
+
+def _resolve_hop(hop):
+    """(backend, codec, wire-schedule name) for one HopSpec leg."""
+    hcodec = get_codec(hop.codec)
+    sched = wire_schedule(hop.codec, hop.schedule or hcodec.default_schedule)
+    return get_schedule(sched), hcodec, sched
+
+
+@register_schedule("hierarchical")
+class HierarchicalBackend:
+    """Per-hop-recompressing route: each hop through its codec's own
+    transport, over that hop's worker groups only.
+
+    The policy's codec is a :class:`~repro_torch.fabric.hierarchy.
+    HierarchicalCodec`.  Hop 0 runs over the innermost groups (for a
+    ``VirtualGroup((outer, inner))`` the ``outer`` groups of ``inner``
+    workers, for a ``(pod, data, model)`` mesh the ``data`` group); each
+    group's replicated result is one local rank of the next hop, whose
+    groups span the next axis out (see ``hop_groups`` in
+    :mod:`repro_torch.core.collectives`).  A one-hop plan runs over the
+    whole group and equals its codec's flat backend bit for bit; a group
+    with no collective (``LocalGroup``) runs every hop as its local round
+    trip.  Each hop's group must hold exactly the plan's size for that
+    hop (``HopPlan.group_sizes``), which the reference does not check
+    (ROADMAP queue 3).
+
+    EF is threaded around the whole route: injected before hop 0 and
+    updated from the injected gradient after the last hop, as the bucket
+    layer does around a flat collective.  The bucket zero gate reaches
+    only gated hops.  Each hop keeps the session's ``fused_kernels``, so
+    a packed G-Binary backbone runs the fused vote kernels over its
+    group while an FP32 hop stays on the plain mean.
+    """
+
+    name = "hierarchical"
+    fusable = True
+    threads_ef = True
+
+    @staticmethod
+    def _plan_of(codec):
+        plan = getattr(codec, "plan", None)
+        if plan is None:
+            raise TypeError(
+                f"codec {codec.name!r} rides the hierarchical schedule but "
+                f"carries no HopPlan; register it with "
+                f"repro_torch.fabric.register_hop_plan")
+        return plan
+
+    @staticmethod
+    def _hops(ctx: AggregationContext, plan) -> list:
+        """``(HopSpec, [hop context of each group])`` for every hop."""
+        sizes = plan.group_sizes(ctx.num_workers)
+        try:
+            levels = ctx.group.hop_groups(len(plan.hops))
+        except ValueError as e:
+            raise ValueError(f"hop plan {plan.name!r}: {e}") from None
+        extents = tuple(groups[0].size for groups in levels)
+        if extents != sizes:
+            raise ValueError(
+                f"hop plan {plan.name!r} sizes its hops {sizes} for "
+                f"{ctx.num_workers} workers, but the group's hops hold "
+                f"{extents} (innermost first); register a plan whose fixed "
+                f"hops equal the axis extents")
+        return [(hop, [dataclasses.replace(ctx, group=g, num_workers=s,
+                                           mesh=None) for g in groups])
+                for hop, groups, s in zip(plan.hops, levels, sizes)]
+
+    @staticmethod
+    def _route(ctx, plan, x, run):
+        """``x`` (local ranks first) through every hop: ``run(hop,
+        backend, hop codec, sched, hop_ctx, block)`` aggregates one
+        group's block, and the groups' results stack into the next hop's
+        local ranks."""
+        hops = HierarchicalBackend._hops(ctx, plan)
+        for i, (hop, ctxs) in enumerate(hops):
+            backend, hcodec, sched = _resolve_hop(hop)
+            blocks = x.split([len(c.group.rank()) for c in ctxs])
+            outs = [run(hop, backend, hcodec, sched, c, b)
+                    for c, b in zip(ctxs, blocks)]
+            x = outs[0] if i == len(hops) - 1 else torch.stack(outs)
+        return x
+
+    def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
+        codec = get_codec(policy.mode)
+        plan = self._plan_of(codec)
+        if getattr(policy, "model_spec", None) is not None:
+            raise NotImplementedError(
+                f"hop plan {plan.name!r} on a tensor-parallel leaf (spec "
+                f"{policy.model_spec}): hop plans on a model axis above 1 "
+                f"are still to port (ROADMAP queue 1 item 8)")
+        use_ef = (ef is not None and policy.error_feedback
+                  and codec.threads_ef)
+        g_eff, _ = _ef_inject(g, ef if use_ef else None)
+
+        def run(hop, backend, hcodec, sched, hop_ctx, block):
+            hop_policy = LeafPolicy(mode=hop.codec, schedule=sched,
+                                    gate_phase=policy.gate_phase)
+            return backend.aggregate(hop_ctx, block, hop_policy, None)[0]
+
+        u = self._route(ctx, plan, g_eff, run)
+        return u, (_ef_update(g_eff, ef) if use_ef else ef)
+
+    def aggregate_flat(self, ctx: AggregationContext, flat, codec, *,
+                       gate=None):
+        def run(hop, backend, hcodec, sched, hop_ctx, block):
+            # the zero gate belongs to a gated hop's majority stage
+            return backend.aggregate_flat(
+                hop_ctx, block, hcodec, gate=gate if hcodec.gated else None)
+
+        return self._route(ctx, self._plan_of(codec), flat, run)
+
+    def hop_wire_bytes_per_device(self, n_elements: int, mode,
+                                  num_workers: int) -> tuple:
+        """Per-leg wire bytes: each hop's own model at its group size."""
+        plan = self._plan_of(get_codec(mode))
+        legs = []
+        for hop, size in zip(plan.hops, plan.group_sizes(num_workers)):
+            backend, _, _ = _resolve_hop(hop)
+            legs.append(backend.wire_bytes_per_device(n_elements, hop.codec,
+                                                      size))
+        return tuple(legs)
+
+    def wire_bytes_per_device(self, n_elements: int, mode,
+                              num_workers: int) -> float:
+        return float(sum(self.hop_wire_bytes_per_device(
+            n_elements, mode, num_workers)))

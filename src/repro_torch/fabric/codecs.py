@@ -11,12 +11,15 @@ The reference's ``pallas_kernels()`` hook is named :meth:`GradientCodec.
 kernel_set` here: it returns the codec's fused
 :class:`~repro_torch.kernels.fused.KernelSet` (hand-written CUDA kernels),
 whose signature (``kernel_signature()``) keys the session's built steps.
-Of the KV-cache capability only the ``kv_cache`` flag and the int4
-codec's ``kv_encode`` are here; the rest belongs to the serving engine,
-still to port, as the simulator lane descriptor belongs to ``sim``.
+Each codec declares its simulator lane (:class:`CodecLane`), which
+:class:`~repro_torch.sim.datapath.FlitPipeline` times.  Of the KV-cache
+capability only the ``kv_cache`` flag and the int4 codec's
+``kv_encode`` are here; the rest belongs to the serving engine, still to
+port.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Protocol, runtime_checkable
 
@@ -27,10 +30,29 @@ from ..core.modes import AggregationMode, codec_name
 from ..core.registry import Registry
 
 __all__ = [
-    "Codec", "GradientCodec", "MaskGate", "available_codecs", "get_codec",
-    "register_codec", "resolve_leaf_gate_mask", "ring_wire_bytes",
-    "unregister_codec",
+    "Codec", "CodecLane", "GradientCodec", "MaskGate", "available_codecs",
+    "get_codec", "register_codec", "resolve_leaf_gate_mask",
+    "ring_wire_bytes", "unregister_codec",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecLane:
+    """Sim-datapath lane descriptor for one codec.
+
+    The :class:`~repro_torch.sim.datapath.FlitPipeline` resolves a
+    launch's lane from its codec, so a registered codec times in the
+    simulator without a lane table.
+    """
+    name: str
+    #: flits issued per initiation interval slot (usually 1).
+    initiation_interval: float = 1.0
+    #: extra stall cycles charged per flit (gate fetch, bypass hazards).
+    stall_cycles_per_flit: float = 0.0
+    #: the lane's stages run as one fused pipeline; an unfused lane
+    #: re-fills the pipeline once per staged pass
+    #: (:attr:`repro_torch.sim.datapath.FlitPipeline.unfused_passes`).
+    fused: bool = False
 
 
 class MaskGate:
@@ -82,6 +104,8 @@ class GradientCodec:
     ``reduction``        — ``"mean"`` or ``"vote"``.
     ``gated``            — the codec zero-gates the majority output.
     ``threads_ef``       — the codec consumes error-feedback residuals.
+    ``lane``             — :class:`CodecLane` timing of the sim's flit
+                           pipeline.
     ``default_schedule`` — transport used when a plan names none.
     """
 
@@ -90,6 +114,7 @@ class GradientCodec:
     reduction: str = "mean"
     gated: bool = False
     threads_ef: bool = False
+    lane: CodecLane = CodecLane("fp32_bypass", fused=True)
     default_schedule: str = "psum"
 
     # -- mean-reduction hooks --------------------------------------------
@@ -212,6 +237,7 @@ class GBinaryCodec(GradientCodec):
     bits_per_element = 1.0
     reduction = "vote"
     threads_ef = True
+    lane = CodecLane("sign_count", fused=True)
     default_schedule = "vote_psum"
 
     def kernel_set(self):
@@ -230,6 +256,7 @@ class GTernaryCodec(GradientCodec):
     reduction = "vote"
     gated = True
     threads_ef = True
+    lane = CodecLane("ternary_gated", stall_cycles_per_flit=1.0, fused=True)
     default_schedule = "vote_psum"
 
     def kernel_set(self):

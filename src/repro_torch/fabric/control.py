@@ -17,8 +17,8 @@ admission to G-Binary/G-Ternary, guarded recovery, re-admission.
 
 Controllers read telemetry and write mode metadata (an
 :class:`~repro_torch.core.buckets.AdmissionPlan`), never gradients.
-The ``hier_*`` presets, the ``tuned`` controller and the Predictor are
-still to port with the hop plans and ``tune`` (ROADMAP queue 1).
+The ``tuned`` controller is still to port with ``tune`` (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -166,8 +166,12 @@ def plan_presets(error_feedback: bool = False) -> dict[str, AdmissionPlan]:
     ``*_backbone`` presets leave the schedule to the codec's default.
     ``int4_backbone`` / ``topk_backbone`` name the extension codecs
     (``psum``); they ignore ``error_feedback``, since neither codec
-    threads EF.  Presets registered with :func:`register_plan_preset`
-    merge last under their own names, as concrete plans.
+    threads EF. The ``hier_*`` presets put the backbone on the built-in
+    hop plans (:mod:`repro_torch.fabric.hierarchy`): an intra-node FP32
+    mean, then the named codec across the nodes; ``hier_fp32_int4``
+    ignores ``error_feedback`` as ``int4_backbone`` does. Presets
+    registered with :func:`register_plan_preset` merge last under their
+    own names, as concrete plans.
     """
     ef = error_feedback
     packed = Schedule.PACKED_A2A
@@ -195,6 +199,11 @@ def plan_presets(error_feedback: bool = False) -> dict[str, AdmissionPlan]:
             default=GroupPolicy(AggregationMode.FP32)),
         "int4_backbone": AdmissionPlan.lowbit_backbone("int4"),
         "topk_backbone": AdmissionPlan.lowbit_backbone("topk"),
+        "hier_fp32_gbinary": AdmissionPlan.lowbit_backbone(
+            "hier_fp32_gbinary", error_feedback=ef),
+        "hier_fp32_gternary": AdmissionPlan.lowbit_backbone(
+            "hier_fp32_gternary", error_feedback=ef),
+        "hier_fp32_int4": AdmissionPlan.lowbit_backbone("hier_fp32_int4"),
         **_EXTRA_PRESETS,
     }
 

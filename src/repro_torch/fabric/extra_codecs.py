@@ -25,7 +25,7 @@ import functools
 
 import numpy as np
 
-from .codecs import GradientCodec, register_codec
+from .codecs import CodecLane, GradientCodec, register_codec
 
 __all__ = ["Int4Codec", "TopKCodec"]
 
@@ -53,6 +53,7 @@ class Int4Codec(GradientCodec):
 
     name = "int4"
     bits_per_element = 4.0
+    lane = CodecLane("int4_dense", fused=True)
     default_schedule = "psum"
     kv_cache = True
 
@@ -86,6 +87,7 @@ class TopKCodec(GradientCodec):
     ``register_codec("top1pct")(TopKCodec(0.01, name="top1pct"))``.
     """
 
+    lane = CodecLane("sparse_topk", fused=True)
     default_schedule = "psum"
 
     def __init__(self, fraction: float = 1 / 16, name: str = "topk"):

@@ -25,7 +25,7 @@ cosines are the whole model's, summed over the model group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -119,12 +119,26 @@ def layout_kernel_stats(layout: BucketLayout, num_workers: int) -> dict:
     Sums over every collective launch the launches and modeled bytes of
     the launch codec's :class:`~repro_torch.kernels.fused.KernelSet`
     under the fused and the staged chain: vote sets on ``packed_a2a``,
-    mean sets on ``psum`` (which never thread EF in a kernel).  Other
+    mean sets on ``psum`` (which never thread EF in a kernel).  A
+    hierarchical route counts each hop at that hop's group size.  Other
     launches count under ``unkernelized``.
     """
     stats = {"launches_fused": 0, "launches_unfused": 0,
              "hbm_bytes_fused": 0.0, "hbm_bytes_unfused": 0.0,
              "collectives": 0, "unkernelized": 0}
+
+    def add(ks, schedule, n, w, ef):
+        if ks is not None and ks.means and schedule == "psum":
+            ef = False
+        elif ks is None or not (ks.votes and schedule == "packed_a2a"):
+            stats["unkernelized"] += 1
+            return
+        for path, fused in (("fused", True), ("unfused", False)):
+            stats[f"launches_{path}"] += ks.launches(
+                fused=fused, distributed=w > 1, ef=ef)
+            stats[f"hbm_bytes_{path}"] += ks.hbm_bytes(
+                n, num_workers=w, fused=fused, distributed=w > 1, ef=ef)
+
     for key, n in layout.launches():
         stats["collectives"] += 1
         try:
@@ -132,20 +146,17 @@ def layout_kernel_stats(layout: BucketLayout, num_workers: int) -> dict:
         except KeyError:
             stats["unkernelized"] += 1
             continue
-        ks = codec.kernel_set()
-        if ks is not None and ks.votes and key.schedule == "packed_a2a":
-            ef = key.error_feedback and codec.threads_ef
-        elif ks is not None and ks.means and key.schedule == "psum":
-            ef = False
+        if codec.reduction == "hierarchical":
+            sizes = codec.plan.group_sizes(num_workers)
+            for hop, w in zip(codec.plan.hops, sizes):
+                c = get_codec(hop.codec)
+                add(c.kernel_set(),
+                    wire_schedule(hop.codec,
+                                  hop.schedule or c.default_schedule),
+                    n, w, key.error_feedback and c.threads_ef)
         else:
-            stats["unkernelized"] += 1
-            continue
-        for path, fused in (("fused", True), ("unfused", False)):
-            stats[f"launches_{path}"] += ks.launches(
-                fused=fused, distributed=num_workers > 1, ef=ef)
-            stats[f"hbm_bytes_{path}"] += ks.hbm_bytes(
-                n, num_workers=num_workers, fused=fused,
-                distributed=num_workers > 1, ef=ef)
+            add(codec.kernel_set(), key.schedule, n, num_workers,
+                key.error_feedback and codec.threads_ef)
     return stats
 
 
@@ -266,6 +277,11 @@ class Fabric:
     the mesh's data group; with a model axis above 1 the partition specs
     passed as ``pspecs=`` reach the policies (at a model axis of 1 they
     are dropped, so the layouts stay the data-parallel ones).
+    A hop plan (:mod:`repro_torch.fabric.hierarchy`) of more than one hop
+    needs a group with one data axis a hop:
+    ``Fabric(group=VirtualGroup((outer, inner)))`` (the reference's
+    ``Fabric(dp_axes=("outer", "inner"))`` under nested ``vmap``) or a
+    ``(pod, data, model)`` mesh.
     """
 
     def __init__(self, num_workers: int | None = None, *, group=None,
@@ -353,12 +369,25 @@ class Fabric:
     def layout_for(self, params_like: Any, plan: AdmissionPlan | Any,
                    pspecs: Any | None = None) -> BucketLayout:
         """Bucket layout for a (tree, plan) pair, cached: it is a pure
-        function of leaf order/shapes/dtypes, policies and bucket_bytes."""
+        function of leaf order/shapes/dtypes, policies and bucket_bytes,
+        and of which backends fuse and the codecs' layout attributes
+        (reduction, gate, hop route, kernels), so a backend or codec
+        registered anew under the same name is not served a stale
+        layout."""
         policies = (self.resolve(params_like, plan, pspecs)
                     if isinstance(plan, AdmissionPlan) else plan)
+        pol_leaves = tuple(T.leaves(policies))
+        wires = {wire_schedule(p.mode, p.schedule) for p in pol_leaves}
+        modes = {codec_name(p.mode) for p in pol_leaves}
+        codec_sig = tuple(sorted(
+            (m, get_codec(m).reduction, bool(get_codec(m).gated),
+             getattr(get_codec(m), "hop_signature", None),
+             _codec_kernel_sig(m)) for m in modes))
         key = (tuple((p, tuple(x.shape), dtype_name(x.dtype))
                      for p, x in T.flatten(params_like)),
-               tuple(T.leaves(policies)), self.bucket_bytes)
+               pol_leaves, self.bucket_bytes,
+               tuple(sorted((w, _registry_fusable(w)) for w in wires)),
+               codec_sig)
         if key not in self._layouts:
             self._layouts[key] = plan_buckets(
                 params_like, policies, bucket_bytes=self.bucket_bytes,
@@ -377,6 +406,36 @@ class Fabric:
                 self.context, grads, policies, ef_states=ef,
                 layout=self.layout_for(like, policies))
         return aggregate_tree(self.context, grads, policies, ef_states=ef)
+
+    # -- simulation -----------------------------------------------------
+
+    def simulate(self, params_like: Any, plan: AdmissionPlan | Any, *,
+                 pspecs: Any | None = None, topology: Any = "ici_ring",
+                 datapath: Any | None = None,
+                 overlap_fraction: float = 1.0,
+                 compute_time_s: float = 0.0,
+                 ready_times: Sequence[float] | None = None,
+                 **topology_kwargs):
+        """Simulate one aggregation pass of this session's layout.
+
+        Replays the cached bucket layout of ``(params_like, plan)``
+        through the :mod:`repro_torch.sim` discrete-event simulator on a
+        registered topology (``"cxl_direct"``, ``"cxl_switched"``,
+        ``"ici_ring"``, ``"multihop"`` or a ``@register_topology``
+        entry), at this session's worker count.  ``compute_time_s`` is
+        the backward pass the collectives overlap; ``datapath`` defaults
+        to the paper's 5-stage 512-bit
+        :class:`~repro_torch.sim.FlitPipeline`.  The times are the
+        model's, under the reference's constants, not measurements.
+        Returns a :class:`~repro_torch.sim.SimReport`.
+        """
+        from ..sim import simulate_layout
+        layout = self.layout_for(params_like, plan, pspecs=pspecs)
+        return simulate_layout(layout, self.num_workers, topology=topology,
+                               datapath=datapath,
+                               overlap_fraction=overlap_fraction,
+                               compute_time_s=compute_time_s,
+                               ready_times=ready_times, **topology_kwargs)
 
     # -- step builder ---------------------------------------------------
 

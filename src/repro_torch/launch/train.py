@@ -6,7 +6,13 @@ published names), ``--smoke`` their reduced configs; a VLM is fed tokens
 only, as the reference's launcher feeds it.  An encoder-decoder
 (``whisper_tiny``) is refused: its forward reads ``frames``, which the
 launcher's token stream does not carry, in the reference as here.
-``--mesh W,1`` (or ``P,D,1``) runs W (= P*D) data-parallel workers;
+``--mesh W,1`` runs W data-parallel workers on one data axis;
+``--mesh P,D,1`` runs W = P*D of them on two data axes, ``pod`` and
+``data``, which the two hops of a ``hier_*`` plan run over (hop 0, the
+intra-node FP32 mean, over ``data``; hop 1 over ``pod``; the hops'
+sizes must equal the extents, so for the built-in plans, whose intra
+hop is 8 wide and clamped to W, ``D`` is 8, or ``P`` is 1 and ``D``
+at most 8);
 ``--mesh D,M`` (or ``P,D,M``) with M > 1 adds tensor parallelism over a
 model axis of M, with ZeRO-1 moments over the data axes, and runs only
 under ``torchrun`` (one rank a process).  ``--device`` picks the device
@@ -29,6 +35,10 @@ on the one device.  Examples, on the CPU:
       -m repro_torch.launch.train --arch qwen3_0p6b --smoke \\
       --device cpu --mesh 2,2 --steps 1 --plan gbin_packed
 
+  # a hop plan: FP32 means over 8 workers, a G-Binary vote over 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
+      --smoke --device cpu --mesh 2,8,1 --steps 2 --plan hier_fp32_gbinary
+
   # the paper controller (warm-up -> calibrate -> admit -> guarded):
   ... --controller paper --warmup-steps 1    # equivalent: --plan adaptive
 
@@ -47,7 +57,8 @@ from datetime import timedelta
 _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
                  "gter_backbone", "gter_vote", "lowbit_all",
                  "gbin_packed_all", "gbin_packed_embed", "int4_backbone",
-                 "topk_backbone", "adaptive"]
+                 "topk_backbone", "hier_fp32_gbinary", "hier_fp32_gternary",
+                 "hier_fp32_int4", "adaptive"]
 
 #: flags of the reference launcher whose machinery is still to port
 _NOT_PORTED = ("autotune", "autotune_out", "device_count")
@@ -114,7 +125,8 @@ def main(argv=None):
     import torch.distributed as dist
 
     from ..configs import get_config
-    from ..core import DistributedGroup, ProcessMesh, rank_device
+    from ..core import (DistributedGroup, ProcessMesh, VirtualGroup,
+                        rank_device)
     from ..data import SyntheticLMStream
     from ..fabric import Fabric, plan_presets
     from ..optim import AdamW, SgdMomentum
@@ -142,11 +154,11 @@ def main(argv=None):
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 timeout=_GROUP_TIMEOUT)
         fabric = (Fabric(group=DistributedGroup(device=device))
-                  if shape[-1] == 1 else
+                  if shape == (workers, 1) else
                   Fabric(mesh=ProcessMesh(shape, device=device)))
     else:
         device = args.device
-        fabric = Fabric(num_workers=workers)
+        fabric = Fabric(group=VirtualGroup(shape[:-1]))
     plan = None
     controller = args.controller or (
         "paper" if args.plan == "adaptive" else None)
