@@ -196,7 +196,41 @@ Phases (any failure exits non-zero before the result line):
                     operating points (full_miss exposed within 1.67%,
                     bandwidth_pressure 0), printed as modeled figures
                     under the reference's constants;
- 10. print the kernels line (launches summed over the runs, run Q's from
+ 10. the autotuner and the tuned controller:
+       S. tuned     ``Fabric.autotune`` on full qwen3-0.6B's ``meta``
+                    parameters (W = 4, ``ici_ring``; the reference's
+                    winner, the backbone and the tied embedding on the
+                    packed vote), ``tuned.apply(fabric)``, the ``tuned``
+                    controller, then the Trainer, as ``launch/train.py
+                    --autotune`` does: 16 x 128 tokens, AdamW, 7 steps;
+                    each step's launches those of its latched plan's
+                    layout (the winner: 8 each of sign_pack, vote_combine
+                    and bf16 unpack_ternary; the int4 plan: 2 int4_quant a
+                    bucket), its low-bit aggregates equal to the twins' on
+                    its own gradients (the packed vote byte for byte, the
+                    embedding's vote_psum to zeros of either sign, int4's
+                    means byte for byte), and the retune events equal to
+                    the reference's rule on the measured step times, the
+                    first to the int4 backbone; before it, sign_pack,
+                    vote_combine and bf16 unpack_ternary held to their
+                    twins and timed at the 155,582,464-element embedding
+                    bucket, beside their bounds;
+ 11. the serving engine:
+       T. serve     full qwen3-0.6B (bf16 weights, a float32 KV cache)
+                    through ``ServeEngine`` on the card: max_batch 4,
+                    max_seq 256, blocks of 16 in a 38-block pool, six
+                    requests (prompts of 16-128 tokens, 16-48 new ones,
+                    arriving over steps 0-6, FCFS): a preemption and a
+                    spill/fetch round trip, the pool drained, each
+                    request's logits bit-identical to its solo run at the
+                    same max_batch; the same trace under the int4 KV codec
+                    with finite logits and every record's wire bytes the
+                    codec's price of its elements plus the step's spill
+                    and fetch bytes; ``simulate(topology="cxl_switched")``
+                    of the timeline; decode-step ms, prefill seconds a
+                    prompt, tokens a second, one decode step's kernel
+                    launch calls and peak memory printed;
+ 12. print the kernels line (launches summed over the runs, run Q's from
      rank 0), the card, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -2806,6 +2840,440 @@ def run_hier() -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the autotuner and the tuned controller (run S)
+# ---------------------------------------------------------------------------
+
+S_STEPS = 7
+#: the autotuner's winner on full qwen3-0.6B at W = 4 on ici_ring (the
+#: reference's, tests/test_torch_tune.py), and the plan the reference's
+#: controller moves to first when every step lies out of its band
+S_WINNER = ("backbone:gbinary:packed_a2a:0|embed:gbinary:packed_a2a:0|"
+            "*:fp32:psum:0")
+S_RETUNED = "backbone:int4:psum:0|embed:gbinary:vote_psum:0|*:fp32:psum:0"
+S_PACKED = 8                # the winner's packed buckets: 7 and the embedding
+S_INT4 = 7                  # int4 buckets after the retune
+EMBED_N = 155_582_464       # the tied embedding: the largest bucket
+
+
+def tuned_rule(tuned, times, patience: int = 5, tolerance: float = 0.25,
+               alpha: float = 0.3) -> list:
+    """The tuned controller's rule (``repro/tune/online.py``), written
+    out: the ``(step, plan signature)`` retunes that step times ``times``
+    give, from the artifact's winner and its sim-certified runners-up at
+    the same bucket budget."""
+    entries = {tuned.name: (tuned.plan, tuned.score.step_time_s)}
+    for r in tuned.runners_up:
+        if r.score is not None and r.bucket_bytes == tuned.bucket_bytes:
+            entries.setdefault(r.name, (r.plan, r.score.step_time_s))
+    active, ewma, strikes, events = tuned.name, {}, 0, []
+    for step, t in enumerate(times):
+        prev = ewma.get(active)
+        ewma[active] = t if prev is None else alpha * t + (1 - alpha) * prev
+        out = ewma[active] > entries[active][1] * (1 + tolerance)
+        strikes = strikes + 1 if out else 0
+        if strikes >= patience:
+            strikes = 0
+            best = min(entries, key=lambda n: (ewma.get(n, entries[n][1]), n))
+            if best != active:
+                active = best
+                events.append((step, entries[best][0].signature()))
+    return events
+
+
+def time_embed_bucket(gen) -> None:
+    """sign_pack, vote_combine and bf16 unpack_ternary at run S's largest
+    bucket, the tied embedding (W = 4 bf16 planes of 155,582,464), held
+    to their twins and timed beside their bounds (printed; the kernels
+    line keeps the main leaf's rows)."""
+    from repro_torch.kernels import fused, ops, ref
+
+    n, w, bf16 = EMBED_N, MAIN_W, 2
+    plane = ref.to_plane(torch.randn((w, n), device="cuda",
+                                     generator=gen).to(torch.bfloat16))
+    words = ops.pack_signs(plane)
+    r = words.shape[1]
+    rw = r // w
+    routed = words.reshape(w, w, rw, 128).transpose(0, 1)
+    gate = fused.shard_gate_words(range(w), rw, ternary=False, device="cuda")
+    sw, mw = ops.vote_combine(routed, gate, num_workers=w)
+    want = ref.vote_combine(routed, w, gate)
+    sw_all, mw_all = sw.reshape(r, 128), mw.reshape(r, 128)
+    u16 = ops.unpack_ternary(sw_all, mw_all, dtype=torch.bfloat16)
+    if not (same(words, ref.sign_pack(plane)) and same(sw, want[0])
+            and same(mw, want[1]) and same(u16, ref.unpack_ternary(
+                sw_all, mw_all, torch.bfloat16))):
+        fail("a packed-vote kernel differs from its twin at the embedding "
+             "bucket")
+    del want
+    rows = {
+        "sign_pack": (lambda: ops.pack_signs(plane),
+                      w * n * (bf16 + 1 / 8), w * n * 3, time_ms),
+        "vote_combine": (lambda: ops.vote_combine(routed, gate,
+                                                  num_workers=w),
+                         w * n / 8 + n / 8 + 2 * n / 8, n * (2 * w + 4),
+                         time_cold_ms),
+        "unpack_ternary_bf16": (lambda: ops.unpack_ternary(
+            sw_all, mw_all, dtype=torch.bfloat16), 2 * n / 8 + bf16 * n,
+            n * 4, time_ms),
+    }
+    for name, (fn, nbytes, nops, timer) in rows.items():
+        ms = timer(fn)
+        row = {"bytes": nbytes, "ops": nops}
+        bound(row)
+        print(f"kernel {name} at the embedding bucket (n={n} W={w}): "
+              f"{ms:.4f} ms{' cold' if timer is time_cold_ms else ''}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['bound_ms'] / ms:.3f} of it", flush=True)
+
+
+def run_tuned() -> dict:
+    """Run S: ``Fabric.autotune`` on the full model's ``meta`` parameters
+    against ``ici_ring``, ``tuned.apply(fabric)``, the ``tuned``
+    controller attached, then the Trainer, as ``launch/train.py
+    --autotune`` does: full qwen3-0.6B, W = 4, AdamW, 16 x 128 tokens,
+    S_STEPS steps.  Each step launches what its plan's layout holds (the
+    winner: 8 each of sign_pack, vote_combine and bf16 unpack_ternary;
+    the int4 plan: 2 int4_quant a bucket), its low-bit aggregates equal
+    the twins' on the step's own gradients, and the controller's events
+    equal the reference's rule on the measured step times."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import codec_name
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import Fabric
+    from repro_torch.fabric import session as S
+    from repro_torch.kernels import kernel_wrappers, ref
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+
+    cfg = get_config("qwen3_0p6b")
+    fabric = Fabric(num_workers=MAIN_W)
+    t0 = time.perf_counter()
+    tuned = fabric.autotune(init_params(cfg, device="meta"),
+                            topology="ici_ring")
+    tune_s = time.perf_counter() - t0
+    prov = tuned.provenance["candidates"]
+    print(f"[S tuned] autotune {tune_s:.3f} s ({prov['enumerated']} "
+          f"candidates, {prov['estimated']} estimated, {prov['sim_scored']} "
+          f"sim-scored, {len(tuned.runners_up)} runners-up; modeled with the "
+          f"reference's constants): {json.dumps(tuned.summary())}",
+          flush=True)
+    if tuned.plan.signature() != S_WINNER:
+        fail(f"S: autotune picked {tuned.plan.signature()}, the reference "
+             f"picks {S_WINNER}")
+    tuned.apply(fabric)
+    controller = fabric.attach_controller("tuned", tuned=tuned)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=16,
+                             seed=0, learnable=False)
+    trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
+                                 total_steps=S_STEPS),
+                      data, fabric=fabric, seed=0, device="cuda")
+    params = trainer.init_state().model.tree()
+    stash: dict = {}
+    real = S.aggregate_tree_bucketed
+
+    def keep(ctx, grads, policies, ef_states=None, **kw):
+        out = real(ctx, grads, policies, ef_states=ef_states, **kw)
+        stash["grads"], stash["agg"] = grads, out[0]
+        return out
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    launches: dict = {}
+    twin_s = []
+    S.aggregate_tree_bucketed = keep
+    try:
+        for k in range(S_STEPS):
+            plan = controller.plan
+            before = {kn: fn.launches for kn, fn in wrappers.items()}
+            dt_before = dict(wrappers["unpack_ternary"].launches_by_dtype)
+            trainer.run(k + 1)
+            rec = trainer.history[-1]
+            delta = _launch_deltas(wrappers, before, dt_before)
+            layout = fabric.layout_for(params, plan)
+            lowbit = [b for b in layout.buckets
+                      if codec_name(b.key.mode) != "fp32"]
+            packed = [b for b in lowbit if b.key.schedule == "packed_a2a"]
+            int4 = [b for b in lowbit if codec_name(b.key.mode) == "int4"]
+            if plan.signature() == S_WINNER:
+                n_packed = len(packed)
+                want = {"sign_pack": n_packed, "vote_combine": n_packed,
+                        "unpack_ternary_bf16": n_packed}
+                if n_packed != S_PACKED:
+                    fail(f"S step {k}: {n_packed} packed buckets")
+            elif plan.signature() == S_RETUNED:
+                want = {"int4_quant": 2 * len(int4)}
+                if len(int4) != S_INT4 or packed:
+                    fail(f"S step {k}: {len(int4)} int4 and {len(packed)} "
+                         f"packed buckets")
+            else:
+                fail(f"S step {k}: plan {plan.signature()}")
+            want = {kn: want.get(kn, 0) for kn in delta}
+            if delta != want or not np.isfinite(rec["loss"]):
+                fail(f"S step {k}: launches {delta}, expected {want}; loss "
+                     f"{rec['loss']}")
+            for kn, v in delta.items():
+                launches[kn] = launches.get(kn, 0) + v
+            # the step's low-bit aggregates against the twins, on the
+            # step's own gradients
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gl = dict(T.flatten(stash.pop("grads")))
+            al = dict(T.flatten(stash.pop("agg")))
+            for bucket in lowbit:
+                flat = torch.cat([gl[s.name].reshape(MAIN_W, -1)
+                                  for s in bucket.slots], dim=1)
+                got = torch.cat([al[s.name].reshape(-1)
+                                 for s in bucket.slots])
+                names = [s.name for s in bucket.slots]
+                if codec_name(bucket.key.mode) == "int4":
+                    enc = ref.from_plane(ref.int4_quant_plane(ref.to_plane(
+                        flat.to(torch.float32))), flat.shape[1])
+                    mean = fabric.group.all_reduce_mean(
+                        enc.to(flat.dtype).to(torch.float32))
+                    ok = same(got, mean)
+                    del enc, mean
+                else:
+                    # the packed vote byte for byte; vote_psum (no kernel)
+                    # to its value, zeros of either sign as zeros
+                    check = (same if bucket.key.schedule == "packed_a2a"
+                             else same_numbers)
+                    ok = all(check(got[c:c + TWIN_CHUNK],
+                                   twin_vote(flat[:, c:c + TWIN_CHUNK]))
+                             for c in range(0, bucket.size, TWIN_CHUNK))
+                if not ok:
+                    fail(f"S step {k}: aggregate {names} "
+                         f"({bucket.key.mode}, {bucket.key.schedule}) "
+                         f"differs from the twins")
+                del flat, got
+            del gl, al
+            torch.cuda.synchronize()
+            twin_s.append(time.perf_counter() - t1)
+            print(f"[S tuned] step {k}: loss {rec['loss']:.6f} time "
+                  f"{rec['step_time_s']:.4f} s plan {rec['plan']} "
+                  f"(active {controller.active}) launches "
+                  f"{ {kn: d for kn, d in delta.items() if d} }; aggregates "
+                  f"equal to the twins", flush=True)
+    finally:
+        S.aggregate_tree_bucketed = real
+    times = [h["step_time_s"] for h in trainer.history]
+    events = [(e.step, e.plan_signature) for e in controller.events]
+    rule = tuned_rule(tuned, times)
+    logged = [(e.step, e.kind, e.plan_signature) for e in controller.events]
+    print(f"[S tuned] events {logged}; the reference's rule on these step "
+          f"times: {rule}", flush=True)
+    if events != rule or not events or events[0][1] != S_RETUNED:
+        fail(f"S: events {events}; the reference's rule gives {rule}, "
+             f"first to {S_RETUNED}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    print(f"[S tuned] {card}: step seconds {times} (predicted by the "
+          f"artifact {tuned.score.step_time_s!r} s, the modeled "
+          f"communication alone), twin checks after the steps {twin_s} s, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    print(f"[S tuned] losses {[h['loss'] for h in trainer.history]}",
+          flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the serving engine (run T)
+# ---------------------------------------------------------------------------
+
+#: six requests: prompt tokens, new tokens, arrival step; with T_BLOCKS
+#: blocks of 16 the pool holds 608 positions, fewer than the four widest
+#: requests need together, so one is preempted and spilled (the schedule
+#: depends on the lengths alone)
+T_PROMPTS = (128, 112, 96, 120, 64, 16)
+T_NEW = (48, 40, 48, 32, 24, 16)
+T_ARRIVALS = (0, 1, 2, 3, 5, 6)
+T_BLOCKS = 38
+T_ENGINE = dict(max_batch=4, max_seq=256, block_size=16,
+                num_blocks=T_BLOCKS)
+
+
+def t_trace(vocab: int) -> list:
+    rng = np.random.RandomState(0)
+    return [{"prompt": rng.randint(0, vocab, p).tolist(),
+             "max_new_tokens": n, "arrival_step": a}
+            for p, n, a in zip(T_PROMPTS, T_NEW, T_ARRIVALS)]
+
+
+def serve_stepwise(eng, trace, profile_after: int | None = None,
+                   steps: int | None = None) -> dict:
+    """Submit ``trace`` and step ``eng`` until it drains, or for its first
+    ``steps`` steps: each step's seconds, whether it prefilled, the tier's
+    spill and fetch bytes a step, each prefill's seconds and, from step
+    ``profile_after`` on, one pure decode step's kernel launch calls
+    under ``torch.profiler``.  ``wall`` and ``tokens`` leave out the
+    profiled step, whose time carries the profiler's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prefills: list = []
+    real = eng._run_prefill
+
+    def timed(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(req)
+        torch.cuda.synchronize()
+        prefills.append((len(req.prompt), time.perf_counter() - t0))
+
+    eng._run_prefill = timed
+    for e in trace:
+        eng.submit(e["prompt"], e["max_new_tokens"], e["arrival_step"])
+    steps_done, tier, launch_calls = [], [], None
+    probed_s, probed_tokens = 0.0, 0
+    t_start = time.perf_counter()
+    while any(r.state.value != "finished" for r in eng.requests.values()) \
+            and (steps is None or len(steps_done) < steps):
+        before = (eng.cache.tier.spilled_bytes, eng.cache.tier.fetched_bytes)
+        n_pre = len(prefills)
+        probe = (launch_calls is None and profile_after is not None
+                 and eng.step_index >= profile_after)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if probe:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                rec = eng.step()
+                torch.cuda.synchronize()
+        else:
+            rec = eng.step()
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pure = len(prefills) == n_pre and bool(rec.active)
+        if probe:
+            probed_s += dt
+            probed_tokens += rec.new_tokens
+            if pure and not rec.preempted:
+                launch_calls = sum(e.key.startswith(("cudaLaunchKernel",
+                                                     "cuLaunchKernel"))
+                                   for e in prof.events())
+        steps_done.append((dt, pure and not probe))
+        tier.append((eng.cache.tier.spilled_bytes - before[0],
+                     eng.cache.tier.fetched_bytes - before[1]))
+    wall = time.perf_counter() - t_start - probed_s
+    eng._run_prefill = real
+    return {"steps": steps_done, "tier": tier, "prefills": prefills,
+            "wall": wall,
+            "tokens": sum(r.new_tokens for r in eng.records) - probed_tokens,
+            "probed_s": probed_s, "launch_calls": launch_calls}
+
+
+#: engine steps of the int4 KV replay: the first two admissions'
+#: prefills and decode steps at batch 1 and 2
+T_INT4_STEPS = 2
+
+
+def run_serve() -> dict:
+    """Run T: full qwen3-0.6B (bf16 weights, the reference's default
+    float32 cache) served by ``ServeEngine`` on the card: max_batch 4,
+    max_seq 256, blocks of 16, a T_BLOCKS-block pool, six requests (FCFS)
+    arriving over steps 0-6.  Checks: a preemption and a spill/fetch round
+    trip happen; the pool drains; each request's logits bit-identical to
+    its solo run at the same max_batch; the same trace's first
+    T_INT4_STEPS steps under the int4 KV codec give finite logits and
+    every record's wire bytes equal the codec's price of its elements
+    plus the step's spill and fetch bytes;
+    ``simulate(topology="cxl_switched")`` replays the timeline.  Tokens
+    a second leave out the step profiled for its launch calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.fabric import get_codec
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen3_0p6b")
+    trace = t_trace(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, seed=0, collect_logits=True, device="cuda",
+                      **T_ENGINE)
+    got = serve_stepwise(eng, trace, profile_after=8)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tl = eng.timeline()
+    outputs = {rid: list(r.outputs) for rid, r in eng.requests.items()}
+    tier = eng.cache.tier
+    if not (tl.total_preemptions and tier.spills and tier.fetches):
+        fail(f"T: preemptions {tl.total_preemptions}, spills {tier.spills}, "
+             f"fetches {tier.fetches}: the pool never ran short")
+    if eng.cache.blocks_in_use or any(len(outputs[i]) != n
+                                      for i, n in enumerate(T_NEW)):
+        fail(f"T: {eng.cache.blocks_in_use} blocks still held, outputs "
+             f"{[len(v) for v in outputs.values()]}")
+    if got["launch_calls"] is None:
+        fail("T: no pure decode step was profiled")
+    # the determinism contract, on the card
+    solo_s = time.perf_counter()
+    for rid, entry in enumerate(trace):
+        solo = ServeEngine(cfg, params=eng.params, collect_logits=True,
+                           device="cuda", **T_ENGINE)
+        alone = solo.serve([{"prompt": entry["prompt"],
+                             "max_new_tokens": entry["max_new_tokens"]}])
+        rows, solo_rows = eng.logits[rid], solo.logits[0]
+        if alone[0] != outputs[rid] or len(rows) != len(solo_rows) or \
+                not all(torch.equal(a, b) for a, b in zip(rows, solo_rows)):
+            bad = [i for i, (a, b) in enumerate(zip(rows, solo_rows))
+                   if not torch.equal(a, b)]
+            fail(f"T: request {rid}'s logits differ from its solo run at "
+                 f"rows {bad[:8]} (of {len(rows)})")
+        del solo
+    solo_s = time.perf_counter() - solo_s
+    # the int4 KV codec on the same trace
+    e4 = ServeEngine(cfg, params=eng.params, kv_codec="int4",
+                     collect_logits=True, device="cuda", **T_ENGINE)
+    got4 = serve_stepwise(e4, trace, steps=T_INT4_STEPS)
+    codec = get_codec("int4")
+    rows4 = [r for rows in e4.logits.values() for r in rows]
+    if len(e4.records) != T_INT4_STEPS or not rows4 or \
+            not all(bool(torch.isfinite(r).all()) for r in rows4):
+        fail(f"T int4: {len(e4.records)} steps, {len(rows4)} logit rows, "
+             f"not all finite")
+    for rec, (spilled, fetched) in zip(e4.records, got4["tier"]):
+        if rec.wire_bytes != codec.kv_bytes(rec.n_elements) + spilled + \
+                fetched:
+            fail(f"T int4 step {rec.step}: wire bytes {rec.wire_bytes!r}, "
+                 f"the codec prices {rec.n_elements} elements at "
+                 f"{codec.kv_bytes(rec.n_elements)!r} plus spill {spilled} "
+                 f"and fetch {fetched}")
+    agree = sum(a == b for rid in e4.requests
+                for a, b in zip(outputs[rid], e4.requests[rid].outputs))
+    agree_of = sum(len(r.outputs) for r in e4.requests.values())
+    rep = eng.simulate(topology="cxl_switched")
+    if rep.num_launches != tl.num_steps:
+        fail(f"T sim: {rep.num_launches} launches for {tl.num_steps} steps")
+    decode_ms = [dt * 1e3 for dt, pure in got["steps"] if pure]
+    new_tokens = tl.total_new_tokens
+    card = card_line()
+    print(f"[T serve] {card}: 6 requests, {tl.num_steps} engine steps, "
+          f"{new_tokens} new tokens, {tl.total_preemptions} preemptions, "
+          f"{tier.spills} spills / {tier.fetches} fetches, pool drained; "
+          f"every request's logits bit-identical to its solo run "
+          f"({solo_s:.2f} s for the six)", flush=True)
+    print(f"[T serve] {card}: decode step ms (batch 4, pure decode steps) "
+          f"{[round(m, 3) for m in decode_ms]}; median "
+          f"{float(np.median(decode_ms)):.3f} ms", flush=True)
+    print(f"[T serve] {card}: prefill seconds a prompt (tokens, s) "
+          f"{[(n, round(s, 4)) for n, s in got['prefills']]}", flush=True)
+    print(f"[T serve] {card}: {got['tokens'] / got['wall']:.2f} tokens a "
+          f"second ({got['tokens']} tokens in {got['wall']:.3f} s wall; the "
+          f"profiled step, {got['probed_s']:.3f} s, left out), "
+          f"{got['launch_calls']} kernel launch calls in one decode step, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    fp32_bytes = sum(r.wire_bytes for r in tl.steps[:T_INT4_STEPS])
+    print(f"[T serve] int4 KV, the first {T_INT4_STEPS} steps: "
+          f"{e4.timeline().total_wire_bytes!r} wire bytes against fp32's "
+          f"{fp32_bytes!r}; {agree} of {agree_of} greedy tokens as under "
+          f"fp32; records priced at kv_bytes; {got4['wall']:.3f} s for "
+          f"the {T_INT4_STEPS} steps, each prefilling a prompt", flush=True)
+    print(f"[T sim] modeled, the reference's constants (cxl_switched): "
+          f"step {rep.step_time_s!r} s, exposed {rep.exposed_pct!r} %, "
+          f"{rep.num_launches} launches, wire bytes "
+          f"{rep.wire_bytes_total!r}", flush=True)
+    return {"launches": {}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -2825,6 +3293,7 @@ def main() -> None:
     # copy and fill too
     rows.update(time_slice3_kernels(torch.Generator(device="cuda")
                                     .manual_seed(1)))
+    time_embed_bucket(torch.Generator(device="cuda").manual_seed(2))
     print("kernel checks: byte-equal to the plain twins", flush=True)
     free()
     launches = dict.fromkeys(rows, 0)
@@ -2856,7 +3325,7 @@ def main() -> None:
     free()
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
-               run_hier):
+               run_hier, run_tuned, run_serve):
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v

@@ -12,10 +12,9 @@ kernel_set` here: it returns the codec's fused
 :class:`~repro_torch.kernels.fused.KernelSet` (hand-written CUDA kernels),
 whose signature (``kernel_signature()``) keys the session's built steps.
 Each codec declares its simulator lane (:class:`CodecLane`), which
-:class:`~repro_torch.sim.datapath.FlitPipeline` times.  Of the KV-cache
-capability only the ``kv_cache`` flag and the int4 codec's
-``kv_encode`` are here; the rest belongs to the serving engine, still to
-port.
+:class:`~repro_torch.sim.datapath.FlitPipeline` times.  The KV-cache
+capability (``kv_cache``, ``kv_encode`` / ``kv_decode`` / ``kv_bytes``)
+is what :mod:`repro_torch.serve` stores and prices cache blocks with.
 """
 from __future__ import annotations
 
@@ -171,9 +170,27 @@ class GradientCodec:
         return n_elements * self.bits_per_element / 8.0
 
     # -- KV-cache capability (serving) -----------------------------------
-    #: the codec can represent KV-cache blocks (``kv_encode``); sign-vote
-    #: codecs cannot carry activations and stay False.
+    #: the codec can represent KV-cache blocks; sign-vote codecs cannot
+    #: carry activations and stay False, mean-family codecs (the FP32
+    #: bypass, quantizers) opt in and the serving engine routes every
+    #: cache block through ``kv_encode`` / ``kv_decode``.
     kv_cache: bool = False
+
+    def kv_encode(self, block: Any) -> Any:
+        """Stored representation of one KV-cache block (a tensor on the
+        engine's device, or a numpy array).  Lossy codecs return the
+        dequantized values their wire codes decode to, as :meth:`encode`
+        does; :meth:`kv_bytes` prices the codes."""
+        return block
+
+    def kv_decode(self, block: Any) -> Any:
+        """Inverse of :meth:`kv_encode` (the identity for functional
+        codecs)."""
+        return block
+
+    def kv_bytes(self, n_elements: int) -> float:
+        """Resident or transferred bytes of ``n_elements`` cache values."""
+        return self.payload_bytes(n_elements)
 
     def __repr__(self) -> str:
         return (f"{type(self).__name__}(name={self.name!r}, "
@@ -221,6 +238,7 @@ class Fp32Codec(GradientCodec):
     """Full-precision mean — warm-up / calibration / recovery bypass."""
     name = "fp32"
     bits_per_element = 32.0
+    kv_cache = True           # serving: full-precision KV blocks
 
 
 @register_codec(AggregationMode.IDENTITY)
@@ -228,6 +246,7 @@ class IdentityCodec(GradientCodec):
     """Original bytes (functional read-back checks only); FP32 accounting."""
     name = "identity"
     bits_per_element = 32.0
+    kv_cache = True           # serving: passthrough KV blocks
 
 
 @register_codec(AggregationMode.G_BINARY)

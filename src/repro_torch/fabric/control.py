@@ -13,12 +13,11 @@ admission to G-Binary/G-Ternary, guarded recovery, re-admission.
     mode latch and the control-event log.
   * :class:`Controller` and ``@register_controller`` — policies by name:
     ``"paper"`` (alias ``"adaptive"``, the Commander/Supervisor ladder),
-    ``"static"`` and ``"fp32"``.
+    ``"static"`` and ``"fp32"``; importing :mod:`repro_torch.tune` adds
+    ``"tuned"`` (:class:`~repro_torch.tune.TunedPlanController`).
 
 Controllers read telemetry and write mode metadata (an
 :class:`~repro_torch.core.buckets.AdmissionPlan`), never gradients.
-The ``tuned`` controller is still to port with ``tune`` (ROADMAP
-queue 1).
 """
 from __future__ import annotations
 
@@ -57,10 +56,11 @@ class Telemetry:
     Under a process group every rank runs its own controller, so a
     decision may read only replicated values: ``step``, ``loss`` (the
     mean over ranks), the ``cosines`` of the replicated aggregate,
-    ``traffic_ratio``, ``restart`` and ``plan_signature``.
-    ``step_time_s`` is each rank's own wall time and differs by rank; no
-    shipped controller decides on it.  Ranks that latched different
-    plans would run collectives that no longer match, and hang.
+    ``traffic_ratio``, ``restart``, ``plan_signature`` and
+    ``step_time_s``, which the Trainer reduces to the slowest rank's
+    wall time (an all-reduce with ``max``) before a controller sees it.
+    Ranks that latched different plans would run collectives that no
+    longer match, and hang.
     """
     step: int
     loss: float

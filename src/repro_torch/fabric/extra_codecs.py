@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
+import torch
 
 from .codecs import CodecLane, GradientCodec, register_codec
 
@@ -68,14 +68,21 @@ class Int4Codec(GradientCodec):
             g.reshape(g.shape[0], -1)).reshape(g.shape)
 
     def kv_encode(self, block):
-        """Per-block absmax int4 quantization of a host KV-cache block,
-        idempotent: a block already on the int4 grid comes back as is."""
-        f = np.asarray(block, np.float32)
-        scale = float(np.max(np.abs(f))) / self.levels
-        if scale <= 0.0:
-            return np.asarray(block).copy()
-        q = np.clip(np.round(f / scale), -self.levels, self.levels)
-        return (q * scale).astype(np.asarray(block).dtype)
+        """Per-block absmax int4 quantization of a KV-cache block (a
+        tensor, or anything ``torch.as_tensor`` takes), idempotent: a
+        block already on the int4 grid comes back as is.
+
+        The block is quantized where it lies, without a host sync: the
+        scale is the reference's ``float(max|x|) / 7`` in float64, taken
+        to float32 for the division and the product as numpy takes the
+        Python float.  Decode and pricing are the base class's
+        (``kv_bytes`` is the 4-bit payload)."""
+        block = torch.as_tensor(block)
+        f = block.to(torch.float32)
+        scale = f.abs().amax().to(torch.float64) / self.levels
+        s32 = scale.to(torch.float32)
+        q = torch.clamp(torch.round(f / s32), -self.levels, self.levels)
+        return torch.where(scale <= 0.0, block, (q * s32).to(block.dtype))
 
 
 @register_codec("topk")

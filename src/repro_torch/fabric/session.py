@@ -437,6 +437,37 @@ class Fabric:
                                compute_time_s=compute_time_s,
                                ready_times=ready_times, **topology_kwargs)
 
+    # -- plan autotuning ------------------------------------------------
+
+    def autotune(self, params_like: Any, space: Any | None = None, *,
+                 topology: str = "ici_ring", strategy: Any = "grid",
+                 shortlist: int = 8, objective: Any | None = None,
+                 compute_time_s: float = 0.0,
+                 overlap_fraction: float = 1.0,
+                 pspecs: Any | None = None, name: str | None = None,
+                 error_feedback: bool = False, **topology_kwargs):
+        """Search a plan space for this session's best configuration.
+
+        The session's entry point over :func:`repro_torch.tune.autotune`
+        (imported here, so the fabric does not depend on the tuner at
+        import).  ``params_like`` may be ``meta`` tensors
+        (``init_params(cfg, device="meta")``); ``space`` defaults to
+        :func:`repro_torch.tune.default_space` (every preset and the
+        generated low-bit axes, the classifier head pinned to FP32).
+        Returns a :class:`repro_torch.tune.TunedPlan`: ``tuned.apply(self)``
+        adopts its bucket budget, ``tuned.install()`` registers it as a
+        named preset.  Its prices are the reference's models, not
+        measurements.
+        """
+        from ..tune import autotune as _autotune
+        return _autotune(self, params_like, space, topology=topology,
+                         strategy=strategy, shortlist=shortlist,
+                         objective=objective,
+                         compute_time_s=compute_time_s,
+                         overlap_fraction=overlap_fraction, pspecs=pspecs,
+                         name=name, error_feedback=error_feedback,
+                         **topology_kwargs)
+
     # -- step builder ---------------------------------------------------
 
     def worker_grads(self, params: dict, batch: dict,

@@ -42,11 +42,21 @@ on the one device.  Examples, on the CPU:
   # the paper controller (warm-up -> calibrate -> admit -> guarded):
   ... --controller paper --warmup-steps 1    # equivalent: --plan adaptive
 
+  # autotune against the simulator, then train under the tuned controller:
+  ... --autotune --autotune-topology ici_ring --autotune-strategy grid \
+      --autotune-out tuned.json
+
 ``--controller`` accepts any registered controller: ``paper``
 (``adaptive``), ``static`` (with a concrete ``--plan``) and ``fp32``.
+``--autotune`` searches the presets and the generated
+low-bit plans offline (:mod:`repro_torch.tune`, on the model's ``meta``
+parameters), adopts the winner's bucket budget and trains under the
+``tuned`` controller, which re-ranks the sim-certified shortlist from
+the measured step times; it overrides ``--plan`` and ``--controller``.
 ``--ckpt-dir`` checkpoints every ``--ckpt-interval`` steps and restores
-the newest checkpoint on start.  The flags of parts still to port
-(autotuning, forced host device counts) are accepted and raise when set.
+the newest checkpoint on start.  ``--device-count`` (forced host device
+counts) is accepted and raises when set: it is still to port with
+``dryrun``.
 """
 import argparse
 import logging
@@ -61,7 +71,7 @@ _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
                  "hier_fp32_int4", "adaptive"]
 
 #: flags of the reference launcher whose machinery is still to port
-_NOT_PORTED = ("autotune", "autotune_out", "device_count")
+_NOT_PORTED = ("device_count",)
 
 #: how long a collective may wait for the other ranks before it fails
 _GROUP_TIMEOUT = timedelta(seconds=60)
@@ -83,10 +93,16 @@ def main(argv=None):
                     help="registered admission controller driving the run "
                          "(paper, adaptive, static, fp32); overrides --plan")
     ap.add_argument("--autotune", action="store_true",
-                    help="plan autotuning (still to port)")
-    ap.add_argument("--autotune-topology", default="ici_ring")
-    ap.add_argument("--autotune-strategy", default="grid")
-    ap.add_argument("--autotune-out", default=None)
+                    help="search plan_presets + generated low-bit plans "
+                         "offline (repro_torch.tune) and train on the "
+                         "winner; overrides --plan / --controller")
+    ap.add_argument("--autotune-topology", default="ici_ring",
+                    help="sim topology the autotuner certifies against")
+    ap.add_argument("--autotune-strategy", default="grid",
+                    help="registered search strategy (grid, random, "
+                         "successive_halving)")
+    ap.add_argument("--autotune-out", default=None,
+                    help="write the TunedPlan artifact JSON here")
     ap.add_argument("--warmup-steps", type=int, default=20,
                     help="FP32 calibration window of the paper controller")
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgdm"])
@@ -162,7 +178,23 @@ def main(argv=None):
     plan = None
     controller = args.controller or (
         "paper" if args.plan == "adaptive" else None)
-    if controller in ("paper", "adaptive"):
+    if args.autotune:
+        from ..models import init_params
+        tuned = fabric.autotune(init_params(cfg, device="meta"),
+                                topology=args.autotune_topology,
+                                strategy=args.autotune_strategy,
+                                error_feedback=args.error_feedback)
+        if args.autotune_out and (world is None or os.environ["RANK"] == "0"):
+            tuned.save(args.autotune_out)
+        logging.getLogger("repro_torch.launch").info(
+            "autotuned plan %s (%s): modeled step %.1f us, %d runners-up",
+            tuned.name, tuned.plan.signature(),
+            tuned.score.step_time_s * 1e6, len(tuned.runners_up))
+        tuned.apply(fabric)     # adopt the tuned bucket budget
+        # the "tuned" controller latches the winner and re-ranks the
+        # sim-certified shortlist from the measured step times
+        fabric.attach_controller("tuned", tuned=tuned)
+    elif controller in ("paper", "adaptive"):
         fabric.attach_controller(controller, warmup_steps=args.warmup_steps)
     elif controller == "static":
         if args.plan == "adaptive":

@@ -17,6 +17,13 @@ TensorParallel`) follows the reference's partition specs
 rank's query heads against the K/V heads they read, K and V projected
 from the replicated ``wk`` / ``wv``, and the MLP runs its column block;
 each ends in the sum over the model group.
+
+The decode path (:func:`attn_decode`) runs one token against a KV cache,
+at one depth for the batch or one depth a row.  A float32 cache under a
+bf16 model turns the residual stream float32 after the first attention,
+as JAX's type promotion does in the reference; so the products here
+(:func:`_mm`, :func:`_einsum`) promote their operands to a common dtype,
+a no-op where they already share one, as in training.
 """
 from __future__ import annotations
 
@@ -31,6 +38,28 @@ from .config import ModelConfig
 FLASH_SEQ_THRESHOLD = 2048
 FLASH_BLOCK_Q = 1024
 FLASH_BLOCK_K = 1024
+
+
+def _promoted(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in their promoted dtype (JAX's promotion of a
+    float32 activation against bf16 weights); the tensors themselves
+    where they share one."""
+    if a.dtype == b.dtype:
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the operands' promoted dtype."""
+    x, w = _promoted(x, w)
+    return x @ w
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two-operand ``einsum`` in the operands' promoted dtype."""
+    a, b = _promoted(a, b)
+    return torch.einsum(eq, a, b)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -52,15 +81,24 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * p["scale"]).to(dt)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: (..., S) integer."""
-    hd = x.shape[-1]
+def rope_table(positions: torch.Tensor, hd: int, theta: float, device):
+    """The RoPE (cos, sin) of ``positions`` (..., S): two float32 tensors
+    (..., S, 1, hd / 2), the same for every layer and for q and k."""
     half = hd // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=x.device) / half))
+                                          device=device) / half))
     ang = positions[..., None].to(torch.float32) * freqs     # (..., S, half)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         table=None) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integer; ``table`` their
+    :func:`rope_table`, where the caller has it."""
+    hd = x.shape[-1]
+    half = hd // 2
+    cos, sin = table if table is not None else rope_table(
+        positions, hd, theta, x.device)
     xf1 = x[..., :half].to(torch.float32)
     xf2 = x[..., half:].to(torch.float32)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
@@ -82,11 +120,11 @@ def attention_pspecs(cfg: ModelConfig) -> dict:
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
-         heads=None):
+         heads=None, table=None):
     b, s, _ = x.shape
     h, k = heads or (cfg.num_heads, cfg.num_kv_heads)
     hd = cfg.hd
-    q, kk, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, kk, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
     if cfg.qkv_bias:
         q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
@@ -95,8 +133,8 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         kk = rmsnorm(p["k_norm"], kk, cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), \
-        rope(kk, positions, cfg.rope_theta), v
+    return rope(q, positions, cfg.rope_theta, table), \
+        rope(kk, positions, cfg.rope_theta, table), v
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -292,6 +330,69 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
+def decode_context(cfg: ModelConfig, position, batch: int, max_seq: int,
+                   device) -> dict:
+    """What every layer of one decode step shares, computed once: the
+    rows' write positions, their RoPE tables, and the masked-out cache
+    positions of a global and of a window layer.
+
+    ``position`` is a Python int (every row at that depth) or a (B,)
+    integer tensor (continuous batching: each row at its own depth)."""
+    jidx = torch.arange(max_seq, device=device)
+    if torch.is_tensor(position) and position.dim() == 1:
+        pos = position.reshape(batch, 1).to(device=device, dtype=torch.int64)
+        rows, at = torch.arange(batch, device=device), None
+        valid = jidx[None, :] <= pos                         # (B, T)
+        near = pos - jidx[None, :]
+        shape = lambda m: m[:, None, None, None, :]          # noqa: E731
+    else:
+        at = int(position)
+        pos = torch.full((batch, 1), at, dtype=torch.int64, device=device)
+        rows = None
+        valid = jidx <= at
+        near = at - jidx
+        shape = lambda m: m[None, None, None, None]          # noqa: E731
+    local = valid
+    if cfg.sliding_window is not None:
+        local = valid & (near < cfg.sliding_window)
+    return {"pos": pos, "rows": rows, "at": at,
+            "rope": rope_table(pos, cfg.hd, cfg.rope_theta, device),
+            "masked": {True: shape(~valid), False: shape(~local)}}
+
+
+def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                cache_k: torch.Tensor, cache_v: torch.Tensor, position, *,
+                is_global: bool = True, ctx: dict | None = None
+                ) -> torch.Tensor:
+    """One-token decode against a KV cache (port of the reference's
+    ``attn_decode``).
+
+    x: (B, 1, d); cache_k / cache_v: (B, S_max, K, hd), written in place
+    at the new token's position; ``position`` a Python int (every row at
+    that depth) or a (B,) integer tensor (continuous batching: each row
+    writes and reads at its own depth, under its own causal and window
+    mask); ``ctx`` its :func:`decode_context`, where the caller shares
+    one across layers.  Returns the attention output (B, 1, d), in the
+    promoted dtype of the cache and the weights.  Each row is computed
+    from its own cache row alone (float32 scores, masked entries at
+    -1e30 and an exact 0 after the softmax), so its bits do not depend
+    on the other rows.
+    """
+    if ctx is None:
+        ctx = decode_context(cfg, position, x.shape[0], cache_k.shape[1],
+                             x.device)
+    q, k_new, v_new = _qkv(p, x, cfg, ctx["pos"], table=ctx["rope"])
+    if ctx["rows"] is not None:
+        at = (ctx["rows"], ctx["pos"][:, 0])
+    else:
+        at = (slice(None), ctx["at"])
+    cache_k[at] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[at] = v_new[:, 0].to(cache_v.dtype)
+    scores = _gqa_scores(q, cache_k).masked_fill(
+        ctx["masked"][bool(is_global)], -1e30)
+    return _mm(_gqa_out(torch.softmax(scores, dim=-1), cache_v), p["wo"])
+
+
 def cross_attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        enc_k: torch.Tensor,
                        enc_v: torch.Tensor) -> torch.Tensor:
@@ -357,10 +458,10 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if split:
         x = tp.copy(x)
     if "w_gate" in p:
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(_mm(x, p["w_gate"])) * _mm(x, p["w_up"])
     else:
-        h = _gelu(x @ p["w_up"])
-    out = h @ p["w_down"]
+        h = _gelu(_mm(x, p["w_up"]))
+    out = _mm(h, p["w_down"])
     return tp.reduce(out) if split else out
 
 
@@ -414,14 +515,14 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             topv[..., i, None, None] * onehot[..., None].to(dt))
     dispatch = (combine > 0).to(dt)
 
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    expert_in = _einsum("gsec,gsd->gecd", dispatch, xg)
     if "w_gate" in p:
-        h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
-             * torch.einsum("gecd,edf->gecf", expert_in, p["w_up"]))
+        h = (F.silu(_einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
+             * _einsum("gecd,edf->gecf", expert_in, p["w_up"]))
     else:
-        h = _gelu(torch.einsum("gecd,edf->gecf", expert_in, p["w_up"]))
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
-    y = torch.einsum("gsec,gecd->gsd", combine, expert_out)
+        h = _gelu(_einsum("gecd,edf->gecf", expert_in, p["w_up"]))
+    expert_out = _einsum("gecf,efd->gecd", h, p["w_down"])
+    y = _einsum("gsec,gecd->gsd", combine, expert_out)
     y = y.reshape(t + pad, d)[:t].reshape(b, s, d)
     if "shared" in p:
         y = y + mlp_forward(p["shared"], x, cfg)

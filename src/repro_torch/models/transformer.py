@@ -20,6 +20,8 @@ chunked_scan`).
 
     init_params(cfg, generator=..., device=...) -> params tree
     forward(params, cfg, batch[, tp])           -> logits
+    init_cache(cfg, batch, max_seq, ...)        -> KV cache (dense, MoE, VLM)
+    decode_step(params, cfg, token, cache, pos) -> (logits, cache)
     loss_fn(params, cfg, batch[, tp])           -> scalar CE loss
     Transformer(cfg, device=..., seed=...)      -> nn.Module over the tree
     param_pspecs(cfg)                           -> the reference's TP specs
@@ -372,7 +374,7 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
          else params["head"]["w"])
     if _vocab_split(params, cfg, tp):
         x = tp.copy(x)
-    return x @ w
+    return L._mm(x, w)
 
 
 def _unstack(layers: dict, n: int) -> list[dict]:
@@ -500,6 +502,75 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 
 def count_params(params: Any) -> int:
     return sum(int(x.numel()) for x in T.leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# the decode path (serving)
+# ---------------------------------------------------------------------------
+
+#: the families whose decode is ported: a sequence-indexed KV cache
+DECODE_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _check_decode(cfg: ModelConfig) -> None:
+    if cfg.family not in DECODE_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the port decodes the attention "
+            f"families ({', '.join(DECODE_FAMILIES)}); the recurrent "
+            f"(mLSTM, sLSTM, Mamba) and cross-attention decode come with "
+            f"the next slice (ROADMAP queue 1 item 5)")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """Decode cache sized for ``max_seq`` past tokens: ``{"k", "v"}`` of
+    shape (L, B, max_seq, KV, hd), zeros, as the reference's."""
+    _check_decode(cfg)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+                  position, is_global: bool,
+                  ctx: dict | None = None) -> torch.Tensor:
+    """One layer's decode; writes the token's K and V into ``cache``'s
+    (B, S_max, K, hd) views of this layer.  ``ctx`` is the step's
+    :func:`~repro_torch.models.layers.decode_context`."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
+                          position, is_global=is_global, ctx=ctx)
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        return x + L.moe_forward(p["moe"], h, cfg)
+    if "mlp" in p:
+        return x + L.mlp_forward(p["mlp"], h, cfg)
+    return x
+
+
+@torch.inference_mode()
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict, position) -> tuple[torch.Tensor, dict]:
+    """One-token decode: token (B, 1) integers; ``position`` a Python int
+    or a (B,) integer tensor (continuous batching, a depth a row; see
+    :func:`~repro_torch.models.layers.attn_decode`).  Writes the token's
+    K and V into ``cache`` in place and returns ``(logits (B, V),
+    cache)``.  The MoE family's dense prefix layers decode unrolled on
+    the leading slices of the stacked cache, as the reference's do."""
+    _check_decode(cfg)
+    x = params["embed"]["tok"][token]
+    # the positions, RoPE tables and masks, once for every layer
+    ctx = L.decode_context(cfg, position, x.shape[0], cache["k"].shape[2],
+                           x.device)
+    flags = global_attention_flags(cfg).tolist()
+    layers = list(params.get("prefix", [])) + _unstack(
+        params["layers"], cfg.num_layers - _n_prefix(cfg))
+    for i, (lp, is_global) in enumerate(zip(layers, flags)):
+        x = _layer_decode(lp, x, cfg, {"k": cache["k"][i],
+                                       "v": cache["v"][i]},
+                          position, bool(is_global), ctx)
+    return _logits(params, cfg, x)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ On a fabric over a
 :class:`~repro_torch.core.collectives.DistributedGroup` each process is
 one rank: it takes its shard of every global batch, rank 0's initial
 parameters are broadcast once, every rank runs its own controller on
-replicated telemetry, and only rank 0 logs and writes checkpoints.
+replicated telemetry (the step time it is given is the slowest rank's),
+and only rank 0 logs and writes checkpoints.
 
 On a fabric over a :class:`~repro_torch.core.collectives.ProcessMesh`
 (``Fabric(mesh=...)``: the reference's ``shard_map`` over the data axes
@@ -129,6 +130,7 @@ class Trainer:
         self.mesh = fabric.mesh
         # the whole world: the writer of checkpoints and their barrier
         world = group if self.mesh is None else self.mesh.world
+        self._world = world if self.distributed else None
         self._logs = not self.distributed or world.rank() == (0,)
         self.tp = (TensorParallel(self.mesh.model_group)
                    if fabric.tensor_parallel else None)
@@ -216,6 +218,15 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _slowest(self, dt: float) -> float:
+        """The step's time as every rank sees it: the slowest rank's
+        (one all-reduce over the world under a process group), so that
+        every rank's controller decides on the same number."""
+        if self._world is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64, device=self.device)
+        return float(self._world.all_reduce(t, op="max")[0])
+
     # -- loop -----------------------------------------------------------
 
     def run(self, num_steps: int) -> list[dict]:
@@ -284,7 +295,7 @@ class Trainer:
             self.history.append(rec)
             if self.controller is not None:
                 self.controller.observe(Telemetry.from_metrics(
-                    step, rec, step_time_s=dt,
+                    step, rec, step_time_s=self._slowest(dt),
                     restart=self._just_restarted))
             self._just_restarted = False
             if self.ckpt is not None:

@@ -68,8 +68,9 @@ def _log(controller):
 
 def test_builtin_controllers_registered():
     builtins = {"paper", "adaptive", "static", "fp32"}
-    # the reference registers "tuned" too once repro.tune is imported
-    assert set(available_controllers()) == builtins
+    # importing the tune package registers "tuned", as in the reference
+    import repro_torch.tune  # noqa: F401
+    assert set(available_controllers()) == builtins | {"tuned"}
     assert builtins <= set(J.available_controllers())
     assert get_controller("adaptive") is get_controller("paper")
     assert isinstance(make_controller("paper", warmup_steps=3),

@@ -818,3 +818,84 @@ def test_full_width_recurrent_block_on_the_card_matches_cpu(cuda, block):
     for a, b in zip(run(cuda), run("cpu")):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _smoke_bf16():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3_0p6b", smoke=True),
+                               dtype="bfloat16")
+
+
+def test_serve_engine_batched_equals_solo_on_the_card(cuda):
+    """The determinism contract on the card (run T's, at smoke width): a
+    bf16 model over the float32 cache, a pool small enough to preempt and
+    spill; each request's logits bit-identical to its solo run at the
+    same max_batch, and the pool drained."""
+    from repro_torch.serve import ServeEngine
+
+    cfg = _smoke_bf16()
+    rng = np.random.RandomState(0)
+    trace = [{"prompt": rng.randint(0, cfg.vocab_size, p).tolist(),
+              "max_new_tokens": n, "arrival_step": a}
+             for p, n, a in ((20, 12, 0), (9, 10, 1), (14, 12, 1),
+                             (30, 6, 3))]
+    kw = dict(max_batch=3, max_seq=48, block_size=4, collect_logits=True,
+              device=cuda)
+    eng = ServeEngine(cfg, seed=0, num_blocks=18, **kw)
+    outputs = eng.serve(trace)
+    assert eng.timeline().total_preemptions > 0
+    assert eng.cache.tier.spills > 0 and eng.cache.tier.fetches > 0
+    assert eng.cache.blocks_in_use == 0
+    for rid, entry in enumerate(trace):
+        solo = ServeEngine(cfg, params=eng.params, num_blocks=18, **kw)
+        got = solo.serve([{"prompt": entry["prompt"],
+                           "max_new_tokens": entry["max_new_tokens"]}])
+        assert got[0] == outputs[rid]
+        assert all(torch.equal(a, b)
+                   for a, b in zip(solo.logits[0], eng.logits[rid]))
+
+
+def test_tuned_controller_retunes_on_the_card(cuda):
+    """Run S at smoke width: the autotuned plan, the ``tuned`` controller
+    (patience 2) and the Trainer on the card; every step launches what
+    its latched plan's layout holds, and the retune falls where a second
+    controller fed the same step times puts it."""
+    from repro_torch.core import codec_name
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import Fabric, Telemetry
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+    from repro_torch.tune import TunedPlanController
+
+    cfg = _smoke_bf16()
+    fabric = Fabric(num_workers=4)
+    tuned = fabric.autotune(init_params(cfg, device="meta"))
+    tuned.apply(fabric)
+    ctl = fabric.attach_controller("tuned", tuned=tuned, patience=2)
+    trainer = Trainer(cfg, AdamW(total_steps=4), SyntheticLMStream(
+        vocab=cfg.vocab_size, seq_len=16, batch=8, seed=0), fabric=fabric,
+        device=cuda)
+    params = trainer.init_state().model.tree()
+    wrappers = kernel_wrappers()
+    for k in range(4):
+        plan = ctl.plan
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        trainer.run(k + 1)
+        delta = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+        layout = fabric.layout_for(params, plan)
+        packed = sum(b.key.schedule == "packed_a2a" for b in layout.buckets)
+        int4 = sum(codec_name(b.key.mode) == "int4" for b in layout.buckets)
+        want = {"sign_pack": packed, "vote_combine": packed,
+                "unpack_ternary": packed, "int4_quant": 2 * int4}
+        assert delta == {n: want.get(n, 0) for n in delta}, k
+    shadow = TunedPlanController(tuned, patience=2)
+    for h in trainer.history:
+        shadow.observe(Telemetry(step=h["step"], loss=h["loss"],
+                                 step_time_s=h["step_time_s"]))
+    assert ctl.events and ctl.events == shadow.events
+    first = ctl.events[0]
+    assert trainer.history[first.step + 1]["plan"] == \
+        first.plan_signature != tuned.plan.signature()

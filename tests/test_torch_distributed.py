@@ -25,7 +25,8 @@ compares:
   * the Trainer, on the reference's distributed-test config (2 layers,
     d 64, float32): gbin_packed as the virtual run, bit for bit at
     W = 2 and within the tolerance below at W = 4; the paper controller
-    latching the same plans at the same steps on every rank; an
+    latching the same plans at the same steps on every rank, and the
+    tuned controller too where the ranks' step times differ; an
     injected failure at step 12 of 18 restored and replayed to a
     bit-equal last loss; a fp32_all SGD-momentum checkpoint written at
     W = 4 restored at W = 2; error-feedback rows written at W = 4
@@ -86,9 +87,10 @@ from repro_torch.core import tree as T
 from repro_torch.data import SyntheticLMStream
 from repro_torch.fabric import (AggregationContext, Fabric, aggregate_leaf,
                                 get_codec, make_controller, plan_presets)
-from repro_torch.models import ModelConfig, Transformer
+from repro_torch.models import ModelConfig, Transformer, init_params
 from repro_torch.optim import AdamW, SgdMomentum
 from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+import repro_torch.runtime.train as runtime_train
 
 group = DistributedGroup(device="cpu")
 arrays, info = {}, {}
@@ -238,6 +240,31 @@ def paper(tag, make_fabric):
                              for e in ctl.events]
 
 
+class SkewedTimer(runtime_train.StepTimer):
+    """Rank 0's steps take no time, every other rank's 10 s: far
+    outside any modeled step's band."""
+
+    def __exit__(self, *exc):
+        self.duration = 0.0 if R == 0 else 10.0
+
+
+def tuned(tag):
+    """The tuned controller on step times that differ by rank: the
+    Trainer must hand every rank's controller the same (slowest) time."""
+    fab = dist_fabric()
+    art = fab.autotune(init_params(CFG, device="meta"))
+    art.apply(fab)
+    ctl = fab.attach_controller("tuned", tuned=art, patience=2)
+    timer = runtime_train.StepTimer
+    runtime_train.StepTimer = SkewedTimer
+    try:
+        train(tag, lambda: fab, 6)
+    finally:
+        runtime_train.StepTimer = timer
+    info[f"{tag}/events"] = [[e.step, e.kind, e.plan_signature]
+                             for e in ctl.events]
+
+
 def ckpt_arrays(directory):
     step, got, extra = restore_latest(directory)
     for name, x in got.items():
@@ -300,6 +327,7 @@ if W == 4:
 if W == 2:
     train("trainer", dist_fabric, 6, plan=GBIN)
     paper("paper", dist_fabric)
+    tuned("tuned")
     tr = train("elastic", dist_fabric, 10, plan=FP32, opt=SGDM, tcfg=EVERY5,
                ckpt_dir=os.path.join(SHARED, "elastic"))
     try:
@@ -716,6 +744,20 @@ def test_paper_controller_latches_the_same_plans_on_every_rank(world2):
         assert info["paper/plans"] == plans
         assert info["paper/events"] == events
         assert info["paper/losses"] == virtual["virtual/paper/losses"]
+
+
+def test_tuned_controller_latches_the_same_plans_on_skewed_ranks(world2):
+    """Rank 0 times its steps at 0 s, rank 1 at 10 s: both controllers
+    see the slowest rank's time, so both retune at the same steps."""
+    (_, first), (_, second) = world2
+    events = first["tuned/events"]
+    # patience 2: every second step is out of band on the slowest rank
+    assert events and all(e[1] == "retune" and e[0] in (1, 3, 5)
+                          for e in events)
+    assert len(set(first["tuned/plans"])) > 1
+    assert second["tuned/events"] == events
+    assert second["tuned/plans"] == first["tuned/plans"]
+    assert second["tuned/losses"] == first["tuned/losses"]
 
 
 def test_failure_is_restored_and_replayed_bit_for_bit(world4):
