@@ -230,7 +230,48 @@ Phases (any failure exits non-zero before the result line):
                     of the timeline; decode-step ms, prefill seconds a
                     prompt, tokens a second, one decode step's kernel
                     launch calls and peak memory printed;
- 12. print the kernels line (launches summed over the runs, run Q's from
+ 12. the recurrent and cross-attention decode:
+       U. decode    xlstm-125m (12 blocks), hymba-1.5b (32 layers) and
+                    whisper-tiny (4 + 4 layers, 4 x 1500 seeded frames)
+                    whole, each through ``build_cached_prefill`` and
+                    ``build_serve_step`` on the default bf16 cache: batch
+                    4, 64-token prompts, 32 greedy tokens, after one
+                    untimed step; every logit finite; for xlstm and
+                    hymba the teacher-forced decode of the 96 tokens
+                    against the model's forward on the card, within 2^-4
+                    of the largest logit in bf16 and 1e-4 on a float32
+                    copy of the weights; for whisper each layer's
+                    cross-attention term of a decode step exactly zero
+                    (the reference's zero cross cache, ROADMAP queue 3);
+                    decode-step ms, prefill seconds, tokens a second,
+                    one step's kernel launch calls and peak memory;
+ 13. elastic training of full qwen3-0.6B (``ElasticTrainer``, W = 4
+     virtual workers, each on its own stream of 4 x 128 tokens,
+     SgdMomentum, synthetic step times):
+       V. crash     the static ``gbin_packed`` plan (bucketed, fused
+                    kernels), 10 steps, a checkpoint every 4 (keep 1)
+                    under build/, removed after, worker 3 crashing at
+                    step 6 and rejoining at 8: restarts 1, 2 steps
+                    rolled back and replayed, 3 built steps, the final
+                    view epoch 2 with workers 0-3, the history's W 4,
+                    then 3, then 4 from step 8, the parameters restored
+                    bit-equal to those saved at step 4, 7 launches each
+                    of sign_pack, vote_combine and bf16 unpack_ternary a
+                    step at W = 4 and 3, the first step of each view
+                    byte-equal to the plain twins; step seconds by view,
+                    the saves and the restore timed, the checkpoint's
+                    bytes, peak memory and ``replay_schedule`` of the
+                    scenario on ``cxl_direct`` (modeled); then 6 steps of
+                    the Trainer on the same model, plan, optimizer and
+                    16 x 128 tokens, V's steps' yardstick in the call;
+       V'. straggler  7 steps, worker 1 six times slow on steps 1-2,
+                    ``straggler_aware`` (gbin_packed with EF after 2
+                    flagged steps, FP32 after 2 stable ones): the events
+                    (2, demoted) and (6, recovered), as on the CPU
+                    (``tests/test_torch_elastic.py``), each low-bit step
+                    launching what ``layout_kernel_stats`` models, the EF
+                    rows finite;
+ 14. print the kernels line (launches summed over the runs, run Q's from
      rank 0), the card, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -3274,6 +3315,474 @@ def run_serve() -> dict:
     return {"launches": {}}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent and cross-attention decode
+# ---------------------------------------------------------------------------
+
+U_MODELS = ("xlstm_125m", "hymba_1p5b", "whisper_tiny")
+U_BATCH, U_PROMPT, U_NEW = 4, 64, 32
+#: the bf16 teacher-forced decode against the bf16 forward, as a fraction
+#: of the largest |logit|: each bf16 product rounds its float32 sum once,
+#: and cuBLAS picks its algorithm (tiles, split-K) by the row count, so a
+#: product of the decode's 4 rows and of the forward's 384 may part by a
+#: bf16 ulp (2^-8 of the value); through 12 or 32 blocks and 96 recurrent
+#: steps such ulps add up.  2^-4 is 16 ulps of the largest logit.
+U_TOL = 2.0 ** -4
+#: the same decode in float32 (a float32 copy of the weights, a float32
+#: cache): float32 sums in other orders, through as many layers
+U_TOL32 = 1e-4
+
+
+def teacher_forced(cfg, params, step, tokens, max_seq: int,
+                   dtype) -> tuple[float, float]:
+    """The decode of ``tokens`` one position at a time against the
+    forward over all of them: (largest |difference|, largest |logit|)."""
+    from repro_torch.models import forward, init_cache
+    cache = init_cache(cfg, tokens.shape[0], max_seq, dtype=dtype,
+                       device="cuda")
+    got = []
+    for t in range(tokens.shape[1]):
+        lg, cache = step(params, tokens[:, t:t + 1], cache, t)
+        got.append(lg.to(torch.float32))
+    with torch.no_grad():
+        ref = forward(params, cfg, {"tokens": tokens}).to(torch.float32)
+    return (float((torch.stack(got, dim=1) - ref).abs().max()),
+            float(ref.abs().max()))
+
+
+def launch_calls(fn) -> int:
+    """Kernel launch calls of one ``fn()`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+               for e in prof.events())
+
+
+def decode_model(arch: str) -> None:
+    """One model of run U: the default bf16 cache, batch U_BATCH, a
+    U_PROMPT-token prompt through ``build_cached_prefill``, U_NEW greedy
+    tokens through ``build_serve_step``, each step timed (after one
+    untimed step on a scratch cache: the first calls' set-up); then one
+    more step profiled for its launch calls, and the checks."""
+    import dataclasses
+
+    import repro_torch.models.layers as L
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.runtime.serve import (build_cached_prefill,
+                                           build_serve_step)
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, generator=torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    rng = np.random.RandomState(0)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (U_BATCH, U_PROMPT))).cuda()
+    enc_out = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.randn(
+            U_BATCH, cfg.encoder_seq, cfg.d_model).astype(np.float32)).cuda()
+        enc_out = frames.to(torch.bfloat16) @ params["embed"]["frame_proj"][
+            "w"]
+    max_seq = U_PROMPT + U_NEW + 1
+    prefill = build_cached_prefill(cfg)
+    step, _ = build_serve_step(cfg, batch=U_BATCH, max_seq=max_seq)
+    step(params, prompt[:, :1], init_cache(cfg, U_BATCH, max_seq, enc_out,
+                                           device="cuda"), 0)
+    cache = init_cache(cfg, U_BATCH, max_seq, enc_out, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt, U_PROMPT, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    seq, step_ms, rows = [prompt], [], [logits]
+    cross = []
+    real_cross = L.cross_attn_forward
+
+    def recorded(*args):
+        out = real_cross(*args)
+        cross.append(out)
+        return out
+
+    for i in range(U_NEW):
+        tok = rows[-1].argmax(-1)[:, None]
+        seq.append(tok)
+        if i == 0 and cfg.family == "encdec":
+            L.cross_attn_forward = recorded
+        t0 = time.perf_counter()
+        logits, cache = step(params, tok, cache, U_PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        L.cross_attn_forward = real_cross
+        rows.append(logits)
+    tokens = torch.cat(seq, dim=1)                      # (B, 96)
+    nxt = rows[-1].argmax(-1)[:, None]
+    calls = launch_calls(lambda: step(params, nxt, cache, U_PROMPT + U_NEW))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(bool(torch.isfinite(r).all()) for r in rows):
+        fail(f"U {arch}: non-finite logits")
+    check = ""
+    if cfg.family == "encdec":
+        if len(cross) != cfg.num_layers or any(bool(c.any()) for c in cross):
+            fail(f"U {arch}: the cross-attention of a decode step added "
+                 f"{[float(c.abs().max()) for c in cross]}, not zeros")
+        check = (f"each of the {len(cross)} layers' cross-attention term "
+                 f"of step 0 exactly zero (the reference's zero cross "
+                 f"cache)")
+    else:
+        # the teacher-forced decode of the 96 tokens against the forward,
+        # in bf16 and on a float32 copy of the weights
+        err, big = teacher_forced(cfg, params, step, tokens, max_seq,
+                                  torch.bfloat16)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        step32, _ = build_serve_step(cfg32, batch=U_BATCH, max_seq=max_seq)
+        err32, big32 = teacher_forced(
+            cfg32, T.map_leaves(lambda t: t.to(torch.float32), params),
+            step32, tokens, max_seq, torch.float32)
+        if not (err <= U_TOL * big and err32 <= U_TOL32 * big32):
+            fail(f"U {arch}: teacher-forced decode {err} (bf16) and {err32} "
+                 f"(float32) from the forward, over {U_TOL} of the largest "
+                 f"logit {big} or {U_TOL32} of {big32}")
+        check = (f"teacher-forced decode of the {tokens.shape[1]} tokens "
+                 f"against the forward: bf16 within {err!r} (largest logit "
+                 f"{big!r}; {err / big:.3e} of it, bound {U_TOL}), float32 "
+                 f"within {err32!r} ({err32 / big32:.3e} of {big32!r}, "
+                 f"bound {U_TOL32})")
+    card = card_line()
+    total = prefill_s + sum(step_ms) / 1e3
+    print(f"[U {arch}] {card}: batch {U_BATCH}, {U_PROMPT}-token prompts, "
+          f"{U_NEW} greedy tokens; decode step ms median "
+          f"{float(np.median(step_ms)):.3f} (range {min(step_ms):.3f}-"
+          f"{max(step_ms):.3f}); prefill {prefill_s:.3f} s a prompt "
+          f"({prefill_s / U_PROMPT * 1e3:.3f} ms a token); "
+          f"{U_BATCH * U_NEW / (sum(step_ms) / 1e3):.2f} tokens a second "
+          f"decoding, {U_BATCH * U_NEW / total:.2f} with the prefill; "
+          f"{calls} kernel launch calls in one decode step; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"[U {arch}] {check}", flush=True)
+
+
+def run_decode() -> dict:
+    """Run U: xlstm-125m, hymba-1.5b and whisper-tiny whole, decoded."""
+    for arch in U_MODELS:
+        decode_model(arch)
+        free()
+    return {"launches": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: elastic training
+# ---------------------------------------------------------------------------
+
+V_W, V_STEPS = 4, 10
+#: the Trainer's steps beside run V, its yardstick
+V_STEPS_BASE = 6
+V_CRASH = dict(worker=3, step=6, rejoin_step=8)
+#: the history's worker count a step: 4, then 3 over the replayed steps
+#: 4-5 and steps 6-7, then 4 from step 8
+V_WORKERS = [4] * 6 + [3] * 4 + [4] * 2
+#: run V': worker 1 six times slow on steps 1-2 of 7
+VP_STEPS = 7
+VP_STRAGGLER = dict(worker=1, start=1, stop=3, factor=6.0)
+VP_CONTROLLER = dict(lowbit_plan="gbin_packed", demote_after=2,
+                     recover_after=2)
+#: the events the detector and controller give for those times on the
+#: CPU, where tests/test_torch_elastic.py holds them to the reference's
+VP_EVENTS = [(2, "demoted"), (6, "recovered")]
+
+
+def elastic_trainer(faults, ckpt_dir=None, **kw):
+    """An ElasticTrainer of full qwen3-0.6B on the card: W = V_W workers,
+    each on its own stream of 4 x 128 tokens, SgdMomentum, synthetic step
+    times of 1 s."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.elastic import ElasticConfig, ElasticTrainer
+    from repro_torch.optim import SgdMomentum
+
+    cfg = get_config("qwen3_0p6b")
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=4,
+                             seed=0, learnable=False)
+    return ElasticTrainer(
+        cfg, SgdMomentum(peak_lr=3e-3, warmup_steps=1, total_steps=V_STEPS),
+        data, V_W, faults=faults, ckpt_dir=ckpt_dir, seed=0, device="cuda",
+        ecfg=ElasticConfig(checkpoint_interval=4, checkpoint_keep=1,
+                           synthetic_step_time_s=1.0, log_interval=1),
+        **kw)
+
+
+def instrument(tr, records: list, after=None) -> None:
+    """Wrap ``tr``'s built steps: each call appends its step, W, epoch,
+    plan, seconds (ending in a synchronize) and kernel launches (the
+    unpack_ternary decodes by output dtype) to ``records``;
+    ``after(record, out, batch)`` runs after the step, and launches it
+    makes (the twin checks) are taken off the counts again."""
+    from repro_torch.kernels import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    decode_by = wrappers["unpack_ternary"].launches_by_dtype
+    real_get = tr._get_step
+
+    def get_step(plan, diagnostics):
+        fn = real_get(plan, diagnostics)
+
+        def counted(state, batch):
+            before = {k: w.launches for k, w in wrappers.items()}
+            dt_before = dict(decode_by)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            rec = {"step": state.step, "W": tr.fabric.num_workers,
+                   "epoch": tr.fabric.membership_epoch,
+                   "plan": plan.signature(),
+                   "s": time.perf_counter() - t0,
+                   "launches": {k: w.launches - before[k]
+                                for k, w in wrappers.items()},
+                   "decodes": {d: n - dt_before[d]
+                               for d, n in decode_by.items()}}
+            records.append(rec)
+            if after is not None:
+                mark = {k: w.launches for k, w in wrappers.items()}
+                dt_mark = dict(decode_by)
+                after(rec, out, batch)
+                for k, w in wrappers.items():
+                    w.launches = mark[k]
+                decode_by.update(dt_mark)
+            return out
+        return counted
+
+    tr._get_step = get_step
+
+
+def launches_of(records: list) -> dict:
+    """The kernels line's counts from a run's step records."""
+    out: dict = {}
+    for r in records:
+        for k, n in r["launches"].items():
+            if k != "unpack_ternary":
+                out[k] = out.get(k, 0) + n
+        for dt, key in ((torch.float32, "unpack_ternary"),
+                        (torch.bfloat16, "unpack_ternary_bf16")):
+            out[key] = out.get(key, 0) + r["decodes"][dt]
+    return out
+
+
+def check_vote_launches(name: str, rec: dict, packed: int) -> None:
+    """A packed vote step: ``packed`` launches each of sign_pack,
+    vote_combine and bf16 unpack_ternary, nothing else."""
+    want = {k: (packed if k in ("sign_pack", "vote_combine",
+                                "unpack_ternary") else 0)
+            for k in rec["launches"]}
+    if rec["launches"] != want or rec["decodes"][torch.bfloat16] != packed:
+        fail(f"{name} step {rec['step']} (W {rec['W']}): launches "
+             f"{rec['launches']}, decodes {rec['decodes']}; expected {want}, "
+             f"all bf16")
+
+
+def run_elastic() -> dict:
+    """Run V: full qwen3-0.6B through ElasticTrainer, W = 4 under the
+    static gbin_packed plan (bucketed, fused kernels), a checkpoint every
+    4 steps (keep 1) under build/, worker 3 crashing at step 6 and
+    rejoining at 8: the rollback to step 4, the replay at W = 3, the
+    rejoin.  Checks the report, the history's worker counts, the
+    restored parameters bit-equal to those saved at step 4, 7 launches
+    each of sign_pack, vote_combine and bf16 unpack_ternary a step at
+    both W, and one step at each W byte-equal to the plain twins."""
+    import shutil
+
+    from repro_torch.core import codec_name
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.elastic import Crash, replay_schedule
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Trainer
+
+    plan = plan_presets()["gbin_packed"]
+    root = os.path.join(ROOT, "build", "ckpt_run_v")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    records, twins, saves, restores = [], [], {}, []
+    tr = elastic_trainer([Crash(**V_CRASH)], ckpt_dir=root, plan=plan)
+
+    def twin(rec, out, batch):
+        # the first step of each view: the aggregates against the twins
+        if (rec["W"], rec["epoch"]) in {(w, e) for w, e, _ in twins}:
+            return
+        params = out[0].model.tree()
+        run = {"trainer": tr, "params": params, "batch": batch,
+               "lowbit": [b for b in tr.fabric.layout_for(params,
+                                                          plan).buckets
+                          if codec_name(b.key.mode) != "fp32"]}
+        twins.append((rec["W"], rec["epoch"],
+                      check_twin_step(f"V W={rec['W']}", tr.fabric, plan,
+                                      run)))
+
+    instrument(tr, records, after=twin)
+    real_save, real_restore = tr.ckpt.maybe_save, tr._restore
+
+    def save(step, tree, **kw):
+        t0 = time.perf_counter()
+        saved = real_save(step, tree, **kw)
+        if saved:
+            t1 = time.perf_counter()
+            tr.ckpt.wait()
+            t2 = time.perf_counter()
+            path = os.path.join(root, f"step_{step:010d}")
+            size = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+            saves[step] = (t1 - t0, t2 - t1, size, [
+                p.detach().clone() for p in T.leaves(tr.state.model.tree())]
+                if step == 4 else None)
+        return saved
+
+    def restore():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = real_restore()
+        torch.cuda.synchronize()
+        if ok:
+            restores.append((time.perf_counter() - t0, tr.state.step, [
+                p.detach().clone()
+                for p in T.leaves(tr.state.model.tree())]))
+        return ok
+
+    tr.ckpt.maybe_save, tr._restore = save, restore
+    try:
+        t0 = time.perf_counter()
+        hist = tr.run(V_STEPS)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep = tr.report()
+    if (rep["restarts"], rep["replayed_steps"], rep["compiled_steps"],
+            rep["final_view"]) != (1, 2, 3, {"epoch": 2,
+                                              "workers": [0, 1, 2, 3]}) \
+            or rep["recoveries"][0]["steps_to_recover"] != 2:
+        fail(f"V: report {rep}")
+    if [h["num_workers"] for h in hist] != V_WORKERS:
+        fail(f"V: worker counts {[h['num_workers'] for h in hist]}, "
+             f"expected {V_WORKERS}")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"V: losses {[h['loss'] for h in hist]}")
+    if len(restores) != 1 or restores[0][1] != 4 or 4 not in saves:
+        fail(f"V: restores at {[r[1] for r in restores]}, saves at "
+             f"{sorted(saves)}")
+    for a, b in zip(saves[4][3], restores[0][2]):
+        if not same(a, b):
+            fail("V: the parameters restored differ from those saved at "
+                 "step 4")
+    for rec in records:
+        check_vote_launches("V", rec, LOWBIT_BUCKETS)
+    if sorted((w, e) for w, e, _ in twins) != [(3, 1), (4, 0), (4, 2)]:
+        fail(f"V: twin checks at {[(w, e) for w, e, _ in twins]}")
+    card = card_line()
+    by_view: dict = {}
+    for r in records:
+        by_view.setdefault((r["epoch"], r["W"]), []).append(round(r["s"], 4))
+    print(f"[V elastic] {card}: {len(records)} steps in {wall:.2f} s "
+          f"(with the checkpoints and the twin checks); report {rep}",
+          flush=True)
+    print(f"[V elastic] step seconds by (epoch, W): {by_view}", flush=True)
+    print(f"[V elastic] losses {[round(h['loss'], 6) for h in hist]}",
+          flush=True)
+    for step, (snap, write, size, _) in sorted(saves.items()):
+        print(f"[V elastic] checkpoint at step {step}: {size} bytes, "
+              f"snapshot to host {snap:.3f} s, write {write:.3f} s",
+              flush=True)
+    print(f"[V elastic] restore to step {restores[0][1]}: "
+          f"{restores[0][0]:.3f} s, the parameters bit-equal to those saved "
+          f"at step 4; peak memory {peak:.2f} GiB", flush=True)
+    for w, e, extra in twins:
+        print(f"[V elastic] W={w} epoch {e}: aggregates byte-equal to the "
+              f"plain twins{extra}", flush=True)
+    sim = replay_schedule(init_params(tr.cfg, device="meta"), plan, V_W,
+                          V_STEPS, faults=[Crash(**V_CRASH)],
+                          topology="cxl_direct")
+    print(f"[V sim] modeled, the reference's constants (cxl_direct, "
+          f"compute 1e-3 s a step): {json.dumps(sim.to_jsonable())}",
+          flush=True)
+    launches = launches_of(records)
+    # the elastic loop's yardstick: the Trainer on the same model, plan,
+    # optimizer and 16 x 128 tokens, in this call
+    cfg, opt = tr.cfg, tr.optimizer
+    del tr, twins, saves, restores
+    free()
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128,
+                             batch=V_W * 4, seed=0, learnable=False)
+    base = Trainer(cfg, opt, data, plan=plan, fabric=Fabric(num_workers=V_W),
+                   seed=0, device="cuda")
+    base.run(V_STEPS_BASE)
+    step_s = [h["step_time_s"] for h in base.history]
+    v4 = [r["s"] for r in records if r["W"] == V_W]
+    print(f"[V elastic] the Trainer on the same plan and batch: step "
+          f"seconds {[round(t, 4) for t in step_s]}; medians "
+          f"{float(np.median(step_s)):.4f} s against V's W = {V_W} "
+          f"{float(np.median(v4)):.4f} s", flush=True)
+    return {"launches": launches}
+
+
+def run_straggler() -> dict:
+    """Run V': full qwen3-0.6B, W = 4, synthetic step times with worker 1
+    six times slow on steps 1-2, under ``straggler_aware`` (demote to
+    gbin_packed with EF after 2 flagged steps, recover after 2 stable):
+    the events at the CPU's steps, each low-bit step launching what its
+    layout's ``layout_kernel_stats`` models, and finite EF rows."""
+    from repro_torch.core import tree as T
+    from repro_torch.elastic import Straggler, StragglerAwareController
+    from repro_torch.fabric import layout_kernel_stats
+
+    ctrl = StragglerAwareController(**VP_CONTROLLER)
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    tr = elastic_trainer([Straggler(**VP_STRAGGLER)], controller=ctrl)
+    instrument(tr, records)
+    hist = tr.run(VP_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = [(e.step, e.kind) for e in ctrl.events]
+    if events != VP_EVENTS:
+        fail(f"V': events {events}, expected {VP_EVENTS}")
+    lowbit = ctrl.lowbit_plan.signature()
+    params = tr.state.model.tree()
+    for rec in records:
+        if rec["plan"] != lowbit:
+            if any(rec["launches"].values()):
+                fail(f"V' step {rec['step']}: FP32 launched "
+                     f"{rec['launches']}")
+            continue
+        stats = layout_kernel_stats(tr.fabric.layout_for(params,
+                                                         ctrl.lowbit_plan),
+                                    tr.fabric.num_workers)
+        if sum(rec["launches"].values()) != stats["launches_fused"]:
+            fail(f"V' step {rec['step']}: {rec['launches']} against the "
+                 f"modeled {stats}")
+        check_vote_launches("V'", rec, LOWBIT_BUCKETS)
+    low = [r["step"] for r in records if r["plan"] == lowbit]
+    if low != list(range(VP_EVENTS[0][0] + 1, VP_STEPS)):
+        fail(f"V': low-bit steps {low}")
+    ef = [e for e in T.leaves(tr.state.ef)]
+    if not all(bool(torch.isfinite(e).all()) for e in ef) or \
+            not any(bool(e.any()) for e in ef):
+        fail("V': EF rows not finite, or all zero after the low-bit steps")
+    card = card_line()
+    print(f"[V' straggler] {card}: events {events}; stragglers a step "
+          f"{[h['stragglers'] for h in hist]}; low-bit steps {low}, each "
+          f"{LOWBIT_BUCKETS} x (sign_pack, vote_combine, bf16 "
+          f"unpack_ternary) as layout_kernel_stats models; EF rows finite",
+          flush=True)
+    print(f"[V' straggler] step seconds {[round(r['s'], 4) for r in records]}"
+          f" (plans {['lowbit' if r['plan'] == lowbit else 'fp32' for r in records]}); "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    return {"launches": launches_of(records)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -3325,7 +3834,8 @@ def main() -> None:
     free()
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
-               run_hier, run_tuned, run_serve):
+               run_hier, run_tuned, run_serve, run_decode, run_elastic,
+               run_straggler):
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v

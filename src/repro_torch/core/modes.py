@@ -74,15 +74,20 @@ def wire_schedule(mode, schedule) -> str:
     hierarchical codec (a registered
     :class:`~repro_torch.fabric.hierarchy.HopPlan`) planned on any of the
     three rides ``hierarchical``, since its hops fix their own
-    transports.  Any other schedule, registered custom backends included,
-    is used as named.
+    transports; a local-accumulation codec (``reduction == "local"``,
+    the zero-wire ``local`` codec of :mod:`repro_torch.elastic.
+    strategies`) planned on any of the three rides ``local_accum``, since
+    a 0-bit payload on a real collective would ship FP32 bytes the
+    traffic model prices at zero.  Any other schedule, registered custom
+    backends included, is used as named.
     """
     from ..fabric.codecs import get_codec
     reduction = get_codec(mode).reduction
     name = schedule_name(schedule)
-    if reduction == "hierarchical":
+    routed = {"hierarchical": "hierarchical", "local": "local_accum"}
+    if reduction in routed:
         if name in _VOTE_ONLY_SCHEDULES or name == Schedule.PSUM.value:
-            return "hierarchical"
+            return routed[reduction]
         return name
     votes = reduction == "vote"
     if not votes and name in _VOTE_ONLY_SCHEDULES:

@@ -61,6 +61,11 @@ class Telemetry:
     wall time (an all-reduce with ``max``) before a controller sees it.
     Ranks that latched different plans would run collectives that no
     longer match, and hang.
+
+    The elastic fields (:mod:`repro_torch.elastic`): each worker's step
+    time by worker id, the detector's flagged stragglers and the
+    membership epoch the step ran under; None and () on a run of fixed
+    membership, so other controllers never see them.
     """
     step: int
     loss: float
@@ -69,6 +74,9 @@ class Telemetry:
     step_time_s: float | None = None
     restart: bool = False
     plan_signature: str | None = None
+    worker_step_times: Mapping[int, float] | None = None
+    stragglers: tuple = ()
+    membership_epoch: int | None = None
 
     @staticmethod
     def from_metrics(step: int, metrics: Mapping[str, Any], *,

@@ -305,9 +305,34 @@ class Fabric:
         self.bucket_bytes = int(bucket_bytes)
         self.fused = bool(fused)
         self.fused_kernels = bool(fused_kernels)
+        self.membership_epoch = 0        # bumped by bind_membership
         self.controller = None           # the attached admission controller
         self._steps: dict[tuple, Callable] = {}
         self._layouts: dict[tuple, BucketLayout] = {}
+
+    # -- elastic membership ---------------------------------------------
+
+    def bind_membership(self, view) -> None:
+        """Bind the session to an epoch-numbered worker view (anything
+        with ``num_workers`` and ``epoch``, such as
+        :class:`repro_torch.elastic.WorkerView`).
+
+        A session of virtual workers rebuilds its one-axis group at the
+        view's W; the epoch goes into :meth:`step_for`'s key, so a step
+        built for an earlier view is never served after a re-plan, even
+        at the same W.  A process group or mesh fixes W when it is made:
+        binding another W raises, as on the reference's mesh session.
+        """
+        w, epoch = int(view.num_workers), int(view.epoch)
+        if w != self.group.size:
+            if type(self.group) is not VirtualGroup \
+                    or len(self.group.shape) > 1:
+                raise ValueError(
+                    f"cannot bind a {w}-worker view: {self.group!r} fixes "
+                    f"the data-parallel extent at {self.group.size}")
+            self.group = VirtualGroup(w)
+        self.num_workers = w
+        self.membership_epoch = epoch
 
     # -- admission controller -------------------------------------------
 
@@ -605,14 +630,14 @@ class Fabric:
         (the controller's mode latch), keyed as the reference keys its
         compiled steps, also on the optimizer and the loss, the session's
         ``fused`` and ``fused_kernels`` switches, the kernel signatures of
-        the plan's codecs, the worker count, the partition specs and the
-        ZeRO-1 partition."""
+        the plan's codecs, the worker count and membership epoch, the
+        partition specs and the ZeRO-1 partition."""
         kern_sig = tuple(sorted(
             (codec_name(m), _codec_kernel_sig(m)) for m in plan_modes(plan)))
         specs = None if pspecs is None else tuple(T.flatten(pspecs))
         key = (plan.signature(), with_diagnostics, grad_accum, optimizer,
                loss, self.fused, self.fused_kernels, kern_sig,
-               self.num_workers, specs, zero)
+               self.num_workers, self.membership_epoch, specs, zero)
         if key not in self._steps:
             self._steps[key] = self.build_step(
                 optimizer, plan, params_like, loss,

@@ -1,6 +1,6 @@
 """State-space and recurrent blocks: xLSTM (mLSTM + sLSTM) and the
-Mamba-style heads of Hymba (port of ``repro/models/ssm.py``, the
-training half).
+Mamba-style heads of Hymba (port of ``repro/models/ssm.py``): the
+full-sequence blocks and their one-token decode steps.
 
   * ``xlstm-125m`` alternates mLSTM blocks (matrix memory, exponential
     gating) with an sLSTM block (scalar memory, recurrent gating) every
@@ -17,6 +17,10 @@ step (:func:`chunked_scan`).  The reference's float32 leaves and
 products stay float32 in a bfloat16 model: ``w_if``, ``if_bias``, ``r``,
 ``bias``, ``w_dt``, ``dt_bias``, ``w_bc``, ``a_log`` and ``skip_scale``,
 and the gate products ``xu @ w_if``, ``x @ w_dt`` and ``x @ w_bc``.
+
+The decode steps (``mlstm_decode``, ``slstm_decode``, ``mamba_decode``)
+run one token through the same cells and return the new state in place
+of the old, as the reference's do; a state is float32 in any model.
 """
 from __future__ import annotations
 
@@ -162,6 +166,18 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (o * hs) @ p["w_down"]
 
 
+def mlstm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+    """One-token mLSTM step; x: (B, 1, d) -> ((B, 1, d), new state)."""
+    b = x.shape[0]
+    di = p["w_up"].shape[1]
+    q, k, v, it, ft, o = _mlstm_preact(p, x, cfg)
+    f32 = torch.float32
+    new_state, h_t = _mlstm_cell(state, (q[:, 0].to(f32), k[:, 0].to(f32),
+                                         v[:, 0].to(f32), it[:, 0], ft[:, 0]))
+    h_t = h_t.reshape(b, 1, di).to(x.dtype)
+    return (o * h_t) @ p["w_down"], new_state
+
+
 # ---------------------------------------------------------------------------
 # sLSTM (scalar-memory LSTM with recurrent gating) block
 # ---------------------------------------------------------------------------
@@ -224,6 +240,13 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return hs.transpose(0, 1).to(x.dtype) @ p["w_down"]
 
 
+def slstm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+    """One-token sLSTM step; x: (B, 1, d) -> ((B, 1, d), new state)."""
+    x_in = (x[:, 0] @ p["w_in"]).to(torch.float32)
+    new_state, h_t = _slstm_cell(p, cfg, state, x_in)
+    return h_t[:, None].to(x.dtype) @ p["w_down"], new_state
+
+
 # ---------------------------------------------------------------------------
 # Mamba-style selective-SSM head (Hymba's parallel heads)
 # ---------------------------------------------------------------------------
@@ -242,6 +265,12 @@ def init_mamba_head(cfg: ModelConfig, gen, device, lead: tuple = ()) -> dict:
         "skip_scale": torch.ones((*lead, d), dtype=f32, device=device),
         "w_out": _normal((*lead, d, d), std, gen, device, dt),
     }
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, device) -> torch.Tensor:
+    """The head's decode state: (B, d, n) float32 zeros."""
+    return torch.zeros((batch, cfg.d_model, cfg.ssm.state_size),
+                       dtype=torch.float32, device=device)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -270,11 +299,20 @@ def _mamba_step(h, inp):
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    b, s, d = x.shape
+    b, s, _ = x.shape
     u, da, db, c_out = _mamba_scan_inputs(p, x, cfg)
     xs = tuple(t.transpose(0, 1) for t in (u, da, db, c_out))
-    h0 = torch.zeros((b, d, cfg.ssm.state_size), dtype=torch.float32,
-                     device=x.device)
-    _, ys = chunked_scan(_mamba_step, h0, xs, s)
+    _, ys = chunked_scan(_mamba_step, mamba_init_state(cfg, b, x.device), xs,
+                         s)
     y = ys.transpose(0, 1) + p["skip_scale"] * u                  # (B,S,d)
     return y.to(x.dtype) @ p["w_out"]
+
+
+def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: torch.Tensor):
+    """One-token head step; x: (B, 1, d), state (B, d, n) -> ((B, 1, d),
+    new state)."""
+    u, da, db, c_out = _mamba_scan_inputs(p, x, cfg)
+    h, y = _mamba_step(state, (u[:, 0], da[:, 0], db[:, 0], c_out[:, 0]))
+    y = y + p["skip_scale"] * u[:, 0]
+    return y[:, None].to(x.dtype) @ p["w_out"], h

@@ -20,7 +20,7 @@ chunked_scan`).
 
     init_params(cfg, generator=..., device=...) -> params tree
     forward(params, cfg, batch[, tp])           -> logits
-    init_cache(cfg, batch, max_seq, ...)        -> KV cache (dense, MoE, VLM)
+    init_cache(cfg, batch, max_seq[, enc_out])  -> decode cache
     decode_step(params, cfg, token, cache, pos) -> (logits, cache)
     loss_fn(params, cfg, batch[, tp])           -> scalar CE loss
     Transformer(cfg, device=..., seed=...)      -> nn.Module over the tree
@@ -508,45 +508,94 @@ def count_params(params: Any) -> int:
 # the decode path (serving)
 # ---------------------------------------------------------------------------
 
-#: the families whose decode is ported: a sequence-indexed KV cache
-DECODE_FAMILIES = ("dense", "moe", "vlm")
-
-
-def _check_decode(cfg: ModelConfig) -> None:
-    if cfg.family not in DECODE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port decodes the attention "
-            f"families ({', '.join(DECODE_FAMILIES)}); the recurrent "
-            f"(mLSTM, sLSTM, Mamba) and cross-attention decode come with "
-            f"the next slice (ROADMAP queue 1 item 5)")
-
-
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               enc_out: torch.Tensor | None = None, *,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """Decode cache sized for ``max_seq`` past tokens: ``{"k", "v"}`` of
-    shape (L, B, max_seq, KV, hd), zeros, as the reference's."""
-    _check_decode(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    """Decode cache sized for ``max_seq`` past tokens, the reference's
+    tree of zeros: an xLSTM's states, one a block (``{"blocks":
+    [{"mlstm" | "slstm": state}, ...]}``, float32); else ``{"k", "v"}``
+    of shape (L, B, max_seq, KV, hd) in ``dtype``, with the Mamba heads'
+    ``"ssm"`` (L, B, d, n) float32 in a hybrid, and ``"cross_k"``,
+    ``"cross_v"`` (L, B, T_enc, KV, hd) in an encoder-decoder, T_enc
+    ``enc_out``'s length or else ``cfg.encoder_seq``.  As in the
+    reference, ``enc_out`` gives only that length: nothing writes the
+    encoder's K and V into the cross cache (ROADMAP queue 3)."""
     device = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"blocks": [
+            {"slstm": S.slstm_init_state(cfg, batch, device)}
+            if _is_slstm_block(cfg, i) else
+            {"mlstm": S.mlstm_init_state(cfg, batch, device)}
+            for i in range(n)]}
+    z = dict(dtype=dtype, device=device)
+    kv = (n, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    cache = {"k": torch.zeros(kv, **z), "v": torch.zeros(kv, **z)}
+    if cfg.family == "encdec":
+        t_enc = enc_out.shape[1] if enc_out is not None else cfg.encoder_seq
+        xkv = (n, batch, t_enc, cfg.num_kv_heads, cfg.hd)
+        cache["cross_k"] = torch.zeros(xkv, **z)
+        cache["cross_v"] = torch.zeros(xkv, **z)
+    elif cfg.hybrid_parallel:
+        cache["ssm"] = torch.zeros((n, batch, cfg.d_model,
+                                    cfg.ssm.state_size),
+                                   dtype=torch.float32, device=device)
+    return cache
 
 
 def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                  position, is_global: bool,
-                  ctx: dict | None = None) -> torch.Tensor:
+                  position, is_global: bool, ctx: dict | None = None):
     """One layer's decode; writes the token's K and V into ``cache``'s
     (B, S_max, K, hd) views of this layer.  ``ctx`` is the step's
-    :func:`~repro_torch.models.layers.decode_context`."""
+    :func:`~repro_torch.models.layers.decode_context`.  Returns ``(x,
+    state)``: a hybrid's new Mamba-head state (its output averaged with
+    the attention's), else None."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
-                          position, is_global=is_global, ctx=ctx)
+    a = L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"], position,
+                      is_global=is_global, ctx=ctx)
+    state = None
+    if cfg.hybrid_parallel:
+        m, state = S.mamba_decode(p["ssm_head"], h, cfg, cache["ssm"])
+        a = 0.5 * (a + m)
+    x = x + a
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        return x + L.moe_forward(p["moe"], h, cfg)
+        return x + L.moe_forward(p["moe"], h, cfg), state
     if "mlp" in p:
-        return x + L.mlp_forward(p["mlp"], h, cfg)
-    return x
+        return x + L.mlp_forward(p["mlp"], h, cfg), state
+    return x, state
+
+
+def _decoder_xlayer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           cache: dict, position,
+                           ctx: dict | None = None) -> torch.Tensor:
+    """One cross-attending layer's decode: causal self-attention writing
+    the token's K and V into this layer's views of ``cache["k"]`` and
+    ``cache["v"]``, cross-attention over ``cache["cross_k"]`` and
+    ``cache["cross_v"]``, then the MLP."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
+                          position, ctx=ctx)
+    h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    x = x + L.cross_attn_forward(p["cross"], h, cfg, cache["cross_k"],
+                                 cache["cross_v"])
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_forward(p["mlp"], h, cfg)
+
+
+def _ssm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+    """The xLSTM stack's decode: each block's new state replaces its old
+    one in a new cache tree."""
+    blocks = []
+    for blk, cb in zip(params["blocks"], cache["blocks"]):
+        h = L.rmsnorm(blk["norm1"], x, cfg.norm_eps)
+        kind = "slstm" if "slstm" in blk else "mlstm"
+        decode = S.slstm_decode if kind == "slstm" else S.mlstm_decode
+        y, state = decode(blk[kind], h, cfg, cb[kind])
+        blocks.append({kind: state})
+        x = x + y
+    return _logits(params, cfg, x)[:, 0], {"blocks": blocks}
 
 
 @torch.inference_mode()
@@ -554,22 +603,38 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, position) -> tuple[torch.Tensor, dict]:
     """One-token decode: token (B, 1) integers; ``position`` a Python int
     or a (B,) integer tensor (continuous batching, a depth a row; see
-    :func:`~repro_torch.models.layers.attn_decode`).  Writes the token's
-    K and V into ``cache`` in place and returns ``(logits (B, V),
-    cache)``.  The MoE family's dense prefix layers decode unrolled on
-    the leading slices of the stacked cache, as the reference's do."""
-    _check_decode(cfg)
+    :func:`~repro_torch.models.layers.attn_decode`).  Returns ``(logits
+    (B, V), cache)``: the token's K and V are written into ``cache`` in
+    place, and the recurrent states (an xLSTM's blocks, a hybrid's
+    ``"ssm"``) come back as new tensors in a new tree, as the
+    reference returns them.  An xLSTM reads no position.  The MoE
+    family's dense prefix layers decode unrolled on the leading slices
+    of the stacked cache, as the reference's do."""
     x = params["embed"]["tok"][token]
+    if cfg.family == "ssm":
+        return _ssm_decode(params, cfg, x, cache)
     # the positions, RoPE tables and masks, once for every layer
     ctx = L.decode_context(cfg, position, x.shape[0], cache["k"].shape[2],
                            x.device)
+    if cfg.family == "encdec":
+        for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+            x = _decoder_xlayer_decode(lp, x, cfg, {
+                key: cache[key][i]
+                for key in ("k", "v", "cross_k", "cross_v")}, position, ctx)
+        return _logits(params, cfg, x)[:, 0], cache
     flags = global_attention_flags(cfg).tolist()
     layers = list(params.get("prefix", [])) + _unstack(
         params["layers"], cfg.num_layers - _n_prefix(cfg))
+    states = []
     for i, (lp, is_global) in enumerate(zip(layers, flags)):
-        x = _layer_decode(lp, x, cfg, {"k": cache["k"][i],
-                                       "v": cache["v"][i]},
-                          position, bool(is_global), ctx)
+        sub = {"k": cache["k"][i], "v": cache["v"][i]}
+        if cfg.hybrid_parallel:
+            sub["ssm"] = cache["ssm"][i]
+        x, state = _layer_decode(lp, x, cfg, sub, position, bool(is_global),
+                                 ctx)
+        states.append(state)
+    if cfg.hybrid_parallel:
+        cache = dict(cache, ssm=torch.stack(states))
     return _logits(params, cfg, x)[:, 0], cache
 
 

@@ -8,11 +8,19 @@ GSPMD layouts (:func:`serve_shardings`, :func:`build_prefill`, a
 here (ROADMAP queue 1 item 7).
 
 ``donate=True`` mirrors the reference's donated cache: the step writes
-into the cache it is given.  ``donate=False`` writes into a copy and
-leaves the caller's cache as it was.
+into the cache it is given (the KV tensors in place; the recurrent
+states come back as new tensors, see
+:func:`~repro_torch.models.decode_step`).  ``donate=False`` works on a
+copy of the whole tree and leaves the caller's cache as it was.  Every
+family decodes here, the recurrent and encoder-decoder ones too; the
+paged engine (:mod:`repro_torch.serve`) takes only the attention
+families, as the reference's does.
 """
 from __future__ import annotations
 
+import torch
+
+from ..core import tree as T
 from ..models import ModelConfig, decode_step
 
 __all__ = ["build_cached_prefill", "build_prefill", "build_serve_step",
@@ -29,7 +37,9 @@ def _no_mesh(what: str, mesh) -> None:
 
 
 def _own(cache: dict, donate: bool) -> dict:
-    return cache if donate else {k: v.clone() for k, v in cache.items()}
+    """The cache itself, or a copy of the whole tree (an xLSTM's is a
+    list of per-block state dicts)."""
+    return cache if donate else T.map_leaves(torch.Tensor.clone, cache)
 
 
 def serve_shardings(cfg: ModelConfig, mesh, *, batch: int, max_seq: int,

@@ -68,9 +68,13 @@ def _log(controller):
 
 def test_builtin_controllers_registered():
     builtins = {"paper", "adaptive", "static", "fp32"}
-    # importing the tune package registers "tuned", as in the reference
+    # importing the tune package registers "tuned", and the elastic
+    # package "straggler_aware" and "local_sgd", as in the reference (a
+    # test process may have imported either before this test)
+    import repro_torch.elastic  # noqa: F401
     import repro_torch.tune  # noqa: F401
-    assert set(available_controllers()) == builtins | {"tuned"}
+    assert set(available_controllers()) == builtins | {
+        "tuned", "straggler_aware", "local_sgd"}
     assert builtins <= set(J.available_controllers())
     assert get_controller("adaptive") is get_controller("paper")
     assert isinstance(make_controller("paper", warmup_steps=3),

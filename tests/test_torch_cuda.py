@@ -820,6 +820,43 @@ def test_full_width_recurrent_block_on_the_card_matches_cpu(cuda, block):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("block", ["mlstm", "slstm", "mamba"])
+def test_full_width_recurrent_decode_on_the_card_matches_cpu(cuda, block):
+    """Three chained one-token decode steps of one block at full width
+    (xlstm-125m's mLSTM and sLSTM, hymba-1.5b's Mamba head), float32,
+    batch 4, from the zero state: each output and new state on the card
+    against the port on the CPU, to 1e-5 of the largest value (float32
+    sums in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+    arch = "hymba_1p5b" if block == "mamba" else "xlstm_125m"
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    init = {"mlstm": S.init_mlstm, "slstm": S.init_slstm,
+            "mamba": S.init_mamba_head}[block]
+    state0 = {"mlstm": S.mlstm_init_state, "slstm": S.slstm_init_state,
+              "mamba": S.mamba_init_state}[block]
+    dec = {"mlstm": S.mlstm_decode, "slstm": S.slstm_decode,
+           "mamba": S.mamba_decode}[block]
+    params = init(cfg, gen, torch.device("cpu"))
+    xs = torch.randn(3, 4, 1, cfg.d_model, generator=gen)
+
+    def run(device):
+        p = T.map_leaves(lambda a: a.to(device), params)
+        st, out = state0(cfg, 4, torch.device(device)), []
+        for x in xs:
+            y, st = dec(p, x.to(device), cfg, st)
+            out += [y, *T.leaves(st)]
+        return [t.cpu() for t in out]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+
+
 def _smoke_bf16():
     import dataclasses
 

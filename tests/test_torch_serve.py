@@ -223,11 +223,19 @@ def test_bf16_model_over_a_float32_cache(arch):
 def test_recurrent_and_cross_attention_decode_raise(family):
     arch = {"ssm": "xlstm_125m", "hybrid": "hymba_1p5b",
             "encdec": "whisper_tiny"}[family]
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        decode_step({}, cfg, torch.zeros((1, 1), dtype=torch.int64), {}, 0)
+    """The recurrent and cross-attention families decode (held to the
+    reference in ``tests/test_torch_decode_recurrent.py``), but the paged
+    engine raises on them, as the reference's does: their states are not
+    token-paged."""
+    cfg, jcfg, host, params = _pair(arch)
+    cache = init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
+    logits, _ = decode_step(params, cfg, torch.zeros((1, 1),
+                                                     dtype=torch.int64),
+                            cache, 0)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="not token-paged"):
+        _engine(cfg, params, max_batch=1, max_seq=8, num_blocks=4,
+                block_size=4)
 
 
 def test_mesh_layouts_raise():
