@@ -271,8 +271,41 @@ Phases (any failure exits non-zero before the result line):
                     (``tests/test_torch_elastic.py``), each low-bit step
                     launching what ``layout_kernel_stats`` models, the EF
                     rows finite;
- 14. print the kernels line (launches summed over the runs, run Q's from
-     rank 0), the card, then ``{"ok": true, "device": {...}}`` last.
+ 15. serving on a process mesh:
+       W. serve-mesh  full qwen3-0.6B (bf16, the default bf16 cache) on a
+                    (data 2) x (model 2) process mesh: four gloo ranks
+                    spawned on cuda:0 (``chip_smoke.py --run-w-rank r
+                    dir``), each holding its blocks of the parameters
+                    (heads, MLP columns and vocabulary over the model
+                    ranks) and of the cache; the batched layout (batch 4,
+                    2 rows a data rank, the 256 cache positions 128 a
+                    model rank) and the shard_seq layout (batch 1, 64
+                    positions a rank), each a 64-token prompt through the
+                    mesh's ``build_cached_prefill`` and 32 greedy tokens
+                    through its ``build_serve_step``; the ranks' logits and
+                    tokens equal; then, in this process, the one-device
+                    step teacher-forced on the same tokens: the logits
+                    within 2^-4 of the largest, a float32 pass (8 prompt
+                    tokens, 8 greedy) within 1e-4 and its greedy tokens
+                    equal, the bf16 greedy tokens equal wherever the
+                    one-device top-2 margin exceeds twice the bf16
+                    distance (bf16 logits tie); decode-step ms,
+                    one step's launch calls and collectives by op, prefill
+                    seconds and peak memory a rank;
+ 16. the reference's examples:
+       X. examples  quickstart (2 steps), train_lm (the bf16 100m preset,
+                    2 steps) and serve_lm (8 tokens) under ``torchrun
+                    --nproc-per-node 8`` (``chip_smoke.py --run-x-rank``),
+                    every rank on cuda:0 over gloo, the three at once;
+                    serving, autotune_plan, elastic_training,
+                    layer_aware_admission (60 and 110 steps) and
+                    guarded_recovery in this process; each with its own
+                    assertions, the training examples' rank 0 launching
+                    sign_pack, vote_combine and unpack_ternary (bf16 for
+                    the bf16 preset); each one's seconds;
+ 17. print the kernels line (launches summed over the runs, runs Q's and
+     X's mesh examples' from rank 0), the card, then ``{"ok": true,
+     "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -2257,6 +2290,39 @@ def k_trainer(group, device):
                    seed=0, device=device)
 
 
+def spawn_ranks(flag: str, world: int, timeout: int = 900,
+                extra=None) -> tuple:
+    """``chip_smoke.py <flag> r dir`` for r < world: each rank's
+    ``rank{r}.pt``, ``extra(dir)`` (what else the ranks wrote) and the
+    spawn's seconds."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   flag, str(r), out])
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=timeout)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"{flag}: rank exit codes {[p.returncode for p in procs]}")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                 for r in range(world)]
+        return ranks, extra(out) if extra else None, spawn_s
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def run_k_rank(rank: int, out: str) -> None:
     """One rank of run K: gloo over CUDA tensors on cuda:0."""
     from datetime import timedelta
@@ -2296,33 +2362,10 @@ def run_gloo_on_card() -> dict:
     all_gather_into_tensor), 2 steps of gbin_packed on the bf16 smoke
     model: every step's aggregates, the losses and the parameters equal
     to Fabric(num_workers=2)'s, zeros of either sign as zeros."""
-    import shutil
-    import tempfile
-
     from repro_torch.core import tree as T
     from repro_torch.kernels import kernel_wrappers
 
-    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
-    try:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--run-k-rank", str(r), out])
-                 for r in range(2)]
-        try:
-            for p in procs:
-                p.wait(timeout=300)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(p.returncode for p in procs):
-            fail(f"K: rank exit codes {[p.returncode for p in procs]}")
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
-                 for r in range(2)]
-        spawn_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    ranks, _, spawn_s = spawn_ranks("--run-k-rank", 2, timeout=300)
     trainer = k_trainer(None, "cuda")
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
@@ -2544,8 +2587,6 @@ def run_tp_on_card() -> dict:
     loss of data rank 0's ranks against the unsharded model on the same
     parameters and batch, in this process."""
     import dataclasses
-    import shutil
-    import tempfile
 
     from repro_torch.core import tree as T
     from repro_torch.models import Transformer, loss_fn
@@ -2553,29 +2594,10 @@ def run_tp_on_card() -> dict:
     from repro_torch.runtime.shardings import sanitize_pspecs, shard_of
 
     world = Q_MESH[0] * Q_MESH[1]
-    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
-    try:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--run-q-rank", str(r), out])
-                 for r in range(world)]
-        try:
-            for p in procs:
-                p.wait(timeout=900)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(p.returncode for p in procs):
-            fail(f"Q: rank exit codes {[p.returncode for p in procs]}")
-        spawn_s = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
-                 for r in range(world)]
-        grads = {r: torch.load(os.path.join(out, f"grads{r}.pt"))
-                 for r in range(Q_MESH[1])}
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    ranks, grads, spawn_s = spawn_ranks(
+        "--run-q-rank", world,
+        extra=lambda out: {r: torch.load(os.path.join(out, f"grads{r}.pt"))
+                           for r in range(Q_MESH[1])})
     r0 = ranks[0]
     for r, res in enumerate(ranks):
         if res["loss"] != r0["loss"]:
@@ -3783,6 +3805,404 @@ def run_straggler() -> dict:
     return {"launches": launches_of(records)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving on a (data, model) process mesh
+# ---------------------------------------------------------------------------
+
+W_MESH = (2, 2)             # (data, model)
+W_BATCH, W_MAX_SEQ, W_PROMPT, W_NEW = 4, 256, 64, 32
+W_F32_TOKENS = 8
+#: the bf16 mesh decode against the one-device decode, as a fraction of
+#: the largest |logit| (run U's bound: the row-parallel sums add two bf16
+#: halves where one product sums in float32, the combine sums the
+#: partial softmaxes in float32 where the one-device softmax rounds its
+#: probabilities to bf16, through 28 layers)
+W_TOL = 2.0 ** -4
+#: the same in float32 (a float32 copy of the weights, a float32 cache)
+W_TOL32 = 1e-4
+
+
+def w_prompt(cfg) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (W_BATCH, W_PROMPT)))
+
+
+def w_layout(mesh, cfg, params, batch: int, prompt) -> dict:
+    """One layout of run W on this rank: ``prompt`` (batch, W_PROMPT)
+    through the mesh's cached prefill, W_NEW greedy tokens through its
+    step, each timed; one step's collectives and launch calls."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.serve import build_cached_prefill, \
+        build_serve_step
+
+    step, sh = build_serve_step(cfg, mesh, batch=batch, max_seq=W_MAX_SEQ)
+    prefill = build_cached_prefill(cfg, mesh, batch=batch,
+                                   max_seq=W_MAX_SEQ)
+    # one untimed step on a scratch cache: the first calls' set-up
+    step(params, prompt[:, :1], init_cache(cfg, batch, W_MAX_SEQ,
+                                           device="cuda", mesh=mesh), 0)
+    cache = init_cache(cfg, batch, W_MAX_SEQ, device="cuda", mesh=mesh)
+    local_k = tuple(cache["k"].shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt, W_PROMPT, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    rows, toks, step_ms, calls = [logits], [], [], None
+    for i in range(W_NEW):
+        tok = rows[-1].argmax(-1)[:, None]
+        toks.append(tok)
+        if i == 1:
+            mesh.reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = step(params, tok, cache, W_PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            calls = {name: (dict(g.calls_by_op), dict(g.bytes_by_op))
+                     for name, g in (("data", mesh.data_group),
+                                     ("model", mesh.model_group),
+                                     ("world", mesh.world))}
+        rows.append(logits)
+    nxt = rows[-1].argmax(-1)[:, None]
+    launch = launch_calls(lambda: step(params, nxt, cache,
+                                       W_PROMPT + W_NEW))
+    return {"shard_seq": sh["shard_seq"], "local_k": local_k,
+            "prefill_s": prefill_s, "step_ms": step_ms, "calls": calls,
+            "launch_calls": launch,
+            "tokens": torch.cat(toks, dim=1).cpu(),
+            "logits": torch.stack(rows).to(torch.float32).cpu(),
+            "finite": all(bool(torch.isfinite(r).all()) for r in rows)}
+
+
+def w_f32(mesh, cfg, params, batch: int, prompt) -> dict:
+    """The float32 pass: W_F32_TOKENS prompt tokens teacher-forced, then
+    W_F32_TOKENS greedy ones, through the mesh's step on a float32 copy
+    of the weights and a float32 cache."""
+    import dataclasses
+
+    from repro_torch.core import tree as T
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.serve import build_serve_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = T.map_leaves(lambda t: t.to(torch.float32), params)
+    step, _ = build_serve_step(cfg32, mesh, batch=batch, max_seq=W_MAX_SEQ)
+    cache = init_cache(cfg32, batch, W_MAX_SEQ, dtype=torch.float32,
+                       device="cuda", mesh=mesh)
+    rows, toks = [], []
+    for t in range(2 * W_F32_TOKENS):
+        if t < W_F32_TOKENS:
+            tok = prompt[:, t:t + 1]
+        else:
+            tok = rows[-1].argmax(-1)[:, None].to(prompt.device)
+            toks.append(tok.cpu())
+        logits, cache = step(p32, tok, cache, t)
+        rows.append(logits.cpu())
+    return {"logits": torch.stack(rows), "tokens": torch.cat(toks, dim=1)}
+
+
+def run_w_rank(rank: int, out: str) -> None:
+    """One rank of run W: full qwen3-0.6B on a (data 2) x (model 2) mesh,
+    four gloo ranks on cuda:0, the batched and the shard_seq layout."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProcessMesh
+    from repro_torch.core import tree as T
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import shard_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=W_MESH[0] * W_MESH[1],
+                            timeout=timedelta(seconds=120))
+    mesh = ProcessMesh(W_MESH, device="cuda:0")
+    cfg = get_config("qwen3_0p6b")
+    whole = init_params(cfg, generator=torch.Generator(device="cuda")
+                        .manual_seed(0), device="cuda")
+    params = T.map_leaves(torch.Tensor.clone, shard_params(
+        whole, cfg, mesh.extents, mesh.coords))
+    del whole
+    free()
+    prompt = w_prompt(cfg).cuda()
+    res = {"coords": mesh.coords,
+           "params_local": sum(p.numel() for p in T.leaves(params))}
+    for name, batch in (("batched", W_BATCH), ("seq", 1)):
+        res[name] = w_layout(mesh, cfg, params, batch, prompt[:batch])
+        res[name + "/f32"] = w_f32(mesh, cfg, params, batch,
+                                   prompt[:batch])
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rank:                    # the logits are replicated: keep rank 0's
+        for name in ("batched", "seq"):
+            res[name]["logits_sum"] = float(res[name].pop("logits").sum())
+            res.pop(name + "/f32")
+    else:
+        for name in ("batched", "seq"):
+            res[name]["logits_sum"] = float(res[name]["logits"].sum())
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_serve_mesh() -> dict:
+    """Run W: full qwen3-0.6B served on a (data 2) x (model 2) process
+    mesh, four gloo ranks on cuda:0: the batched layout (batch 4, the
+    cache's 256 positions 128 a model rank) and the shard_seq layout
+    (batch 1, 64 positions a rank), each a 64-token prompt through the
+    mesh's cached prefill and 32 greedy tokens, and a float32 pass (8
+    prompt tokens, 8 greedy ones); then, in this process, the one-device
+    step teacher-forced on the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.runtime.serve import build_serve_step
+
+    world = W_MESH[0] * W_MESH[1]
+    ranks, _, spawn_s = spawn_ranks("--run-w-rank", world)
+    cfg = get_config("qwen3_0p6b")
+    params = init_params(cfg, generator=torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    prompt = w_prompt(cfg).cuda()
+    r0 = ranks[0]
+    card = card_line()
+    bad = []
+    for name, batch in (("batched", W_BATCH), ("seq", 1)):
+        got = r0[name]
+        if not all(r[name]["finite"] for r in ranks):
+            fail(f"W {name}: non-finite logits")
+        sums = {r[name]["logits_sum"] for r in ranks}
+        if len(sums) != 1 or any(not torch.equal(r[name]["tokens"],
+                                                 got["tokens"])
+                                 for r in ranks):
+            fail(f"W {name}: the ranks' logits or tokens differ ({sums})")
+        want_shard = name == "seq"
+        if got["shard_seq"] != want_shard:
+            fail(f"W {name}: shard_seq {got['shard_seq']}")
+        # the one-device step, teacher-forced on the mesh's tokens
+        tokens = torch.cat([prompt[:batch], got["tokens"].cuda()], dim=1)
+        step, _ = build_serve_step(cfg, batch=batch, max_seq=W_MAX_SEQ)
+        cache = init_cache(cfg, batch, W_MAX_SEQ, device="cuda")
+        rows = []
+        for t in range(W_PROMPT + W_NEW):
+            lg, cache = step(params, tokens[:, t:t + 1], cache, t)
+            if t >= W_PROMPT - 1:
+                rows.append(lg.to(torch.float32))
+        one = torch.stack(rows).cpu()
+        mesh_lg = got["logits"]
+        err = float((mesh_lg - one).abs().max())
+        big = float(one.abs().max())
+        greedy = one[:-1].argmax(-1).T                 # (batch, W_NEW)
+        same_tok = torch.equal(greedy, got["tokens"])
+        top2 = one[:-1].topk(2, dim=-1).values
+        margin = float((top2[..., 0] - top2[..., 1]).min())
+        # the greedy tokens: equal wherever the one-device top-2 margin
+        # exceeds twice the bf16 distance (bf16 logits tie, or nearly:
+        # where they do, another order of sums may pick the other)
+        decided = (top2[..., 0] - top2[..., 1]).T > 2 * err
+        same_tok = torch.equal(greedy[decided], got["tokens"][decided])
+        # float32: the teacher-forced prompt and the mesh's greedy tokens
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = T.map_leaves(lambda t: t.to(torch.float32), params)
+        step32, _ = build_serve_step(cfg32, batch=batch, max_seq=W_MAX_SEQ)
+        c32 = init_cache(cfg32, batch, W_MAX_SEQ, dtype=torch.float32,
+                         device="cuda")
+        f32 = r0[name + "/f32"]
+        toks32 = torch.cat([prompt[:batch, :W_F32_TOKENS].cpu(),
+                            f32["tokens"]], dim=1).cuda()
+        rows32 = []
+        for t in range(2 * W_F32_TOKENS):
+            lg, c32 = step32(p32, toks32[:, t:t + 1], c32, t)
+            rows32.append(lg.cpu())
+        del p32, c32
+        one32 = torch.stack(rows32)
+        err32 = float((f32["logits"] - one32).abs().max())
+        big32 = float(one32.abs().max())
+        greedy32 = one32[W_F32_TOKENS - 1:-1].argmax(-1).T
+        same32 = torch.equal(greedy32, f32["tokens"])
+        ok = (err <= W_TOL * big and err32 <= W_TOL32 * big32 and same_tok
+              and same32)
+        if not ok:
+            where = ((greedy != got["tokens"]) & decided).nonzero().tolist()
+            bad.append(f"{name}: bf16 {err} of {big}, float32 {err32} of "
+                       f"{big32}, bf16 greedy mismatches where decided at "
+                       f"{where[:8]}, float32 greedy equal {same32}")
+        ms = got["step_ms"]
+        print(f"[W serve-mesh {name}] {card}: {world} gloo ranks on cuda:0 "
+              f"as (data, model) = {W_MESH}, {cfg.name} ({cfg.num_layers} "
+              f"layers, {r0['params_local']} parameters a rank), batch "
+              f"{batch}, a local cache block {got['local_k']}; "
+              f"{W_PROMPT}-token prompts, {W_NEW} greedy tokens; decode "
+              f"step ms median {float(np.median(ms)):.3f} (range "
+              f"{min(ms):.3f}-{max(ms):.3f}); prefill {got['prefill_s']:.3f}"
+              f" s a prompt; {got['launch_calls']} kernel launch calls in "
+              f"one decode step on rank 0; peak memory a rank (GiB) "
+              f"{[round(r['peak_gib'], 2) for r in ranks]}", flush=True)
+        print(f"[W serve-mesh {name}] {card}: one decode step's collectives "
+              f"on rank 0, (calls, bytes) by op and group: {got['calls']}",
+              flush=True)
+        print(f"[W serve-mesh {name}] against the one-device step "
+              f"teacher-forced on the same {W_PROMPT + W_NEW} tokens: bf16 "
+              f"within {err!r} (largest logit {big!r}; {err / big:.3e} of "
+              f"it, bound {W_TOL}), float32 ({2 * W_F32_TOKENS} tokens) within "
+              f"{err32!r} ({err32 / big32:.3e} of {big32!r}, bound "
+              f"{W_TOL32}); the {W_F32_TOKENS} float32 greedy tokens equal: "
+              f"{same32}; the bf16 greedy tokens equal at the "
+              f"{int(decided.sum())} of {decided.numel()} positions whose "
+              f"one-device top-2 margin exceeds twice that distance: "
+              f"{same_tok}, at all: {torch.equal(greedy, got['tokens'])} "
+              f"(smallest top-2 margin {margin!r})", flush=True)
+    print(f"[W serve-mesh] spawn {spawn_s:.2f} s", flush=True)
+    if bad:
+        fail(f"W: {bad}")
+    return {"launches": {}}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the reference's examples
+# ---------------------------------------------------------------------------
+
+#: the mesh examples under torchrun (8 ranks on cuda:0 over gloo), their
+#: arguments, and the kernels each must launch a step
+X_MESH = {"quickstart": ["--steps", "2"],
+          "train_lm": ["--preset", "100m", "--steps", "2"],
+          "serve_lm": ["--tokens", "8"]}
+#: the others, in this process, their arguments and keyword sizes
+X_LOCAL = {"serving": ([], {}), "autotune_plan": ([], {}),
+           "elastic_training": ([], {}),
+           "layer_aware_admission": (["--fast"], {"fast_steps": (60, 110)}),
+           "guarded_recovery": ([], {})}
+
+
+def run_x_rank(name: str, out: str, argv: list) -> None:
+    """One torchrun rank of a mesh example: run it, then write this
+    rank's kernel launches by wrapper (unpack_ternary by dtype)."""
+    import importlib
+
+    from repro_torch.kernels import kernel_wrappers
+
+    importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+    wrappers = kernel_wrappers()
+    split = wrappers["unpack_ternary"].launches_by_dtype
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    counts["unpack_ternary"] = split[torch.float32]
+    counts["unpack_ternary_bf16"] = split[torch.bfloat16]
+    with open(os.path.join(out, f"{name}.rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump(counts, f)
+
+
+def run_examples() -> dict:
+    """Run X: the eight examples on the card: quickstart and train_lm
+    (the bf16 100m preset) at 2 steps and serve_lm at 8 tokens under
+    ``torchrun --nproc-per-node 8``, every rank on cuda:0 over gloo, the
+    three at once; serving, autotune_plan, elastic_training,
+    layer_aware_admission (``--fast`` at 60 and 110 steps, past its
+    50-step FP32 warm-up) and guarded_recovery in this process, the
+    others whole.  Each runs its own assertions; the training
+    examples' rank 0 must launch sign_pack, vote_combine and
+    unpack_ternary (bf16 decodes for the bf16 preset)."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.kernels import kernel_wrappers
+
+    card = card_line()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    launches = {}
+    try:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   PYTHONWARNINGS="ignore")
+        procs, logs, ended = {}, {}, {}
+        t0 = time.perf_counter()
+
+        def wait(name):
+            procs[name].wait()
+            ended[name] = time.perf_counter() - t0
+
+        for name, args in X_MESH.items():
+            logs[name] = open(os.path.join(out, f"{name}.log"), "w")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "8",
+                 os.path.abspath(__file__), "--run-x-rank", name, out,
+                 "--device", "cuda:0", *args],
+                env=env, stdout=logs[name], stderr=subprocess.STDOUT)
+            threading.Thread(target=wait, args=(name,), daemon=True).start()
+        # the one-process examples meanwhile
+        wrappers = kernel_wrappers()
+        for name, (args, kw) in X_LOCAL.items():
+            before = {n: fn.launches for n, fn in wrappers.items()}
+            by_dtype = dict(wrappers["unpack_ternary"].launches_by_dtype)
+            if name == "autotune_plan":
+                args = args + ["--out", os.path.join(out, "tuned.json")]
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                importlib.import_module(
+                    f"repro_torch.examples.{name}").main(
+                        ["--device", "cuda", *args], **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - s0
+            delta = _launch_deltas(wrappers, before, by_dtype)
+            for k, v in delta.items():
+                launches[k] = launches.get(k, 0) + v
+            tail = buf.getvalue().strip().splitlines()[-2:]
+            print(f"[X examples] {name} {card}: {dt:.2f} s in this process, "
+                  f"launches {({k: v for k, v in delta.items() if v})}; "
+                  f"its last lines {tail}", flush=True)
+            free()
+        for name, p in procs.items():
+            try:
+                p.wait(timeout=600)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                logs[name].close()
+        wall = time.perf_counter() - t0
+        for name in X_MESH:
+            with open(os.path.join(out, f"{name}.log")) as f:
+                text = f.read()
+            if procs[name].returncode:
+                print(text[-6000:], flush=True)
+                fail(f"X {name}: torchrun exit {procs[name].returncode}")
+            ranks = []
+            for r in range(8):
+                with open(os.path.join(out, f"{name}.rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            lines = [ln for ln in text.splitlines()
+                     if ln.strip() and not ln.startswith(("[W", "W1", "/"))
+                     and "Warning" not in ln and "warn" not in ln]
+            r0 = {k: v for k, v in ranks[0].items() if v}
+            if name != "serve_lm":
+                want = {"sign_pack", "vote_combine",
+                        "unpack_ternary_bf16" if name == "train_lm"
+                        else "unpack_ternary"}
+                if not want <= set(r0):
+                    fail(f"X {name}: rank 0 launched {r0}, not {want}")
+            for k, v in ranks[0].items():
+                launches[k] = launches.get(k, 0) + v
+            print(f"[X examples] {name} {card}: torchrun, 8 ranks on cuda:0 "
+                  f"over gloo, {X_MESH[name]}, {ended[name]:.2f} s from the "
+                  f"start of X; rank 0's launches {r0}; "
+                  f"launches a rank {[sum(r.values()) for r in ranks]}; its "
+                  f"last lines {lines[-3:]}", flush=True)
+        print(f"[X examples] {card}: the three torchrun examples and the "
+              f"five in this process, together {wall:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -3835,7 +4255,7 @@ def main() -> None:
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
                run_hier, run_tuned, run_serve, run_decode, run_elastic,
-               run_straggler):
+               run_straggler, run_serve_mesh, run_examples):
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v
@@ -3861,5 +4281,9 @@ if __name__ == "__main__":
         run_k_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-q-rank"]:
         run_q_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-w-rank"]:
+        run_w_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-x-rank"]:
+        run_x_rank(sys.argv[2], sys.argv[3], sys.argv[4:])
     else:
         main()

@@ -148,3 +148,5 @@ SHAPES = (
     ShapeCell("decode_32k", 32768, 128, "decode"),
     ShapeCell("long_500k", 524288, 1, "decode"),
 )
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}

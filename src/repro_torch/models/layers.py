@@ -19,11 +19,13 @@ from the replicated ``wk`` / ``wv``, and the MLP runs its column block;
 each ends in the sum over the model group.
 
 The decode path (:func:`attn_decode`) runs one token against a KV cache,
-at one depth for the batch or one depth a row.  A float32 cache under a
-bf16 model turns the residual stream float32 after the first attention,
-as JAX's type promotion does in the reference; so the products here
-(:func:`_mm`, :func:`_einsum`) promote their operands to a common dtype,
-a no-op where they already share one, as in training.
+at one depth for the batch or one depth a row; on a mesh the cache's
+positions may be spread over a group (:class:`SeqShard`), each rank
+attending over its own and the partial softmaxes combined.  A float32
+cache under a bf16 model turns the residual stream float32 after the
+first attention, as JAX's type promotion does in the reference; so the
+products here (:func:`_mm`, :func:`_einsum`) promote their operands to a
+common dtype, a no-op where they already share one, as in training.
 """
 from __future__ import annotations
 
@@ -330,40 +332,133 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
+class SeqShard:
+    """The cache positions ``[lo, lo + n)`` that this rank holds of a
+    sequence spread over ``group`` (a
+    :class:`~repro_torch.core.collectives.DistributedGroup`), ``n`` the
+    local cache's length: the flash-decode layout, in which each rank
+    attends over its own positions and the partial softmaxes are
+    combined over the group (:func:`_combine`)."""
+
+    def __init__(self, group, lo: int):
+        self.group, self.lo = group, int(lo)
+
+    def __repr__(self) -> str:
+        return f"SeqShard(lo={self.lo}, group={self.group!r})"
+
+
 def decode_context(cfg: ModelConfig, position, batch: int, max_seq: int,
-                   device) -> dict:
+                   device, seq: SeqShard | None = None) -> dict:
     """What every layer of one decode step shares, computed once: the
     rows' write positions, their RoPE tables, and the masked-out cache
     positions of a global and of a window layer.
 
     ``position`` is a Python int (every row at that depth) or a (B,)
-    integer tensor (continuous batching: each row at its own depth)."""
-    jidx = torch.arange(max_seq, device=device)
+    integer tensor (continuous batching: each row at its own depth).
+    ``max_seq`` is the length of the cache this rank holds; with ``seq``
+    it holds the global positions ``[seq.lo, seq.lo + max_seq)``, the
+    masks are taken at those, and a row's K and V are written only by
+    the rank whose positions hold it."""
+    lo = seq.lo if seq is not None else 0
+    jidx = torch.arange(lo, lo + max_seq, device=device)
+    owned = None
     if torch.is_tensor(position) and position.dim() == 1:
         pos = position.reshape(batch, 1).to(device=device, dtype=torch.int64)
-        rows, at = torch.arange(batch, device=device), None
+        rows = torch.arange(batch, device=device)
+        if seq is not None:
+            local = pos[:, 0] - lo
+            owned = (local >= 0) & (local < max_seq)
+            write = (rows, local.clamp(0, max_seq - 1))
+        else:
+            write = (rows, pos[:, 0])
         valid = jidx[None, :] <= pos                         # (B, T)
         near = pos - jidx[None, :]
         shape = lambda m: m[:, None, None, None, :]          # noqa: E731
     else:
         at = int(position)
         pos = torch.full((batch, 1), at, dtype=torch.int64, device=device)
-        rows = None
+        write = ((slice(None), at - lo)
+                 if seq is None or lo <= at < lo + max_seq else None)
         valid = jidx <= at
         near = at - jidx
         shape = lambda m: m[None, None, None, None]          # noqa: E731
     local = valid
     if cfg.sliding_window is not None:
         local = valid & (near < cfg.sliding_window)
-    return {"pos": pos, "rows": rows, "at": at,
+    return {"pos": pos, "write": write, "owned": owned, "seq": seq,
             "rope": rope_table(pos, cfg.hd, cfg.rope_theta, device),
             "masked": {True: shape(~valid), False: shape(~local)}}
 
 
+def _write_token(cache: torch.Tensor, new: torch.Tensor, ctx: dict) -> None:
+    """Write the token's K or V (B, K, hd) at its position, in place:
+    every row on one device, or the rows this rank's positions hold."""
+    at = ctx["write"]
+    if at is None:
+        return
+    new = new.to(cache.dtype)
+    if ctx["owned"] is not None:
+        new = torch.where(ctx["owned"][:, None, None], new, cache[at])
+    cache[at] = new
+
+
+def _combine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked,
+             group) -> torch.Tensor:
+    """Attention of q (B, S, H, hd) over keys and values (B, T, K, hd)
+    spread over ``group`` along T, each rank holding its T positions:
+    float32 partials of this rank (running max ``m``, ``l = sum exp(s -
+    m)``, ``o = sum exp(s - m) v``; masked scores at -1e30), gathered
+    over the group in one call; then ``M`` the max of the ``m``, and
+    ``o / l`` from ``l exp(m - M)`` and ``o exp(m - M)`` summed over the
+    ranks in rank order, the same bits on every rank.  Returns (B, S,
+    H * hd) in v's dtype.  A rank whose positions are all masked has
+    ``m = -1e30`` and adds exactly 0.  (One gather, not a max and a sum
+    all-reduce: each collective is a synchronisation point.)"""
+    scores = _gqa_scores(q, k)                               # (B,K,G,S,T)
+    if masked is not None:
+        scores = scores.masked_fill(masked, -1e30)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    o = torch.einsum("bkgst,btkh->bkgsh", p, v.to(torch.float32))
+    part = torch.cat([o, p.sum(dim=-1)[..., None], m[..., None]], dim=-1)
+    parts = group.all_gather(part[None, None])               # (R, ...)
+    m_all = parts[..., -1]
+    f = torch.exp(m_all - m_all.amax(dim=0))
+    tot = (parts[..., :-1] * f[..., None]).sum(dim=0)
+    out = tot[..., :-1] / tot[..., -1:]
+    b, kv, g, s, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, kv * g * hd).to(v.dtype)
+
+
+def _tp_decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
+                   tp):
+    """The token's q, k and v of every head on a model group that splits
+    the heads: this rank's heads projected (:func:`_tp_heads`), then
+    gathered over the group (B x (H / M + 2 KV / M) x hd a rank).  A K/V
+    head that several ranks hold (a part of one GQA group each) is taken
+    from the first."""
+    pl, (h_loc, kv_loc) = _tp_heads(p, cfg, tp)
+    q, k, v = _qkv(pl, x, cfg, ctx["pos"], (h_loc, kv_loc), table=ctx["rope"])
+    b, s, _, hd = q.shape
+    flat = torch.cat([t.reshape(b, s, -1) for t in (q, k, v)], dim=-1)
+    got = tp.group.all_gather(flat[None]).reshape(tp.size, b, s, -1)
+    nq, nk = h_loc * hd, kv_loc * hd
+    q = got[..., :nq].permute(1, 2, 0, 3).reshape(b, s, tp.size * h_loc, hd)
+    g = cfg.num_heads // cfg.num_kv_heads
+    first = {}
+    for r in range(tp.size):
+        first.setdefault(r * h_loc // g, r)
+    owners = [r for _, r in sorted(first.items())]
+    k = torch.cat([got[r, ..., nq:nq + nk] for r in owners], dim=-1)
+    v = torch.cat([got[r, ..., nq + nk:] for r in owners], dim=-1)
+    kv = cfg.num_kv_heads
+    return q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd)
+
+
 def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache_k: torch.Tensor, cache_v: torch.Tensor, position, *,
-                is_global: bool = True, ctx: dict | None = None
-                ) -> torch.Tensor:
+                is_global: bool = True, ctx: dict | None = None, tp=None,
+                seq: SeqShard | None = None) -> torch.Tensor:
     """One-token decode against a KV cache (port of the reference's
     ``attn_decode``).
 
@@ -377,34 +472,55 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     from its own cache row alone (float32 scores, masked entries at
     -1e30 and an exact 0 after the softmax), so its bits do not depend
     on the other rows.
+
+    On a mesh: ``tp`` splits the heads over the model group, whose ranks
+    gather the token's q, k and v of every head, attend with all of
+    them, and keep their heads' context for the row-parallel ``wo``
+    (summed over the group); ``seq`` (or ``ctx["seq"]``) spreads the
+    cache's positions over a group, whose partial softmaxes are gathered
+    and combined (:func:`_combine`: float32 sums in another order than
+    the one-device softmax, so not bit-equal to it).
     """
     if ctx is None:
         ctx = decode_context(cfg, position, x.shape[0], cache_k.shape[1],
-                             x.device)
-    q, k_new, v_new = _qkv(p, x, cfg, ctx["pos"], table=ctx["rope"])
-    if ctx["rows"] is not None:
-        at = (ctx["rows"], ctx["pos"][:, 0])
+                             x.device, seq)
+    split = tp is not None and tp.split(p["wq"].shape[-1],
+                                        cfg.num_heads * cfg.hd, "attn/wq")
+    if split:
+        q, k_new, v_new = _tp_decode_qkv(p, x, cfg, ctx, tp)
     else:
-        at = (slice(None), ctx["at"])
-    cache_k[at] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[at] = v_new[:, 0].to(cache_v.dtype)
-    scores = _gqa_scores(q, cache_k).masked_fill(
-        ctx["masked"][bool(is_global)], -1e30)
-    return _mm(_gqa_out(torch.softmax(scores, dim=-1), cache_v), p["wo"])
+        q, k_new, v_new = _qkv(p, x, cfg, ctx["pos"], table=ctx["rope"])
+    _write_token(cache_k, k_new[:, 0], ctx)
+    _write_token(cache_v, v_new[:, 0], ctx)
+    masked = ctx["masked"][bool(is_global)]
+    if ctx["seq"] is None:
+        scores = _gqa_scores(q, cache_k).masked_fill(masked, -1e30)
+        out = _gqa_out(torch.softmax(scores, dim=-1), cache_v)
+    else:
+        out = _combine(q, cache_k, cache_v, masked, ctx["seq"].group)
+    if not split:
+        return _mm(out, p["wo"])
+    cols = p["wo"].shape[0]
+    out = out[..., tp.index * cols:(tp.index + 1) * cols]
+    return tp.reduce(_mm(out, p["wo"]))
 
 
 def cross_attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                       enc_k: torch.Tensor,
-                       enc_v: torch.Tensor) -> torch.Tensor:
+                       enc_k: torch.Tensor, enc_v: torch.Tensor, *,
+                       group=None) -> torch.Tensor:
     """Decoder cross-attention over the encoder's projected K/V.
 
     x: (B,S,d); enc_k / enc_v: (B,T_enc,K,hd) from :func:`cross_kv`.  No
-    mask: every query sees every frame."""
+    mask: every query sees every frame.  With ``group`` the frames are
+    spread over it, this rank holding its share, and the partial
+    softmaxes are combined (:func:`_combine`)."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(b, s, cfg.num_heads, cfg.hd)
+    if group is not None:
+        return _combine(q, enc_k, enc_v, None, group) @ p["wo"]
     probs = torch.softmax(_gqa_scores(q, enc_k), dim=-1)
     return _gqa_out(probs, enc_v) @ p["wo"]
 

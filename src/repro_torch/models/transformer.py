@@ -20,11 +20,14 @@ chunked_scan`).
 
     init_params(cfg, generator=..., device=...) -> params tree
     forward(params, cfg, batch[, tp])           -> logits
-    init_cache(cfg, batch, max_seq[, enc_out])  -> decode cache
-    decode_step(params, cfg, token, cache, pos) -> (logits, cache)
+    init_cache(cfg, batch, max_seq[, enc_out][, mesh=])
+                                                -> decode cache (a block)
+    decode_step(params, cfg, token, cache, pos[, layout])
+                                                -> (logits, cache)
     loss_fn(params, cfg, batch[, tp])           -> scalar CE loss
     Transformer(cfg, device=..., seed=...)      -> nn.Module over the tree
     param_pspecs(cfg)                           -> the reference's TP specs
+    cache_pspecs(cfg, shard_seq=, dp_axes=)     -> its serving cache specs
 
 ``init_params(cfg, device="meta")`` gives the tree's shapes and dtypes
 without allocating it (what a bucket layout needs).
@@ -36,10 +39,15 @@ each rank holds the blocks :func:`param_pspecs` gives it
 and keeps its blocks, so it starts from the unsharded run's weights),
 the embedding and the tied or untied head are vocab-parallel and the
 loss is the vocab-parallel float32 cross-entropy.  The other families
-raise at a model axis above 1 (ROADMAP queue 1).
+raise at a model axis above 1 (ROADMAP queue 1).  The decode step takes
+the same split (:class:`DecodeLayout`, built by
+:func:`repro_torch.runtime.serve.build_serve_step` on a mesh), with the
+cache's sequence spread over a group; every family decodes with its
+batch spread over the data ranks.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -421,17 +429,23 @@ def _remat(cfg: ModelConfig, fn, *args) -> torch.Tensor:
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def check_model_axis(cfg: ModelConfig, size: int) -> None:
+    """Raise for a family whose tensor parallelism is still to port, on a
+    model axis of ``size`` above 1."""
+    if size > 1 and (cfg.family not in TP_FAMILIES or cfg.vision_patches):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a model axis of {size}: the "
+            f"port runs tensor parallelism for the dense decoder-only "
+            f"family; the MoE (expert-parallel), VLM, SSM, hybrid and "
+            f"encoder-decoder families are still to port (ROADMAP queue 1)")
+
+
 def _check_tp(cfg: ModelConfig, tp) -> TensorParallel | None:
     """``tp`` when it splits anything (a model axis above 1), else None;
     raises for the families whose tensor parallelism is still to port."""
     if tp is None or tp.size == 1:
         return None
-    if cfg.family not in TP_FAMILIES or cfg.vision_patches:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a model axis of {tp.size}: the "
-            f"port runs tensor parallelism for the dense decoder-only "
-            f"family; the MoE (expert-parallel), VLM, SSM, hybrid and "
-            f"encoder-decoder families are still to port (ROADMAP queue 1)")
+    check_model_axis(cfg, tp.size)
     return tp
 
 
@@ -510,7 +524,8 @@ def count_params(params: Any) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                enc_out: torch.Tensor | None = None, *,
-               dtype=torch.bfloat16, device="cuda") -> dict:
+               dtype=torch.bfloat16, device="cuda", mesh=None,
+               dp_axes=("data",)) -> dict:
     """Decode cache sized for ``max_seq`` past tokens, the reference's
     tree of zeros: an xLSTM's states, one a block (``{"blocks":
     [{"mlstm" | "slstm": state}, ...]}``, float32); else ``{"k", "v"}``
@@ -519,8 +534,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``"cross_v"`` (L, B, T_enc, KV, hd) in an encoder-decoder, T_enc
     ``enc_out``'s length or else ``cfg.encoder_seq``.  As in the
     reference, ``enc_out`` gives only that length: nothing writes the
-    encoder's K and V into the cross cache (ROADMAP queue 3)."""
+    encoder's K and V into the cross cache (ROADMAP queue 3).
+
+    With ``mesh`` (a :class:`~repro_torch.core.ProcessMesh`, or its
+    extents ``{axis: size}``) this is one rank's block of that cache
+    under the serving layout (:func:`cache_pspecs`, sanitized; the
+    sequence-sharded one when the data ranks do not divide ``batch``),
+    allocated at its local shape: the whole cache is never built."""
     device = resolve_device(device)
+    if mesh is not None:
+        return _local_cache(cfg, batch, max_seq, enc_out, dtype=dtype,
+                            device=device, mesh=mesh, dp_axes=dp_axes)
     n = cfg.num_layers
     if cfg.family == "ssm":
         return {"blocks": [
@@ -543,16 +567,132 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def mesh_extents(mesh) -> dict:
+    """A mesh's ``{axis: size}``: a ProcessMesh's extents, or the
+    mapping itself."""
+    return dict(getattr(mesh, "extents", mesh))
+
+
+def serving_cache_specs(cfg: ModelConfig, batch: int, max_seq: int, mesh,
+                        dp_axes=("data",), enc_len: int | None = None):
+    """``(shard_seq, specs, like)``: whether the cache's sequence is
+    sharded (the data ranks do not divide ``batch``), the sanitized
+    :func:`cache_pspecs` tree, and the whole cache's ``meta`` tree."""
+    from ..runtime.shardings import axis_size, sanitize_pspecs
+    extents = mesh_extents(mesh)
+    dp = tuple(dp_axes)
+    shard_seq = batch % axis_size(extents, dp) != 0
+    enc = (None if enc_len is None else
+           torch.empty((batch, enc_len, 0), device="meta"))
+    like = init_cache(cfg, batch, max_seq, enc, device="meta")
+    specs = sanitize_pspecs(cache_pspecs(cfg, shard_seq=shard_seq,
+                                         dp_axes=dp), like, extents)
+    return shard_seq, specs, like
+
+
+def _local_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_out, *,
+                 dtype, device, mesh, dp_axes) -> dict:
+    """One rank's block of the serving cache at its local shape (every
+    block starts as the same zeros, an sLSTM's ``n`` as ones)."""
+    from ..runtime.shardings import local_shape
+    extents = mesh_extents(mesh)
+    enc_len = enc_out.shape[1] if enc_out is not None else None
+    _, specs, like = serving_cache_specs(cfg, batch, max_seq, mesh, dp_axes,
+                                         enc_len)
+    if cfg.family == "ssm":      # the states' batch is their only axis
+        rows = local_shape((batch,), T.leaves(specs)[0][:1], extents)[0]
+        return init_cache(cfg, rows, max_seq, device=device)
+    out = []
+    for (path, x), spec in zip(T.flatten(like), T.leaves(specs)):
+        dt = dtype if path in ("k", "v", "cross_k", "cross_v") else x.dtype
+        out.append((path, torch.zeros(local_shape(tuple(x.shape), spec,
+                                                  extents),
+                                      dtype=dt, device=device)))
+    return T.unflatten(out)
+
+
+def cache_pspecs(cfg: ModelConfig, *, shard_seq: bool = False,
+                 dp_axes=("pod", "data")) -> dict:
+    """The spec tree of the decode cache (the reference's
+    ``cache_pspecs``; :func:`~repro_torch.runtime.shardings.
+    sanitize_pspecs` replicates what a mesh does not divide).
+
+    Batched decode: the batch over the data axes and the cache's
+    sequence over ``"model"``.  ``shard_seq=True`` (a batch the data
+    ranks do not divide, such as ``long_500k``'s 1): the sequence over
+    every mesh axis, the batch replicated.  An xLSTM's states shard
+    their batch (or replicate it); a hybrid's Mamba state its ``d``
+    over ``"model"``; an encoder-decoder's cross cache takes the
+    self-attention cache's spec."""
+    dp = tuple(dp_axes)
+    if cfg.family == "ssm":
+        bspec = () if shard_seq else (dp,)
+        return {"blocks": [
+            {"slstm": {k: bspec for k in ("c", "n", "h", "m")}}
+            if _is_slstm_block(cfg, i) else
+            {"mlstm": {k: bspec for k in ("C", "n", "m")}}
+            for i in range(cfg.num_layers)]}
+    if shard_seq:
+        kv_spec = (None, None, dp + ("model",), None, None)
+    else:
+        kv_spec = (None, dp, "model", None, None)
+    cache = {"k": kv_spec, "v": kv_spec}
+    if cfg.family == "encdec":
+        cache["cross_k"] = kv_spec
+        cache["cross_v"] = kv_spec
+        return cache
+    if cfg.hybrid_parallel:
+        cache["ssm"] = (None, dp if not shard_seq else None, "model", None)
+    return cache
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLayout:
+    """One rank's share of a decode step on a process mesh
+    (:func:`repro_torch.runtime.serve.build_serve_step` builds it).
+
+    ``tp`` splits the dense family's heads, MLP columns and vocabulary
+    over the model group; ``seq`` spreads the self-attention cache's
+    positions over a group (the model group in the batched layout, the
+    world in the sequence-sharded one), ``cross`` the cross cache's
+    frames; ``data`` is the data group when the batch's rows are spread
+    over it (a MoE layer dispatches the whole batch, gathered over it).
+    """
+
+    tp: TensorParallel | None = None
+    seq: L.SeqShard | None = None
+    cross: Any = None
+    data: Any = None
+
+
+def _moe_decode(p: dict, h: torch.Tensor, cfg: ModelConfig,
+                data) -> torch.Tensor:
+    """The MoE layer of a decode step.  With ``data`` (the batch's rows
+    spread over the data group) the layer's input is gathered over it
+    and dispatched as one group, and this rank keeps its rows: the
+    capacity is the whole batch's, as in the reference, where a
+    dispatch of each rank's rows alone would drop other choices."""
+    if data is None:
+        return L.moe_forward(p, h, cfg)
+    rows = h.shape[0]
+    k = data.rank()[0]
+    y = L.moe_forward(p, data.all_gather(h[None]), cfg)
+    return y[k * rows:(k + 1) * rows]
+
+
 def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                  position, is_global: bool, ctx: dict | None = None):
+                  position, is_global: bool, ctx: dict | None = None,
+                  layout: DecodeLayout | None = None):
     """One layer's decode; writes the token's K and V into ``cache``'s
     (B, S_max, K, hd) views of this layer.  ``ctx`` is the step's
-    :func:`~repro_torch.models.layers.decode_context`.  Returns ``(x,
-    state)``: a hybrid's new Mamba-head state (its output averaged with
-    the attention's), else None."""
+    :func:`~repro_torch.models.layers.decode_context`, ``layout`` this
+    rank's share of the step on a mesh.  Returns ``(x, state)``: a
+    hybrid's new Mamba-head state (its output averaged with the
+    attention's), else None."""
+    tp = layout.tp if layout is not None else None
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     a = L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"], position,
-                      is_global=is_global, ctx=ctx)
+                      is_global=is_global, ctx=ctx, tp=tp)
     state = None
     if cfg.hybrid_parallel:
         m, state = S.mamba_decode(p["ssm_head"], h, cfg, cache["ssm"])
@@ -560,25 +700,28 @@ def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     x = x + a
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        return x + L.moe_forward(p["moe"], h, cfg), state
+        data = layout.data if layout is not None else None
+        return x + _moe_decode(p["moe"], h, cfg, data), state
     if "mlp" in p:
-        return x + L.mlp_forward(p["mlp"], h, cfg), state
+        return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp), state
     return x, state
 
 
 def _decoder_xlayer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                           cache: dict, position,
-                           ctx: dict | None = None) -> torch.Tensor:
+                           cache: dict, position, ctx: dict | None = None,
+                           cross=None) -> torch.Tensor:
     """One cross-attending layer's decode: causal self-attention writing
     the token's K and V into this layer's views of ``cache["k"]`` and
     ``cache["v"]``, cross-attention over ``cache["cross_k"]`` and
-    ``cache["cross_v"]``, then the MLP."""
+    ``cache["cross_v"]`` (their frames spread over the group ``cross``,
+    where it is given), then the MLP."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
                           position, ctx=ctx)
     h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-    x = x + L.cross_attn_forward(p["cross"], h, cfg, cache["cross_k"],
-                                 cache["cross_v"])
+    args = (p["cross"], h, cfg, cache["cross_k"], cache["cross_v"])
+    x = x + (L.cross_attn_forward(*args) if cross is None else
+             L.cross_attn_forward(*args, group=cross))
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + L.mlp_forward(p["mlp"], h, cfg)
 
@@ -600,7 +743,9 @@ def _ssm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 @torch.inference_mode()
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict, position) -> tuple[torch.Tensor, dict]:
+                cache: dict, position,
+                layout: DecodeLayout | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One-token decode: token (B, 1) integers; ``position`` a Python int
     or a (B,) integer tensor (continuous batching, a depth a row; see
     :func:`~repro_torch.models.layers.attn_decode`).  Returns ``(logits
@@ -609,18 +754,26 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``"ssm"``) come back as new tensors in a new tree, as the
     reference returns them.  An xLSTM reads no position.  The MoE
     family's dense prefix layers decode unrolled on the leading slices
-    of the stacked cache, as the reference's do."""
-    x = params["embed"]["tok"][token]
+    of the stacked cache, as the reference's do.
+
+    With ``layout`` (:class:`DecodeLayout`) the parameters, the rows
+    (token, position) and the cache are this rank's blocks on a mesh,
+    and the logits cover this rank's rows and the whole vocabulary
+    (gathered over the model group where it is split)."""
+    layout = layout or DecodeLayout()
+    tp = _check_tp(cfg, layout.tp)
+    x = _embed_tokens(params, cfg, token, tp=tp)
     if cfg.family == "ssm":
         return _ssm_decode(params, cfg, x, cache)
     # the positions, RoPE tables and masks, once for every layer
     ctx = L.decode_context(cfg, position, x.shape[0], cache["k"].shape[2],
-                           x.device)
+                           x.device, layout.seq)
     if cfg.family == "encdec":
         for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
             x = _decoder_xlayer_decode(lp, x, cfg, {
                 key: cache[key][i]
-                for key in ("k", "v", "cross_k", "cross_v")}, position, ctx)
+                for key in ("k", "v", "cross_k", "cross_v")}, position, ctx,
+                layout.cross)
         return _logits(params, cfg, x)[:, 0], cache
     flags = global_attention_flags(cfg).tolist()
     layers = list(params.get("prefix", [])) + _unstack(
@@ -631,11 +784,14 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         if cfg.hybrid_parallel:
             sub["ssm"] = cache["ssm"][i]
         x, state = _layer_decode(lp, x, cfg, sub, position, bool(is_global),
-                                 ctx)
+                                 ctx, layout)
         states.append(state)
     if cfg.hybrid_parallel:
         cache = dict(cache, ssm=torch.stack(states))
-    return _logits(params, cfg, x)[:, 0], cache
+    logits = _logits(params, cfg, x, tp)[:, 0]
+    if _vocab_split(params, cfg, tp):
+        logits = tp.group.all_gather_dim(logits, -1)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -238,15 +238,23 @@ def test_recurrent_and_cross_attention_decode_raise(family):
                 block_size=4)
 
 
-def test_mesh_layouts_raise():
-    cfg, _ = toy()
-    for call in (lambda: serve_shardings(cfg, object(), batch=2, max_seq=8),
-                 lambda: build_prefill(cfg, object()),
-                 lambda: build_serve_step(cfg, object(), batch=2,
-                                          max_seq=8),
-                 lambda: build_cached_prefill(cfg, object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+def test_mesh_layouts_raise_for_families_without_tp():
+    """Serving on a mesh runs every family on a (D, 1) mesh and the dense
+    one on a model axis above 1 (tests/test_torch_serve_mesh.py); a
+    hybrid on a model axis of 2 raises by name, before any group is
+    touched, as its tensor parallelism is still to port."""
+    cfg = get_config("hymba_1p5b", smoke=True)
+    mesh = {"data": 1, "model": 2}
+    for call in (lambda: build_prefill(cfg, mesh),
+                 lambda: build_serve_step(cfg, mesh, batch=2, max_seq=8),
+                 lambda: build_cached_prefill(cfg, mesh, batch=2,
+                                              max_seq=8)):
+        with pytest.raises(NotImplementedError,
+                           match="hymba.*model axis of 2"):
             call()
+    # the layouts themselves are specs, and hold for any family
+    sh = serve_shardings(cfg, mesh, batch=2, max_seq=8)
+    assert sh["cache"]["k"] == (None, ("data",), "model", None, None)
 
 
 # ---------------------------------------------------------------------------
