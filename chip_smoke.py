@@ -303,12 +303,34 @@ Phases (any failure exits non-zero before the result line):
                     assertions, the training examples' rank 0 launching
                     sign_pack, vote_combine and unpack_ternary (bf16 for
                     the bf16 preset); each one's seconds;
- 17. print the kernels line (launches summed over the runs, runs Q's and
-     X's mesh examples' from rank 0), the card, then ``{"ok": true,
+ 17. the launch tooling:
+       Y. dryrun    Y.1, started in the background right after the build
+                    (CPU work only) and read here: ``python -m
+                    repro_torch.launch.dryrun`` on full
+                    qwen3-0.6B's four cells on both production meshes
+                    (16 x 16 and 2 x 16 x 16: 256 and 512 ranks played
+                    by one process under a fake process group, on
+                    ``meta`` tensors; long_500k skipped), then
+                    ``decode_32k`` of every architecture on 16 x 16: the
+                    failures exactly the families without tensor
+                    parallelism and qwen2.5-14B (40 query heads on 16
+                    ranks), each a NotImplementedError; the report's
+                    tables.  Y.2, beside it: run Q's train step and run
+                    W's batched decode step on four gloo ranks on cuda:0
+                    (``chip_smoke.py --run-y-rank r dir``), and the
+                    dry-run's trace of the same cells on a fake (2, 2)
+                    mesh: collective calls and bytes by group and op,
+                    FLOPs (``FlopCounterMode``) and kernel calls equal,
+                    the traced peak within Y_PEAK_BAND of the rank's
+                    ``max_memory_allocated``, the roofline bound no
+                    longer than the measured step;
+ 18. print the kernels line (launches summed over the runs, runs Q's, X's
+     mesh examples' and Y's from rank 0), the card, then ``{"ok": true,
      "device": {...}}`` last.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -4203,6 +4225,326 @@ def run_examples() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch tooling
+# ---------------------------------------------------------------------------
+
+#: the dry-run's peak bytes over a real rank's max_memory_allocated in the
+#: same step (run Q's train step, run W's batched decode step): the band
+#: PERF.md states for it
+Y_PEAK_BAND = (0.8, 1.25)
+#: Y.1's two dry-run commands and the processes each traces cells in:
+#: they start with the script (CPU work on ``meta`` tensors beside the
+#: card's runs) and phase Y reads them
+Y_CLI = {"qwen3": (["--arch", "qwen3_0p6b", "--shape", "all", "--mesh",
+                    "both", "--plans", "gbin_packed"], 4),
+         "every": (["--arch", "all", "--shape", "decode_32k", "--mesh",
+                    "single"], 2)}
+
+
+def y_cells():
+    """Run Q's train cell (4 x 128 tokens a data rank) and run W's
+    batched decode cell (batch 4, 256 positions) as dry-run cells."""
+    from repro_torch.models import ShapeCell
+    return (ShapeCell("run_q", 128, Q_MESH[0] * Q_SHARD, "train"),
+            ShapeCell("run_w", W_MAX_SEQ, W_BATCH, "decode"))
+
+
+def y_optimizer():
+    from repro_torch.optim import AdamW
+    return AdamW(peak_lr=3e-4, warmup_steps=2, total_steps=Q_STEPS)
+
+
+def run_y_rank(rank: int, out: str) -> None:
+    """One rank of run Y.2: run Q's Trainer (full qwen3-0.6B, (data 2) x
+    (model 2), gbin_packed, AdamW with ZeRO-1) and run W's batched decode
+    step (bf16 cache, ``donate=False`` as the dry-run's), each built by
+    the dry-run's own builders: an untimed step, a step under
+    ``FlopCounterMode`` (collectives, launches and peak memory read
+    around it), then a timed step."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core import ProcessMesh
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.transformer import shard_params
+    from repro_torch.runtime.serve import build_serve_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=Q_MESH[0] * Q_MESH[1],
+                            timeout=timedelta(seconds=120))
+    mesh = ProcessMesh(Q_MESH, device="cuda:0")
+    cfg = q_config()
+    groups = dryrun.mesh_groups(mesh)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    decode_by = wrappers["unpack_ternary"].launches_by_dtype
+    res = {}
+
+    def measure(name, fn, *args):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {n: f.launches for n, f in wrappers.items()}
+        mesh.reset_counts()
+        with FlopCounterMode(display=False) as fc:
+            got = fn(*args)
+        torch.cuda.synchronize()
+        res[name] = {
+            "flops": fc.get_total_flops(),
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": {n: f.launches - before[n]
+                         for n, f in wrappers.items()
+                         if f.launches != before[n]},
+            "calls": {n: {"calls": dict(g.calls_by_op),
+                          "bytes": dict(g.bytes_by_op)}
+                      for n, g in groups.items()}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        res[name]["step_s"] = time.perf_counter() - t0
+        return got
+
+    trainer, step = dryrun.train_step(cfg, mesh, "gbin_packed",
+                                      y_optimizer(), device="cuda:0")
+    batch = {n: torch.as_tensor(v).cuda()
+             for n, v in q_data(cfg).batch_at(0).items()}
+    trainer.state = step(trainer.state, batch)[0]     # untimed
+    state, metrics, agg = measure("train", step, trainer.state, batch)
+    res["train"]["loss"] = float(metrics["loss"])
+    del state, metrics, agg, trainer, step, batch
+    free()
+
+    whole = init_params(cfg, generator=torch.Generator(device="cuda")
+                        .manual_seed(0), device="cuda")
+    params = T.map_leaves(torch.Tensor.clone, shard_params(
+        whole, cfg, mesh.extents, mesh.coords))
+    del whole
+    free()
+    dstep, _ = build_serve_step(cfg, mesh, batch=W_BATCH, max_seq=W_MAX_SEQ,
+                                dp_axes=mesh.data_axes, donate=False)
+    cache = init_cache(cfg, W_BATCH, W_MAX_SEQ, device="cuda", mesh=mesh,
+                       dp_axes=mesh.data_axes)
+    token = w_prompt(cfg)[:, :1].to(torch.int32).cuda()
+    dstep(params, token, cache, W_MAX_SEQ - 1)          # untimed
+    logits, _ = measure("decode", dstep, params, token, cache,
+                        W_MAX_SEQ - 1)
+    res["decode"]["finite"] = bool(torch.isfinite(logits).all())
+    res["kernel_launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    res["kernel_launches_bf16"] = decode_by[torch.bfloat16]
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def y_trace() -> dict:
+    """Y.2's dry-run side, in this process: run Q's train cell and run
+    W's decode cell traced as rank 0 of a fake (2, 2) mesh."""
+    from repro_torch.core import ProcessMesh
+    from repro_torch.launch import dryrun
+
+    cfg = q_config()
+    train_cell, decode_cell = y_cells()
+    with dryrun.fake_world(Q_MESH[0] * Q_MESH[1]):
+        mesh = ProcessMesh(Q_MESH, device="meta")
+        return {"train": dryrun.run_train_cell(cfg, train_cell, mesh,
+                                               "gbin_packed",
+                                               optimizer=y_optimizer()),
+                "decode": dryrun.run_decode_cell(cfg, decode_cell, mesh)}
+
+
+def y_check_cli(out: str) -> None:
+    """Y.1's checks on the dry-run's JSONs, and its report."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import report
+    from repro_torch.models import SHAPES
+    from repro_torch.models.transformer import TP_FAMILIES
+
+    def load(run, mesh, arch, name):
+        with open(os.path.join(out, run, mesh, arch, name)) as f:
+            return json.load(f)
+
+    for mesh, n in (("pod_16x16", 256), ("multipod_2x16x16", 512)):
+        for cell in SHAPES:
+            tag = "gbin_packed" if cell.is_train else cell.kind
+            d = load("qwen3", mesh, "qwen3_0p6b", f"{cell.name}.{tag}.json")
+            if cell.name == "long_500k":
+                if "skipped" not in d:
+                    fail(f"Y.1 {mesh} qwen3 long_500k not skipped: {d}")
+                continue
+            if ("error" in d or d["num_devices"] != n
+                    or not d["flops_per_device"] > 0
+                    or d["roofline"]["dominant"] not in
+                    ("compute", "memory", "collective")):
+                fail(f"Y.1 {mesh} qwen3 {cell.name}: "
+                     f"{d.get('error') or {k: d[k] for k in ('num_devices', 'flops_per_device', 'roofline')}}")
+            if cell.is_train and (n == 512) != (
+                    d["collectives"]["pod_crossing_wire_bytes"] > 0):
+                fail(f"Y.1 {mesh} qwen3 train: pod-crossing wire bytes "
+                     f"{d['collectives']['pod_crossing_wire_bytes']}")
+    failed, want = {}, set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        d = load("every", "pod_16x16", arch, "decode_32k.decode.json")
+        if "error" in d:
+            failed[arch] = d["error"]
+        elif d["num_devices"] != 256 or not d["flops_per_device"] > 0:
+            fail(f"Y.1 {arch} decode_32k: {d}")
+        # outside the families with tensor parallelism, and the dense
+        # configs whose query heads 16 ranks do not split whole
+        if (cfg.family not in TP_FAMILIES or cfg.vision_patches
+                or cfg.num_heads % 16):
+            want.add(arch)
+    if set(failed) != want or not all(
+            e.startswith("NotImplementedError: ") for e in failed.values()):
+        fail(f"Y.1 decode_32k failures {failed}, expected on {sorted(want)}")
+    cells = report.load_cells(os.path.join(out, "qwen3")) + [
+        c for c in report.load_cells(os.path.join(out, "every"))
+        if c["arch"] != "qwen3_0p6b"]
+    for mesh in ("pod_16x16", "multipod_2x16x16"):
+        print(f"[Y dryrun] report {mesh}:\n"
+              f"{report.fmt_table(cells, mesh)}", flush=True)
+    for arch, e in failed.items():
+        print(f"[Y dryrun] {arch} decode_32k on 16 x 16: {e}", flush=True)
+
+
+def start_y_cli() -> dict:
+    """Start Y.1's dry-run commands in the background, each leading a
+    process group of its own (its cell processes in it), which is killed
+    when this script ends."""
+    import shutil
+    import signal
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONWARNINGS="ignore")
+    procs = {}
+    for name, (args, jobs) in Y_CLI.items():
+        with open(os.path.join(out, f"{name}.log"), "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                 os.path.join(out, name), "--force", "--jobs", str(jobs),
+                 *args], env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+
+    atexit.register(stop)
+    return {"out": out, "procs": procs, "t0": time.perf_counter(),
+            "stop": stop}
+
+
+def run_launch_tooling(cli: dict | None = None) -> dict:
+    """Run Y: the launch dry-run.  Y.1 (started with the script by
+    :func:`start_y_cli`, or here) runs its CLI on full qwen3-0.6B's cells
+    on both production meshes (256 and 512 ranks) and ``decode_32k`` of
+    every architecture on 16 x 16.  Y.2: four gloo ranks on cuda:0
+    (``chip_smoke.py --run-y-rank r dir``) run run Q's train step and run
+    W's decode step, which the dry-run's trace of the same cells on a
+    fake (2, 2) mesh must equal: collective calls and bytes by group and
+    op, FLOPs and kernel calls; its peak within Y_PEAK_BAND of the
+    rank's and its roofline bound no longer than the measured step."""
+    card = card_line()
+    cli = cli or start_y_cli()
+    out = cli["out"]
+    try:
+        ranks, _, spawn_s = spawn_ranks("--run-y-rank",
+                                        Q_MESH[0] * Q_MESH[1])
+        t1 = time.perf_counter()
+        got = y_trace()
+        trace_s = time.perf_counter() - t1
+        for name, p in cli["procs"].items():
+            p.wait(timeout=900)
+            with open(os.path.join(out, f"{name}.log")) as f:
+                text = f.read()
+            if p.returncode != (0 if name == "qwen3" else 1):
+                print(text[-6000:], flush=True)
+                fail(f"Y.1 {name} dry-run: exit {p.returncode} (the "
+                     f"families without tensor parallelism fail 'every')")
+            for line in text.splitlines():
+                if line.startswith(("[pod", "[multi")):
+                    print(f"[Y dryrun] {line}", flush=True)
+        cli_s = time.perf_counter() - cli["t0"]
+        waited_s = time.perf_counter() - t1 - trace_s
+        y_check_cli(out)
+    finally:
+        cli["stop"]()
+
+    r0 = ranks[0]
+    for name in ("train", "decode"):
+        g, real = got[name], r0[name]
+        if "error" in g:
+            fail(f"Y.2 {name} trace: {g['error']}\n{g['traceback']}")
+        launches = {n: k["launches"] for n, k in g["kernels"].items()}
+        ratio = g["memory"]["peak_estimate_bytes"] / real["peak"]
+        bound = g["roofline"]["step_time_lower_bound_s"]
+        print(f"[Y {name}] {card}: dry-run on a fake (2, 2) mesh against "
+              f"rank 0 of four gloo ranks on cuda:0: flops "
+              f"{g['flops_per_device']:.0f} / {real['flops']}; kernel "
+              f"calls {launches} / launches {real['launches']}; "
+              f"collectives by group {g['collectives']['by_group']}; peak "
+              f"{g['memory']['peak_estimate_bytes']} B (arguments "
+              f"{g['memory']['argument_bytes']} B) / max_memory_allocated "
+              f"{real['peak']} B, ratio {ratio:.4f}; roofline bound "
+              f"{bound * 1e3:.4f} ms ({g['roofline']['dominant']}; compute "
+              f"{g['roofline']['compute_s'] * 1e3:.4f}, memory "
+              f"{g['roofline']['memory_s'] * 1e3:.4f}, collective "
+              f"{g['roofline']['collective_s'] * 1e3:.4f} ms) against the "
+              f"measured step {real['step_s'] * 1e3:.2f} ms (rank 0; by "
+              f"rank {[round(r[name]['step_s'] * 1e3, 2) for r in ranks]}); "
+              f"HBM bytes {g['hbm_bytes_per_device']:.0f}, wire bytes "
+              f"{g['collectives']['total_wire_bytes']:.0f}; traced in "
+              f"{g['compile_s']:.2f} s", flush=True)
+        if g["collectives"]["by_group"] != real["calls"]:
+            fail(f"Y.2 {name}: collectives by group {real['calls']} on the "
+                 f"card, {g['collectives']['by_group']} in the dry-run")
+        if g["flops_per_device"] != real["flops"]:
+            fail(f"Y.2 {name}: flops {real['flops']} on the card, "
+                 f"{g['flops_per_device']} in the dry-run")
+        if launches != real["launches"]:
+            fail(f"Y.2 {name}: launches {real['launches']} on the card, "
+                 f"kernel calls {launches} in the dry-run")
+        if not Y_PEAK_BAND[0] <= ratio <= Y_PEAK_BAND[1]:
+            fail(f"Y.2 {name}: peak ratio {ratio} outside {Y_PEAK_BAND}")
+        if real["step_s"] < bound:
+            fail(f"Y.2 {name}: measured step {real['step_s']} s under the "
+                 f"roofline bound {bound} s")
+    want = {"sign_pack", "vote_combine", "unpack_ternary"}
+    if set(r0["train"]["launches"]) != want:
+        fail(f"Y.2 train launches {r0['train']['launches']}, not {want}")
+    if not (np.isfinite(r0["train"]["loss"]) and r0["decode"]["finite"]):
+        fail(f"Y.2: loss {r0['train']['loss']}, decode logits finite "
+             f"{r0['decode']['finite']}")
+    if any(r["train"]["loss"] != r0["train"]["loss"] for r in ranks):
+        fail(f"Y.2: losses by rank {[r['train']['loss'] for r in ranks]}")
+    print(f"[Y dryrun] {card}: Y.2's spawn {spawn_s:.2f} s and the (2, 2) "
+          f"traces {trace_s:.2f} s; Y.1's commands, started "
+          f"{cli_s:.2f} s before, had ended {waited_s:.2f} s after "
+          f"(the time phase Y waited for them); peak by "
+          f"rank (GiB) train "
+          f"{[round(r['train']['peak'] / 2 ** 30, 3) for r in ranks]}, "
+          f"decode {[round(r['decode']['peak'] / 2 ** 30, 3) for r in ranks]}",
+          flush=True)
+    launches = dict(r0["kernel_launches"])
+    launches["unpack_ternary_bf16"] = r0["kernel_launches_bf16"]
+    launches["unpack_ternary"] -= r0["kernel_launches_bf16"]
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
@@ -4214,6 +4556,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"built {built} in {time.perf_counter() - t0:.2f} s", flush=True)
+    y_cli = start_y_cli()       # CPU work: phase Y reads it
 
     rows = check_kernels()
     # timed with the checks' memory still cached, as the training path
@@ -4255,7 +4598,8 @@ def main() -> None:
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
                run_hier, run_tuned, run_serve, run_decode, run_elastic,
-               run_straggler, run_serve_mesh, run_examples):
+               run_straggler, run_serve_mesh, run_examples,
+               lambda: run_launch_tooling(y_cli)):
         run = fn()
         for k, v in run.pop("launches").items():
             launches[k] += v
@@ -4283,6 +4627,8 @@ if __name__ == "__main__":
         run_q_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-w-rank"]:
         run_w_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-y-rank"]:
+        run_y_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-x-rank"]:
         run_x_rank(sys.argv[2], sys.argv[3], sys.argv[4:])
     else:

@@ -40,6 +40,11 @@ import torch.distributed as dist
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
+#: callables ``fn(group, op, x)`` told of each collective a
+#: :class:`DistributedGroup` makes, with the tensor it counts: the launch
+#: dry-run's collective inventory (:mod:`repro_torch.launch.analysis`)
+COLLECTIVE_OBSERVERS: list = []
+
 
 class VirtualGroup:
     """W virtual data-parallel workers held on one device.
@@ -213,6 +218,8 @@ class DistributedGroup:
         self.calls_by_op[op] = self.calls_by_op.get(op, 0) + 1
         self.bytes_by_op[op] = (self.bytes_by_op.get(op, 0)
                                 + x.numel() * x.element_size())
+        for fn in COLLECTIVE_OBSERVERS:
+            fn(self, op, x)
 
     def _on_device(self, x: torch.Tensor) -> torch.Tensor:
         if x.device != self.device:

@@ -48,6 +48,8 @@ def unpack_ternary(sign_words: torch.Tensor, mask_words: torch.Tensor,
     out = torch.empty(sign_words.shape[:-2]
                       + (sign_words.shape[-2] * PACK, LANE),
                       dtype=dtype, device=sign_words.device)
+    if build.meta_call("unpack_ternary", (sign_words, mask_words), out):
+        return out
     fn = build.bind("unpack_ternary", _UNPACK_SYMBOL[dtype], 3, 1)
     build.check(fn(sign_words.data_ptr(), mask_words.data_ptr(),
                    out.data_ptr(), sign_words.numel(),
@@ -111,6 +113,10 @@ def apply_sign_update(param_plane: torch.Tensor, sign_words: torch.Tensor,
     else:
         scale_ptr, value = None, float(scale)
     out = torch.empty_like(param_plane)
+    if build.meta_call("apply_sign_update", (param_plane, sign_words,
+                                             mask_words) + (
+            (scale,) if tensor_scale else ()), out):
+        return out
     fn = build.bind("apply_sign_update", _PARAM_SYMBOL[param_plane.dtype],
                     5, 1, 1)
     build.check(fn(param_plane.data_ptr(), sign_words.data_ptr(),

@@ -11,6 +11,13 @@ Every C entry point returns ``cudaGetLastError()`` right after its launch;
 :func:`check` raises on anything but ``cudaSuccess``.  There is no
 fallback: a source that does not build raises, and no caller switches to
 the plain version.
+
+Operands on the ``meta`` device (the launch dry-run's abstract step,
+:mod:`repro_torch.launch.dryrun`) take a third route: the wrapper checks
+them as for a launch, allocates its outputs (shapes and dtypes only) and
+hands them to :func:`meta_call`, which records the call in
+:data:`META_CALLS` in place of a launch.  No twin runs and no
+``launches`` count moves.
 """
 from __future__ import annotations
 
@@ -114,7 +121,8 @@ def bind(name: str, symbol: str, nargs_ptr: int, nargs_int: int,
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs its
     plain twin), False when all lie on one CUDA device (it launches its
-    kernel); raises on anything else."""
+    kernel) or all on ``meta`` (it records a :func:`meta_call`); raises
+    on anything else."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel operands lie on several devices: "
@@ -122,9 +130,37 @@ def on_cpu(*tensors) -> bool:
     dev = devices.pop()
     if dev.type == "cpu":
         return True
-    if dev.type == "cuda":
+    if dev.type in ("cuda", "meta"):
         return False
     raise ValueError(f"no kernel for tensors on {dev}")
+
+
+#: kernel name -> {"calls", "launches", "operand_bytes", "output_bytes"}
+#: of the calls made on ``meta`` operands (clear it with ``.clear()``)
+META_CALLS: dict[str, dict] = {}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def meta_call(name: str, operands, outputs, launches: int = 1) -> bool:
+    """Record one call of kernel ``name`` when its operands lie on
+    ``meta``, with the bytes of ``operands`` and of ``outputs`` (a tensor
+    or a tuple, allocated by the wrapper as for a launch), and return
+    True: the wrapper then returns its outputs.  False on a real device,
+    where the wrapper goes on to launch.  ``launches`` is what the call
+    adds to the wrapper's count on the card."""
+    if operands[0].device.type != "meta":
+        return False
+    rec = META_CALLS.setdefault(name, dict.fromkeys(
+        ("calls", "launches", "operand_bytes", "output_bytes"), 0))
+    rec["calls"] += 1
+    rec["launches"] += launches
+    rec["operand_bytes"] += _nbytes(operands)
+    flat = outputs if isinstance(outputs, tuple) else (outputs,)
+    rec["output_bytes"] += _nbytes(flat)
+    return True
 
 
 def check(err: int, what: str) -> None:

@@ -125,6 +125,8 @@ def vote_combine(routed: torch.Tensor, gate_words: torch.Tensor, *,
                          f"got strides {tuple(r4.stride())}")
     sign = torch.empty((b, r, LANE), dtype=torch.int32, device=r4.device)
     mask = torch.empty_like(sign)
+    if build.meta_call("vote_combine", (r4, g3), (sign, mask)):
+        return sign.reshape(gate_words.shape), mask.reshape(gate_words.shape)
     fn = build.bind("vote_combine", "vote_combine_u32", 4, 5)
     build.check(fn(r4.data_ptr(), g3.data_ptr(), sign.data_ptr(),
                    mask.data_ptr(), b, w, r, *strides,
@@ -178,6 +180,8 @@ def encode_pack_ef(g_plane: torch.Tensor, e_plane: torch.Tensor):
                                               LANE),
                         dtype=torch.int32, device=g_plane.device)
     g_eff = torch.empty_like(g_plane)
+    if build.meta_call("encode_pack_ef", (g_plane, e_plane), (words, g_eff)):
+        return words, g_eff
     fn = build.bind("encode_pack_ef", symbol, 4, 1)
     build.check(fn(g_plane.data_ptr(), e_plane.data_ptr(), words.data_ptr(),
                    g_eff.data_ptr(), words.numel(),
@@ -211,6 +215,8 @@ def ef_residual_plane(plane: torch.Tensor, beta: torch.Tensor, *,
     # widened (exactly) to the float32 the kernel reads
     b32 = beta.to(plane.dtype).to(torch.float32).contiguous()
     out = torch.empty(plane.shape, dtype=out_dtype, device=plane.device)
+    if build.meta_call("ef_residual", (plane, b32), out):
+        return out
     fn = build.bind("ef_residual", symbol, 3, 2)
     build.check(fn(plane.data_ptr(), b32.data_ptr(), out.data_ptr(),
                    plane.shape[0], plane[0].numel(),
@@ -274,6 +280,8 @@ def vote_pipeline(stack: torch.Tensor, gate_words: torch.Tensor, *,
     if stack.data_ptr() % 16 or gate_words.data_ptr() % 16:
         raise ValueError("vote_pipeline needs 16-byte aligned operands")
     out = torch.empty((m, LANE), dtype=dtype, device=stack.device)
+    if build.meta_call("vote_pipeline", (stack, gate_words), out):
+        return out
     fn = build.bind("vote_pipeline", symbol, 3, 2)
     build.check(fn(stack.data_ptr(), gate_words.data_ptr(), out.data_ptr(),
                    m * LANE, w, build.stream_ptr(stack.device)),
@@ -320,6 +328,8 @@ def int4_quant_plane(planes: torch.Tensor, *,
     amax_bits = torch.zeros(p3.shape[0], dtype=torch.int32,
                             device=p3.device)
     out = torch.empty_like(p3)
+    if build.meta_call("int4_quant", (p3,), out, launches=2):
+        return out.reshape(planes.shape)
     fn = build.bind("int4_quant", "int4_quant_f32", 3, 2, 1)
     build.check(fn(p3.data_ptr(), amax_bits.data_ptr(), out.data_ptr(),
                    p3.shape[0], p3[0].numel(), float(levels),
@@ -352,6 +362,8 @@ def threshold_mask_plane(planes: torch.Tensor, thresh) -> torch.Tensor:
     # it in that dtype (a no-op here for run D's per-plane thresholds)
     t = thresh.reshape(-1).to(planes.dtype).expand(p3.shape[0]).contiguous()
     out = torch.empty_like(p3)
+    if build.meta_call("threshold_mask", (p3, t), out):
+        return out.reshape(planes.shape)
     fn = build.bind("threshold_mask", symbol, 3, 2)
     build.check(fn(p3.data_ptr(), t.data_ptr(), out.data_ptr(),
                    p3.shape[0], p3[0].numel(),

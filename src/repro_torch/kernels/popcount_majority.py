@@ -39,6 +39,8 @@ def popcount_stack(packed: torch.Tensor) -> torch.Tensor:
     b, w, r, _ = p4.shape
     counts = torch.empty((b, r * PACK, LANE), dtype=torch.int32,
                          device=p4.device)
+    if build.meta_call("popcount_stack", (p4,), counts):
+        return counts if packed.dim() == 4 else counts[0]
     fn = build.bind("popcount_stack", "popcount_stack_u32", 2, 5)
     build.check(fn(p4.data_ptr(), counts.data_ptr(), b, w, r, p4.stride(0),
                    p4.stride(1), build.stream_ptr(p4.device)),
@@ -72,6 +74,9 @@ def majority_decode(counts: torch.Tensor, gate_words: torch.Tensor, *,
         raise ValueError("majority_decode needs contiguous operands")
     sign = torch.empty_like(gate_words)
     mask = torch.empty_like(gate_words)
+    if build.meta_call("majority_decode", (counts, gate_words),
+                       (sign, mask)):
+        return sign, mask
     fn = build.bind("majority_decode", "majority_decode_u32", 4, 2)
     build.check(fn(counts.data_ptr(), gate_words.data_ptr(), sign.data_ptr(),
                    mask.data_ptr(), gate_words.numel(), num_workers,

@@ -34,6 +34,8 @@ def sign_pack(plane: torch.Tensor) -> torch.Tensor:
         raise ValueError("sign_pack needs a contiguous plane")
     out = torch.empty(plane.shape[:-2] + (plane.shape[-2] // PACK, LANE),
                       dtype=torch.int32, device=plane.device)
+    if build.meta_call("sign_pack", (plane,), out):
+        return out
     fn = build.bind("sign_pack", _SYMBOL[plane.dtype], 2, 1)
     build.check(fn(plane.data_ptr(), out.data_ptr(), out.numel(),
                    build.stream_ptr(plane.device)), "sign_pack")

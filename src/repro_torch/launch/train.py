@@ -54,13 +54,23 @@ parameters), adopts the winner's bucket budget and trains under the
 ``tuned`` controller, which re-ranks the sim-certified shortlist from
 the measured step times; it overrides ``--plan`` and ``--controller``.
 ``--ckpt-dir`` checkpoints every ``--ckpt-interval`` steps and restores
-the newest checkpoint on start.  ``--device-count`` (forced host device
-counts) is accepted and raises when set: it is still to port with
-``dryrun``.
+the newest checkpoint on start.  ``--device-count N`` is the port's
+counterpart of the reference's forced host device count: outside
+``torchrun`` the launcher starts the N ranks of the mesh itself (one
+process each, ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set as
+``torchrun`` sets them, a rendezvous on a free ``localhost`` port) and
+waits for them; N must equal the mesh's size, and under ``torchrun``
+``WORLD_SIZE``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \
+      --smoke --device cpu --mesh 2,2 --steps 1 --device-count 4
 """
 import argparse
 import logging
 import os
+import socket
+import subprocess
+import sys
 from datetime import timedelta
 
 #: the plan presets this port carries (repro_torch.fabric.plan_presets)
@@ -69,9 +79,6 @@ _PLAN_CHOICES = ["fp32", "gbin_backbone", "gbin_vote", "gbin_packed",
                  "gbin_packed_all", "gbin_packed_embed", "int4_backbone",
                  "topk_backbone", "hier_fp32_gbinary", "hier_fp32_gternary",
                  "hier_fp32_int4", "adaptive"]
-
-#: flags of the reference launcher whose machinery is still to port
-_NOT_PORTED = ("device_count",)
 
 #: how long a collective may wait for the other ranks before it fails
 _GROUP_TIMEOUT = timedelta(seconds=60)
@@ -113,15 +120,13 @@ def main(argv=None):
     ap.add_argument("--ckpt-interval", type=int, default=100)
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device-count", type=int, default=0)
+    ap.add_argument("--device-count", type=int, default=0,
+                    help="start this many ranks of the mesh (its size) "
+                         "when not under torchrun")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda or cpu)")
     args = ap.parse_args(argv)
 
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not ported to "
-                     f"repro_torch yet (see ROADMAP.md queue 1)")
     shape = tuple(int(x) for x in args.mesh.split(","))
     if len(shape) not in (2, 3) or min(shape) < 1:
         ap.error(f"--mesh {args.mesh}: give data,model or pod,data,model")
@@ -129,6 +134,17 @@ def main(argv=None):
     for s in shape[:-1]:
         workers *= s
     world = os.environ.get("WORLD_SIZE")
+    ranks = workers * shape[-1]
+    if args.device_count:
+        if args.device_count != ranks:
+            ap.error(f"--device-count {args.device_count}: the mesh "
+                     f"{args.mesh} holds {ranks} ranks")
+        if world is None:
+            raise SystemExit(_spawn(ranks, sys.argv[1:] if argv is None
+                                    else list(argv)))
+        if int(world) != args.device_count:
+            ap.error(f"--device-count {args.device_count}, but torchrun "
+                     f"started WORLD_SIZE={world} processes")
     if world is None and shape[-1] != 1:
         ap.error(f"--mesh {args.mesh}: a model axis above 1 runs one rank "
                  f"a process; start the launcher under torchrun with "
@@ -222,6 +238,35 @@ def main(argv=None):
           f"model={shape[-1]} "
           f"device={trainer.device}{rank}\n", end="", flush=True)
     return history
+
+
+def _spawn(n: int, argv: list) -> int:
+    """Run this launcher as the ``n`` ranks of one job, as ``torchrun
+    --standalone --nproc-per-node n`` would, and return the worst exit
+    code."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    base = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                PYTHONPATH=os.pathsep.join(
+                    [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    # torchrun's default for more than one process a node
+    base.setdefault("OMP_NUM_THREADS", "1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+        for r in range(n)]
+    try:
+        codes = [p.wait() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return max(codes, key=abs)
 
 
 if __name__ == "__main__":

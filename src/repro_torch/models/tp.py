@@ -42,6 +42,10 @@ def _tp_all_reduce(x: torch.Tensor, group_id: int) -> torch.Tensor:
 
 @_tp_all_reduce.register_fake
 def _(x, group_id):
+    # ``meta`` tensors reach this, not the operator's body: the launch
+    # dry-run's abstract step, whose group still counts the call
+    if x.device.type == "meta":
+        return _GROUPS[group_id].all_reduce(x)
     return torch.empty_like(x)
 
 

@@ -817,7 +817,9 @@ class Transformer(nn.Module):
         self.tp = _check_tp(cfg, tp)
         device = resolve_device(device)
         if params is None:
-            gen = torch.Generator(device=device).manual_seed(seed)
+            # the meta device holds shapes only and draws nothing
+            gen = (None if device.type == "meta" else
+                   torch.Generator(device=device).manual_seed(seed))
             params = init_params(cfg, generator=gen, device=device)
             if self.tp is not None:
                 params = T.map_leaves(torch.Tensor.clone, shard_params(

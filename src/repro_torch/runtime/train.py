@@ -227,6 +227,20 @@ class Trainer:
         t = torch.tensor([dt], dtype=torch.float64, device=self.device)
         return float(self._world.all_reduce(t, op="max")[0])
 
+    def step_function(self, plan: AdmissionPlan, *,
+                      with_diagnostics: bool = False, grad_accum: int = 1):
+        """The fabric's (cached) train step of the current state under
+        ``plan``: ``step(state, batch) -> (state, metrics, aggregates)``,
+        with this Trainer's partition specs and ZeRO-1 partition on a
+        mesh.  The loop runs it; the launch dry-run traces it."""
+        model = self.state.model
+        mesh_kw = ({} if self.mesh is None else
+                   {"pspecs": self.pspecs, "zero": self.zero})
+        return self.fabric.step_for(self.optimizer, plan, model.tree(),
+                                    model.loss,
+                                    with_diagnostics=with_diagnostics,
+                                    grad_accum=grad_accum, **mesh_kw)
+
     # -- loop -----------------------------------------------------------
 
     def run(self, num_steps: int) -> list[dict]:
@@ -272,13 +286,7 @@ class Trainer:
             # cosines land
             calibrating = bool(self.controller is not None and getattr(
                 self.controller, "wants_diagnostics", False))
-            model = self.state.model
-            mesh_kw = ({} if self.mesh is None else
-                       {"pspecs": self.pspecs, "zero": self.zero})
-            step_fn = self.fabric.step_for(self.optimizer, plan,
-                                           model.tree(), model.loss,
-                                           with_diagnostics=calibrating,
-                                           **mesh_kw)
+            step_fn = self.step_function(plan, with_diagnostics=calibrating)
             batch = self._batch(step, it)
             # the last step's aggregates are a model's worth of memory
             self.last_aggregates = None

@@ -441,24 +441,38 @@ def test_vote_kernel_set_accounting_matches_reference(fused_path,
 
 
 def test_wrappers_reject_other_devices_and_mixed_operands():
+    """CPU operands run the twins, CUDA ones the kernels and ``meta`` ones
+    the dry-run's route (tests/test_torch_launch.py); operands on any
+    other device, or on several, raise."""
+    import types
+
+    def elsewhere(t):       # a stand-in for a tensor on another device
+        return types.SimpleNamespace(device=torch.device("xpu"),
+                                     dtype=t.dtype, shape=t.shape)
+
     words = torch.zeros((1, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="no kernel"):
-        ops.unpack_ternary(words.to("meta"), words.to("meta"))
+        ops.unpack_ternary(elsewhere(words), elsewhere(words))
     with pytest.raises(ValueError, match="workers"):
         ops.vote_combine(torch.zeros((3, 1, 128), dtype=torch.int32), words,
                          num_workers=4)
     plane = torch.zeros((32, 128))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.popcount_stack(words.reshape(1, 1, 128).to("meta"))
+        ops.popcount_stack(elsewhere(words.reshape(1, 1, 128)))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.majority_decode(plane.to(torch.int32).to("meta"),
-                            words.to("meta"), num_workers=2)
+        ops.majority_decode(elsewhere(plane.to(torch.int32)),
+                            elsewhere(words), num_workers=2)
     with pytest.raises(ValueError, match="several devices"):
         ops.encode_pack_ef(plane, plane.to("meta"))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.ef_residual_plane(plane.to("meta"), torch.ones(1).to("meta"))
+        ops.ef_residual_plane(elsewhere(plane), elsewhere(torch.ones(1)))
     with pytest.raises(ValueError, match="several devices"):
         ops.ef_residual_plane(plane.to("meta"), torch.ones(1))
+    # the meta route launches nothing and returns the kernel's shapes
+    before = ops.unpack_ternary.launches
+    out = ops.unpack_ternary(words.to("meta"), words.to("meta"))
+    assert out.device.type == "meta" and out.shape == (32, 128)
+    assert ops.unpack_ternary.launches == before
 
 
 def test_kernel_wrappers_list_every_ported_kernel():

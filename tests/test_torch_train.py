@@ -332,7 +332,9 @@ def test_markov_successors_are_the_references_drawn_in_blocks(
 
 def test_launcher_rejects_a_model_axis_and_unported_flags():
     """A model axis above 1 runs one rank a process: outside torchrun the
-    launcher refuses it, as it refuses the flags still to port."""
+    launcher refuses it (unless ``--device-count`` starts the ranks), as
+    it refuses a ``--device-count`` other than the mesh's size and a
+    static controller without a concrete plan."""
     for argv in (["--mesh", "2,2"], ["--device-count", "2"],
                  ["--controller", "static", "--plan", "adaptive"]):
         with pytest.raises(SystemExit):
@@ -340,24 +342,54 @@ def test_launcher_rejects_a_model_axis_and_unported_flags():
                          "cpu", *argv])
 
 
+def test_launcher_device_count_must_match_the_mesh(monkeypatch):
+    """``--device-count`` must equal the mesh's size, and under torchrun
+    ``WORLD_SIZE``; both refusals come before any rank starts."""
+    base = ["--arch", "qwen3_0p6b", "--smoke", "--device", "cpu"]
+    for argv in (["--mesh", "2,2", "--device-count", "3"],
+                 ["--mesh", "2,2", "--device-count", "8"]):
+        with pytest.raises(SystemExit) as e:
+            launch_main(base + argv)
+        assert e.value.code == 2
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(SystemExit) as e:
+        launch_main(base + ["--mesh", "2,1", "--device-count", "2"])
+    assert e.value.code == 2
+
+
 def test_launcher_under_torchrun_trains_a_2x2_mesh(tmp_path):
     """``torchrun --nproc-per-node 4 ... --mesh 2,2``: one step on a
     (data 2) x (model 2) mesh over gloo; every rank prints the same loss
-    and the whole model's traffic ratio."""
+    and the whole model's traffic ratio.  ``--device-count 4`` with the
+    same flags, outside torchrun, starts the four ranks itself and prints
+    the same ``final:`` lines."""
     env = dict(os.environ)
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "XLA_FLAGS"):
         env.pop(k, None)
     env.update(PYTHONPATH=SRC, OMP_NUM_THREADS="1", TMPDIR=str(tmp_path))
+    flags = ["--arch", "qwen3_0p6b", "--smoke", "--device", "cpu", "--mesh",
+             "2,2", "--steps", "1", "--plan", "gbin_packed",
+             "--global-batch", "4", "--seq-len", "16"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-           "--arch", "qwen3_0p6b", "--smoke", "--device", "cpu", "--mesh",
-           "2,2", "--steps", "1", "--plan", "gbin_packed",
-           "--global-batch", "4", "--seq-len", "16"]
-    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                       timeout=300, cwd=tmp_path)
+           "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *flags]
+    own = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *flags,
+         "--device-count", "4"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=tmp_path)
+    try:
+        r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=300, cwd=tmp_path)
+        own_out, own_err = own.communicate(timeout=300)
+    finally:
+        if own.poll() is None:
+            own.kill()
+            own.wait()
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert own.returncode == 0, own_out[-2000:] + own_err[-3000:]
     finals = [line for line in r.stdout.splitlines()
               if line.startswith("final:")]
+    assert sorted(finals) == sorted(
+        line for line in own_out.splitlines() if line.startswith("final:"))
     assert len(finals) == 4, r.stdout
     assert len({line.split("loss=")[1].split()[0] for line in finals}) == 1
     assert {line.rsplit("rank=", 1)[1] for line in finals} == \
