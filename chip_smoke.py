@@ -303,7 +303,42 @@ Phases (any failure exits non-zero before the result line):
                     assertions, the training examples' rank 0 launching
                     sign_pack, vote_combine and unpack_ternary (bf16 for
                     the bf16 preset); each one's seconds;
- 17. the launch tooling:
+ 17. expert parallelism:
+       Z. moe-mesh  deepseek-moe-16b at full width cut to run M's 3 layers
+                    on a (data 2) x (model 2) process mesh: four gloo
+                    ranks spawned on cuda:0 (``chip_smoke.py --run-z-rank r
+                    dir``), the 64 routed experts 32 a model rank, the
+                    router replicated, the shared experts, attention, MLP
+                    and vocabulary split as the dense family's.  Z.1:
+                    gbin_packed, AdamW with ZeRO-1, 2 steps, one
+                    1024-token dispatch group (2 x 512) a data rank:
+                    finite losses equal on every rank, a launch a step
+                    each of sign_pack, vote_combine and bf16
+                    unpack_ternary for each tensor-parallel low-bit leaf
+                    and low-bit bucket of the layout, the traffic ratio
+                    the unsharded Fabric's 0.27310381290117447, ZeRO-1
+                    moments half of whole, replicated leaves bit-equal on
+                    every rank and blocks on both data ranks after the
+                    last step, each model rank's step-0 routing equal;
+                    then, in this process, the unsharded model on the
+                    same parameters and data rank 0's batch: its loss,
+                    each step-0 gradient block within run Q's bf16-noise
+                    yardstick, and the count of the step-0 forward's
+                    top-k choices that differ from it (printed).  Z.2:
+                    the seed's parameters, batch 4, 64-token prompts
+                    through the mesh's cached prefill and 16 greedy
+                    tokens, bf16 cache (128 positions, 64 a model rank):
+                    the logits within 2^-4 of the largest of the
+                    one-device step's teacher-forced on the same tokens
+                    at every (position, row) whose step chose the same
+                    experts on both (a bf16 near-tie flips a choice: the
+                    flips and their distance printed), and a float32 pass
+                    (float32 weights and cache, 8 prompt tokens, 8
+                    greedy) within 1e-4 everywhere, its greedy tokens
+                    equal; decode-step ms, launch calls and collectives a
+                    step, peak memory a rank and the run's seconds
+                    printed;
+ 18. the launch tooling:
        Y. dryrun    Y.1, started in the background right after the build
                     (CPU work only) and read here: ``python -m
                     repro_torch.launch.dryrun`` on full
@@ -312,10 +347,12 @@ Phases (any failure exits non-zero before the result line):
                     by one process under a fake process group, on
                     ``meta`` tensors; long_500k skipped), then
                     ``decode_32k`` of every architecture on 16 x 16: the
-                    failures exactly the families without tensor
-                    parallelism and qwen2.5-14B (40 query heads on 16
-                    ranks), each a NotImplementedError; the report's
-                    tables.  Y.2, beside it: run Q's train step and run
+                    failures exactly the families whose tensor
+                    parallelism is still to port (xlstm-125m, hymba-1.5b,
+                    whisper-tiny), each a NotImplementedError, the MoE
+                    configs (experts over 16 model ranks), the VLM and
+                    qwen2.5-14B (40 query heads on 16 ranks: 320 columns
+                    a rank, 2.5 heads) tracing; the report's tables.  Y.2, beside it: run Q's train step and run
                     W's batched decode step on four gloo ranks on cuda:0
                     (``chip_smoke.py --run-y-rank r dir``), and the
                     dry-run's trace of the same cells on a fake (2, 2)
@@ -324,13 +361,14 @@ Phases (any failure exits non-zero before the result line):
                     the traced peak within Y_PEAK_BAND of the rank's
                     ``max_memory_allocated``, the roofline bound no
                     longer than the measured step;
- 18. print the kernels line (launches summed over the runs, runs Q's, X's
-     mesh examples' and Y's from rank 0), the card, then ``{"ok": true,
-     "device": {...}}`` last.
+ 19. print the kernels line (launches summed over the runs, runs Q's, X's
+     mesh examples', Z's and Y's from rank 0), the card, then ``{"ok":
+     true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import gc
 import json
 import os
@@ -2602,12 +2640,37 @@ def run_q_rank(rank: int, out: str) -> None:
     dist.destroy_process_group()
 
 
-def run_tp_on_card() -> dict:
-    """Run Q: the full qwen3-0.6B on a (data 2) x (model 2) process mesh,
-    four gloo ranks spawned on cuda:0 (the machine has one card), 2 steps
-    of gbin_packed with AdamW and ZeRO-1; then the step-0 gradients and
-    loss of data rank 0's ranks against the unsharded model on the same
-    parameters and batch, in this process."""
+@contextlib.contextmanager
+def record_routing():
+    """The MoE layers' top-k expert indices (``topi``) of the forwards run
+    inside, in call order (a recompute in the backward appends again).
+    They stay on the device until the block ends, then move to the host
+    in one pass: no host sync inside a timed step."""
+    import repro_torch.models.layers as L
+    picks, real = [], L._top_k
+
+    def recording(x, k):
+        v, i = real(x, k)
+        picks.append(i.detach())
+        return v, i
+    L._top_k = recording
+    try:
+        yield picks
+    finally:
+        L._top_k = real
+        picks[:] = [t.cpu() for t in picks]
+
+
+def unsharded_yardstick(name: str, cfg, batch: dict, grads: dict, mesh_shape,
+                        shard: int, routing: list | None = None) -> tuple:
+    """The unsharded model (seed 0, as the ranks') on the same parameters:
+    its mean loss over the data ranks' shards of ``batch``, and each
+    step-0 gradient block of data rank 0's model ranks (``grads[m]``,
+    path -> block) against it on that rank's shard: the relative L2
+    distance from the float32 gradient, tensor-parallel and unsharded
+    bf16; fails where the first is beyond Q_GRAD_NOISE x the second plus
+    2^-8.  ``routing`` collects the bf16 forward's expert choices.
+    Returns (mean loss, {path: distances}, the worst leaf, the model)."""
     import dataclasses
 
     from repro_torch.core import tree as T
@@ -2615,6 +2678,62 @@ def run_tp_on_card() -> dict:
     from repro_torch.models.transformer import param_pspecs
     from repro_torch.runtime.shardings import sanitize_pspecs, shard_of
 
+    model = Transformer(cfg, device="cuda", seed=0)
+    params = model.tree()
+    full_batch = {n: torch.as_tensor(v).cuda() for n, v in batch.items()}
+    shards = [{n: v[d * shard:(d + 1) * shard]
+               for n, v in full_batch.items()} for d in range(mesh_shape[0])]
+    with torch.no_grad():
+        mean = sum(float(loss_fn(params, cfg, b)) for b in shards) / \
+            mesh_shape[0]
+    leaves = T.leaves(params)
+    with record_routing() as picks:
+        loss = loss_fn(params, cfg, shards[0])
+    if routing is not None:
+        routing.extend(picks)
+    whole = torch.autograd.grad(loss, leaves)
+    del loss
+    # the same model in float32: the yardstick of the bf16 noise
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.map_leaves(
+        lambda x: x.detach().to(torch.float32).requires_grad_(), params)
+    whole32 = torch.autograd.grad(loss_fn(params32, cfg32, shards[0]),
+                                  T.leaves(params32))
+    del params32
+    extents = {"data": mesh_shape[0], "model": mesh_shape[1]}
+    specs = T.leaves(sanitize_pspecs(param_pspecs(cfg), params, extents))
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    errs = {}                   # leaf -> (tensor-parallel, unsharded bf16)
+    for r, blocks in grads.items():
+        coords = {"data": 0, "model": r}
+        for (p, _), g, g32, spec in zip(T.flatten(params), whole, whole32,
+                                        specs):
+            want = shard_of(g32, spec, extents, coords)
+            e = (rel(blocks[p].cuda().to(torch.float32), want),
+                 rel(shard_of(g, spec, extents, coords).to(torch.float32),
+                     want))
+            errs[p] = max(errs.get(p, e), e)
+    del whole, whole32, leaves
+    free()
+    bad = {p: e for p, e in errs.items()
+           if e[0] > Q_GRAD_NOISE * e[1] + 2 ** -8}
+    if bad:
+        fail(f"{name}: step-0 gradient blocks (relative L2 distance from "
+             f"the float32 gradient, tensor-parallel and unsharded bf16) "
+             f"beyond {Q_GRAD_NOISE}x the bf16 noise: {bad}")
+    worst = max(errs, key=lambda p: errs[p][0] / max(errs[p][1], 1e-30))
+    return mean, errs, worst, model
+
+
+def run_tp_on_card() -> dict:
+    """Run Q: the full qwen3-0.6B on a (data 2) x (model 2) process mesh,
+    four gloo ranks spawned on cuda:0 (the machine has one card), 2 steps
+    of gbin_packed with AdamW and ZeRO-1; then the step-0 gradients and
+    loss of data rank 0's ranks against the unsharded model on the same
+    parameters and batch, in this process."""
     world = Q_MESH[0] * Q_MESH[1]
     ranks, grads, spawn_s = spawn_ranks(
         "--run-q-rank", world,
@@ -2636,51 +2755,10 @@ def run_tp_on_card() -> dict:
         if 2 * res["moment_bytes"] != res["whole_moment_bytes"]:
             fail(f"Q: rank {r}'s ZeRO-1 moments {res['moment_bytes']} B, "
                  f"not half of {res['whole_moment_bytes']} B")
-    # the unsharded model on the same parameters and data rank 0's batch
     cfg = q_config()
-    data = q_data(cfg)
-    model = Transformer(cfg, device="cuda", seed=0)
-    params = model.tree()
-    full_batch = {n: torch.as_tensor(v).cuda()
-                  for n, v in data.batch_at(0).items()}
-    shards = [{n: v[d * Q_SHARD:(d + 1) * Q_SHARD]
-               for n, v in full_batch.items()} for d in range(Q_MESH[0])]
-    with torch.no_grad():
-        mean = sum(float(loss_fn(params, cfg, b)) for b in shards) / \
-            Q_MESH[0]
-    leaves = T.leaves(params)
-    whole = torch.autograd.grad(loss_fn(params, cfg, shards[0]), leaves)
-    # the same model in float32: the yardstick of the bf16 noise
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = T.map_leaves(
-        lambda x: x.detach().to(torch.float32).requires_grad_(), params)
-    whole32 = torch.autograd.grad(loss_fn(params32, cfg32, shards[0]),
-                                  T.leaves(params32))
-    del params32
-    extents = {"data": Q_MESH[0], "model": Q_MESH[1]}
-    specs = T.leaves(sanitize_pspecs(param_pspecs(cfg), params, extents))
-
-    def rel(a, b):
-        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
-
-    errs = {}                   # leaf -> (tensor-parallel, unsharded bf16)
-    for r, blocks in grads.items():
-        coords = {"data": 0, "model": r}
-        for (p, _), g, g32, spec in zip(T.flatten(params), whole, whole32,
-                                        specs):
-            want = shard_of(g32, spec, extents, coords)
-            e = (rel(blocks[p].cuda().to(torch.float32), want),
-                 rel(shard_of(g, spec, extents, coords).to(torch.float32),
-                     want))
-            errs[p] = max(errs.get(p, e), e)
-    del whole, whole32, grads, model, params, leaves
-    bad = {p: e for p, e in errs.items()
-           if e[0] > Q_GRAD_NOISE * e[1] + 2 ** -8}
-    if bad:
-        fail(f"Q: step-0 gradient blocks (relative L2 distance from the "
-             f"float32 gradient, tensor-parallel and unsharded bf16) "
-             f"beyond {Q_GRAD_NOISE}x the bf16 noise: {bad}")
-    worst = max(errs, key=lambda p: errs[p][0] / max(errs[p][1], 1e-30))
+    mean, errs, worst, model = unsharded_yardstick(
+        "Q", cfg, q_data(cfg).batch_at(0), grads, Q_MESH, Q_SHARD)
+    del model, grads
     loss_err = abs(r0["loss"][0] - mean) / abs(mean)
     if loss_err > Q_LOSS_RTOL:
         fail(f"Q: step-0 loss {r0['loss'][0]} against the unsharded "
@@ -3849,46 +3927,51 @@ def w_prompt(cfg) -> torch.Tensor:
         0, cfg.vocab_size, (W_BATCH, W_PROMPT)))
 
 
-def w_layout(mesh, cfg, params, batch: int, prompt) -> dict:
-    """One layout of run W on this rank: ``prompt`` (batch, W_PROMPT)
-    through the mesh's cached prefill, W_NEW greedy tokens through its
-    step, each timed; one step's collectives and launch calls."""
+def w_layout(mesh, cfg, params, batch: int, prompt, new: int = W_NEW,
+             max_seq: int = W_MAX_SEQ, routing: list | None = None) -> dict:
+    """One layout of run W (or Z.2) on this rank: ``prompt`` (batch,
+    prompt length) through the mesh's cached prefill, ``new`` greedy
+    tokens through its step, each timed; one step's collectives and
+    launch calls.  ``routing`` collects the prefill's and the decode's
+    expert choices."""
     from repro_torch.models import init_cache
     from repro_torch.runtime.serve import build_cached_prefill, \
         build_serve_step
 
-    step, sh = build_serve_step(cfg, mesh, batch=batch, max_seq=W_MAX_SEQ)
-    prefill = build_cached_prefill(cfg, mesh, batch=batch,
-                                   max_seq=W_MAX_SEQ)
+    step, sh = build_serve_step(cfg, mesh, batch=batch, max_seq=max_seq)
+    prefill = build_cached_prefill(cfg, mesh, batch=batch, max_seq=max_seq)
     # one untimed step on a scratch cache: the first calls' set-up
-    step(params, prompt[:, :1], init_cache(cfg, batch, W_MAX_SEQ,
+    step(params, prompt[:, :1], init_cache(cfg, batch, max_seq,
                                            device="cuda", mesh=mesh), 0)
-    cache = init_cache(cfg, batch, W_MAX_SEQ, device="cuda", mesh=mesh)
+    cache = init_cache(cfg, batch, max_seq, device="cuda", mesh=mesh)
     local_k = tuple(cache["k"].shape)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt, W_PROMPT, cache)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    rows, toks, step_ms, calls = [logits], [], [], None
-    for i in range(W_NEW):
-        tok = rows[-1].argmax(-1)[:, None]
-        toks.append(tok)
-        if i == 1:
-            mesh.reset_counts()
-        t0 = time.perf_counter()
-        logits, cache = step(params, tok, cache, W_PROMPT + i)
+    n = prompt.shape[1]
+    with record_routing() as picks:
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if i == 1:
-            calls = {name: (dict(g.calls_by_op), dict(g.bytes_by_op))
-                     for name, g in (("data", mesh.data_group),
-                                     ("model", mesh.model_group),
-                                     ("world", mesh.world))}
-        rows.append(logits)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompt, n, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        rows, toks, step_ms, calls = [logits], [], [], None
+        for i in range(new):
+            tok = rows[-1].argmax(-1)[:, None]
+            toks.append(tok)
+            if i == 1:
+                mesh.reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = step(params, tok, cache, n + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                calls = {name: (dict(g.calls_by_op), dict(g.bytes_by_op))
+                         for name, g in (("data", mesh.data_group),
+                                         ("model", mesh.model_group),
+                                         ("world", mesh.world))}
+            rows.append(logits)
+    if routing is not None:
+        routing.extend(picks)
     nxt = rows[-1].argmax(-1)[:, None]
-    launch = launch_calls(lambda: step(params, nxt, cache,
-                                       W_PROMPT + W_NEW))
+    launch = launch_calls(lambda: step(params, nxt, cache, n + new))
     return {"shard_seq": sh["shard_seq"], "local_k": local_k,
             "prefill_s": prefill_s, "step_ms": step_ms, "calls": calls,
             "launch_calls": launch,
@@ -3897,7 +3980,8 @@ def w_layout(mesh, cfg, params, batch: int, prompt) -> dict:
             "finite": all(bool(torch.isfinite(r).all()) for r in rows)}
 
 
-def w_f32(mesh, cfg, params, batch: int, prompt) -> dict:
+def w_f32(mesh, cfg, params, batch: int, prompt,
+          max_seq: int = W_MAX_SEQ) -> dict:
     """The float32 pass: W_F32_TOKENS prompt tokens teacher-forced, then
     W_F32_TOKENS greedy ones, through the mesh's step on a float32 copy
     of the weights and a float32 cache."""
@@ -3909,19 +3993,42 @@ def w_f32(mesh, cfg, params, batch: int, prompt) -> dict:
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = T.map_leaves(lambda t: t.to(torch.float32), params)
-    step, _ = build_serve_step(cfg32, mesh, batch=batch, max_seq=W_MAX_SEQ)
-    cache = init_cache(cfg32, batch, W_MAX_SEQ, dtype=torch.float32,
+    step, _ = build_serve_step(cfg32, mesh, batch=batch, max_seq=max_seq)
+    cache = init_cache(cfg32, batch, max_seq, dtype=torch.float32,
                        device="cuda", mesh=mesh)
     rows, toks = [], []
-    for t in range(2 * W_F32_TOKENS):
-        if t < W_F32_TOKENS:
-            tok = prompt[:, t:t + 1]
-        else:
-            tok = rows[-1].argmax(-1)[:, None].to(prompt.device)
-            toks.append(tok.cpu())
-        logits, cache = step(p32, tok, cache, t)
-        rows.append(logits.cpu())
-    return {"logits": torch.stack(rows), "tokens": torch.cat(toks, dim=1)}
+    with record_routing() as picks:
+        for t in range(2 * W_F32_TOKENS):
+            if t < W_F32_TOKENS:
+                tok = prompt[:, t:t + 1]
+            else:
+                tok = rows[-1].argmax(-1)[:, None].to(prompt.device)
+                toks.append(tok.cpu())
+            logits, cache = step(p32, tok, cache, t)
+            rows.append(logits.cpu())
+    return {"logits": torch.stack(rows), "tokens": torch.cat(toks, dim=1),
+            "topi": picks}
+
+
+def one_device_logits(cfg, params, prompt, tokens, max_seq: int,
+                      dtype=torch.bfloat16):
+    """The one-device step teacher-forced on ``prompt`` and a mesh's
+    greedy ``tokens`` (on the host), on a cache of ``dtype``: the float32
+    logits from the prompt's last position on, (len(tokens) + 1, batch,
+    V) on the host."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.serve import build_serve_step
+
+    batch, n = prompt.shape
+    seq = torch.cat([prompt, tokens.to(prompt.device)], dim=1)
+    step, _ = build_serve_step(cfg, batch=batch, max_seq=max_seq)
+    cache = init_cache(cfg, batch, max_seq, dtype=dtype, device="cuda")
+    rows = []
+    for t in range(seq.shape[1]):
+        lg, cache = step(params, seq[:, t:t + 1], cache, t)
+        if t >= n - 1:
+            rows.append(lg.to(torch.float32))
+    return torch.stack(rows).cpu()
 
 
 def run_w_rank(rank: int, out: str) -> None:
@@ -4004,15 +4111,8 @@ def run_serve_mesh() -> dict:
         if got["shard_seq"] != want_shard:
             fail(f"W {name}: shard_seq {got['shard_seq']}")
         # the one-device step, teacher-forced on the mesh's tokens
-        tokens = torch.cat([prompt[:batch], got["tokens"].cuda()], dim=1)
-        step, _ = build_serve_step(cfg, batch=batch, max_seq=W_MAX_SEQ)
-        cache = init_cache(cfg, batch, W_MAX_SEQ, device="cuda")
-        rows = []
-        for t in range(W_PROMPT + W_NEW):
-            lg, cache = step(params, tokens[:, t:t + 1], cache, t)
-            if t >= W_PROMPT - 1:
-                rows.append(lg.to(torch.float32))
-        one = torch.stack(rows).cpu()
+        one = one_device_logits(cfg, params, prompt[:batch], got["tokens"],
+                                W_MAX_SEQ)
         mesh_lg = got["logits"]
         err = float((mesh_lg - one).abs().max())
         big = float(one.abs().max())
@@ -4226,7 +4326,354 @@ def run_examples() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the launch tooling
+# phase 17: expert parallelism on a (data, model) process mesh (run Z)
+# ---------------------------------------------------------------------------
+
+Z_MESH = (2, 2)             # (data, model)
+Z_STEPS = 2
+#: a data rank's sequences of Z_SEQ tokens: one 1024-token dispatch group
+Z_SHARD, Z_SEQ = 2, 512
+#: the unsharded Fabric's on the same model and plan (run M's)
+Z_TRAFFIC_RATIO = 0.27310381290117447
+Z_PROMPT, Z_NEW, Z_MAX_SEQ = 64, 16, 128
+#: Z.2's gate on its bf16 near-ties: at most Z_FLIPS_MAX of the 640
+#: (token, MoE layer) expert sets flipped, and at least Z_HELD_MIN of the
+#: (position, row)s held by W_TOL; an H100 measured 40 flips and 57 of 68
+#: held, so these are twice the flips and half the positions
+Z_FLIPS_MAX, Z_HELD_MIN = 80, 0.5
+
+
+def z_config():
+    """Run Z's model: deepseek-moe-16b at full width cut to run M's 3
+    layers (the dense first layer and 2 MoE layers of 64 routed experts,
+    top-6, and 2 shared; 1,681,143,808 parameters)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek_moe_16b"), num_layers=3)
+
+
+def z_data(cfg):
+    from repro_torch.data import SyntheticLMStream
+    return SyntheticLMStream(vocab=cfg.vocab_size, seq_len=Z_SEQ,
+                             batch=Z_MESH[0] * Z_SHARD, seed=0,
+                             learnable=False)
+
+
+def run_z_rank(rank: int, out: str) -> None:
+    """One rank of run Z: Z.1, Z_STEPS gbin_packed steps with AdamW and
+    ZeRO-1 of run Z's model on a (data 2) x (model 2) mesh, its experts
+    over the model ranks; then Z.2, a batched decode of W_BATCH rows on
+    the same ranks from the seed's parameters."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core import ProcessMesh, codec_name
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import shard_params
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=Z_MESH[0] * Z_MESH[1],
+                            timeout=timedelta(seconds=300))
+    mesh = ProcessMesh(Z_MESH, device="cuda:0")
+    cfg = z_config()
+    data = z_data(cfg)
+    plan = plan_presets()["gbin_packed"]
+    fabric = Fabric(mesh=mesh)
+    trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
+                                 total_steps=Z_STEPS), data, plan=plan,
+                      fabric=fabric, seed=0, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.init_state()
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0, "coords": mesh.coords}
+    model = trainer.state.model
+    params = model.tree()
+    layout = fabric.layout_for(params, plan, trainer.pspecs)
+    packed = [(key, n) for key, n in layout.launches()
+              if codec_name(key.mode) != "fp32"]
+    if any(key.schedule != "packed_a2a" for key, _ in packed):
+        fail(f"Z: low-bit launches off the packed schedule: {packed}")
+    specs = dict(T.flatten(trainer.pspecs))
+    res["experts"] = sorted(p for p, s in specs.items()
+                            if len(s) == 4 and s[1] == "model")
+    res["unfused"] = [u.name for u in layout.unfused]
+    res["buckets"] = [[s.name for s in b.slots] for b in layout.buckets]
+    st = trainer.state.opt
+    res["moment_bytes"] = sum(m.numel() * 4 for m in
+                              T.leaves(st.mu) + T.leaves(st.nu))
+    res["whole_moment_bytes"] = sum(2 * 4 * p.numel()
+                                    for p in T.leaves(params))
+    res["params_local"] = sum(p.numel() for p in T.leaves(params))
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    decode_by = wrappers["unpack_ternary"].launches_by_dtype
+    res.update(loss=[], step_s=[], launches=[], calls=[])
+    for k in range(Z_STEPS):
+        batch = {n: torch.as_tensor(v).cuda()
+                 for n, v in data.batch_at(k).items()}
+        if k == 0:
+            # this step's gradients and routing, recomputed, for the
+            # parent's unsharded model
+            with record_routing() as picks:
+                grads, _ = fabric.worker_grads(params, batch, model.loss)
+            res["topi"] = picks[:cfg.num_layers - cfg.moe.first_dense]
+            if mesh.data_index == 0:
+                torch.save({p: g[0].cpu() for p, g in T.flatten(grads)},
+                           os.path.join(out, f"grads{rank}.pt"))
+            del grads
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        dtype_before = dict(decode_by)
+        mesh.reset_counts()
+        trainer.run(k + 1)
+        rec = trainer.history[-1]
+        delta = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+        split = {str(dt): n - dtype_before[dt] for dt, n in decode_by.items()}
+        want = {n: len(packed) if n in ("sign_pack", "vote_combine",
+                                        "unpack_ternary") else 0
+                for n in wrappers}
+        if delta != want or split["torch.bfloat16"] != len(packed):
+            fail(f"Z rank {rank} step {k}: launches {delta} ({split} by "
+                 f"decode dtype), the layout models {want}, all bf16")
+        if not np.isfinite(rec["loss"]):
+            fail(f"Z rank {rank} step {k}: loss {rec['loss']}")
+        res["loss"].append(rec["loss"])
+        res["step_s"].append(rec["step_time_s"])
+        res["traffic_ratio"] = rec["traffic_ratio"]
+        res["launches"].append({n: d for n, d in delta.items() if d})
+        res["calls"].append({
+            name: (dict(g.calls_by_op), dict(g.bytes_by_op))
+            for name, g in (("data", mesh.data_group),
+                            ("model", mesh.model_group),
+                            ("world", mesh.world))})
+    # replicas: a replicated leaf on all four ranks, a block on both data
+    # ranks that hold it
+    bad = [p for p, x in T.flatten(model.tree()) if not _q_same_across(
+        mesh.data_group if any(e is not None for e in specs[p])
+        else mesh.world, x)]
+    if bad:
+        fail(f"Z rank {rank}: replicas differ on {bad}")
+    res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["kernel_launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    res["kernel_launches_bf16"] = decode_by[torch.bfloat16]
+    del trainer, model, params, layout, st
+    free()
+
+    # Z.2: the seed's parameters, this rank's blocks
+    whole = init_params(cfg, generator=torch.Generator(device="cuda")
+                        .manual_seed(0), device="cuda")
+    blocks = T.map_leaves(torch.Tensor.clone, shard_params(
+        whole, cfg, mesh.extents, mesh.coords))
+    del whole
+    free()
+    prompt = w_prompt(cfg)[:, :Z_PROMPT].cuda()
+    routing = []
+    res["decode"] = w_layout(mesh, cfg, blocks, W_BATCH, prompt, new=Z_NEW,
+                             max_seq=Z_MAX_SEQ, routing=routing)
+    res["decode"]["topi"] = routing
+    res["decode"]["logits_sum"] = float(res["decode"]["logits"].sum())
+    res["decode/f32"] = w_f32(mesh, cfg, blocks, W_BATCH, prompt,
+                              max_seq=Z_MAX_SEQ)
+    if rank:                    # the logits are replicated: keep rank 0's
+        res["decode"].pop("logits")
+        res.pop("decode/f32")
+    res["decode_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_moe_mesh() -> dict:
+    """Run Z: run Z's model (deepseek-moe-16b, 3 layers) on a (data 2) x
+    (model 2) process mesh, four gloo ranks spawned on cuda:0 (the machine
+    has one card), its 64 experts 32 a model rank.  Z.1: 2 gbin_packed
+    steps with AdamW and ZeRO-1, one 1024-token dispatch group a data
+    rank; the step-0 gradients, loss and routing of data rank 0's ranks
+    against the unsharded model on the same parameters and batch, in this
+    process.  Z.2: a batched decode (W_BATCH rows, Z_PROMPT-token prompts,
+    Z_NEW greedy tokens, bf16 cache) against the one-device step
+    teacher-forced on the same tokens, and a float32 pass."""
+    import dataclasses
+
+    from repro_torch.core import tree as T
+
+    t_run = time.perf_counter()
+    card = card_line()
+    world = Z_MESH[0] * Z_MESH[1]
+    ranks, grads, spawn_s = spawn_ranks(
+        "--run-z-rank", world,
+        extra=lambda out: {r: torch.load(os.path.join(out, f"grads{r}.pt"))
+                           for r in range(Z_MESH[1])})
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        if res["loss"] != r0["loss"]:
+            fail(f"Z: rank {r}'s losses {res['loss']}, rank 0's "
+                 f"{r0['loss']}")
+        if res["traffic_ratio"] != Z_TRAFFIC_RATIO:
+            fail(f"Z: rank {r}'s traffic ratio {res['traffic_ratio']!r}, "
+                 f"the unsharded Fabric's {Z_TRAFFIC_RATIO!r}")
+        if 2 * res["moment_bytes"] != res["whole_moment_bytes"]:
+            fail(f"Z: rank {r}'s ZeRO-1 moments {res['moment_bytes']} B, "
+                 f"not half of {res['whole_moment_bytes']} B")
+        # the routing is computed whole on every model rank of a data rank
+        peer = ranks[r - r % Z_MESH[1]]
+        if any(not torch.equal(a, b) for a, b in zip(res["topi"],
+                                                     peer["topi"])):
+            fail(f"Z: rank {r}'s expert choices differ from its model "
+                 f"group's rank 0")
+    if r0["experts"] != ["layers/moe/w_down", "layers/moe/w_gate",
+                         "layers/moe/w_up"]:
+        fail(f"Z: expert-parallel leaves {r0['experts']}")
+    cfg = z_config()
+    routing = []
+    mean, errs, worst, model = unsharded_yardstick(
+        "Z", cfg, z_data(cfg).batch_at(0), grads, Z_MESH, Z_SHARD,
+        routing=routing)
+    del grads
+    moe_layers = cfg.num_layers - cfg.moe.first_dense
+    one_topi = routing[:moe_layers]
+    flips = sum(int((a != b).sum()) for a, b in zip(r0["topi"], one_topi))
+    moved = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                for a, b in zip(r0["topi"], one_topi))
+    choices = sum(a.numel() for a in one_topi)
+    loss_err = abs(r0["loss"][0] - mean) / abs(mean)
+    if loss_err > Q_LOSS_RTOL:
+        fail(f"Z: step-0 loss {r0['loss'][0]} against the unsharded "
+             f"{mean} (relative {loss_err})")
+
+    # Z.2 against the one-device step on the same (seed) parameters
+    got = r0["decode"]
+    if not all(r["decode"]["finite"] for r in ranks):
+        fail("Z.2: non-finite logits")
+    if len({r["decode"]["logits_sum"] for r in ranks}) != 1 or any(
+            not torch.equal(r["decode"]["tokens"], got["tokens"])
+            for r in ranks):
+        fail("Z.2: the ranks' logits or tokens differ")
+    prompt = w_prompt(cfg)[:W_BATCH, :Z_PROMPT].cuda()
+    params = model.tree()
+    with record_routing() as picks:
+        one = one_device_logits(cfg, params, prompt, got["tokens"],
+                                Z_MAX_SEQ)
+    # a near-tie that bf16 flips: each step's expert sets of each row at
+    # each MoE layer, mesh against one device.  Where a step flips one,
+    # the two decodes part by a discrete choice at that position: its
+    # logits are counted and printed, and every other position's held
+    # (a flip reaches a later position only through one cached position
+    # of the last MoE layer's attention, of at least Z_PROMPT)
+    sets = [torch.stack(t).reshape(-1, moe_layers, W_BATCH, cfg.moe.top_k)
+            .sort(-1)[0] for t in (got["topi"], picks)]
+    flip = (sets[0] != sets[1]).any(-1).any(1)              # (steps, B)
+    flip_tokens = int((sets[0] != sets[1]).any(-1).sum())
+    held = ~flip[Z_PROMPT - 1:, :, None].expand_as(one)
+    held_share = float(held[..., 0].float().mean())
+    if flip_tokens > Z_FLIPS_MAX or held_share < Z_HELD_MIN:
+        fail(f"Z.2: {flip_tokens} expert sets flipped (at most "
+             f"{Z_FLIPS_MAX}), {held_share:.3f} of the (position, row)s "
+             f"held (at least {Z_HELD_MIN})")
+    err = float((got["logits"] - one)[held].abs().max())
+    big = float(one.abs().max())
+    flipped_err = float((got["logits"] - one).abs().max())
+    greedy = one[:-1].argmax(-1).T
+    if not err <= W_TOL * big:
+        fail(f"Z.2: the mesh's logits {err} from the one-device step's "
+             f"where no expert choice flipped, over {W_TOL} of the "
+             f"largest {big}")
+    # float32: every position held, every expert choice equal
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = T.map_leaves(lambda t: t.detach().to(torch.float32), params)
+    f32 = r0["decode/f32"]
+    with record_routing() as picks32:
+        one32 = one_device_logits(cfg32, p32, prompt[:, :W_F32_TOKENS],
+                                  f32["tokens"], Z_MAX_SEQ,
+                                  dtype=torch.float32)
+    del p32, params, model
+    free()
+    mesh32 = f32["logits"][W_F32_TOKENS - 1:]
+    err32 = float((mesh32 - one32).abs().max())
+    big32 = float(one32.abs().max())
+    same32 = torch.equal(one32[:-1].argmax(-1).T, f32["tokens"])
+    flips32 = sum(int((a != b).sum()) for a, b in zip(f32["topi"], picks32))
+    if len(f32["topi"]) != len(picks32) or flips32:
+        fail(f"Z.2 float32: {flips32} expert choices differ from the "
+             f"one-device step's ({len(f32['topi'])} and {len(picks32)} "
+             f"MoE calls)")
+    if not (err32 <= W_TOL32 * big32 and same32):
+        fail(f"Z.2 float32: the mesh's logits {err32} from the one-device "
+             f"step's (bound {W_TOL32} of {big32}), greedy tokens equal "
+             f"{same32}")
+    run_s = time.perf_counter() - t_run
+    print(f"[Z moe-mesh] {card}: {world} gloo ranks on cuda:0 (one card) as "
+          f"(data, model) = {Z_MESH}, {cfg.name} cut to {cfg.num_layers} "
+          f"layers ({r0['params_local']} parameters a rank; experts "
+          f"{cfg.moe.num_experts // Z_MESH[1]} a model rank on "
+          f"{r0['experts']}), gbin_packed, AdamW with ZeRO-1, "
+          f"{Z_MESH[0]} x {Z_SHARD} x {Z_SEQ} tokens", flush=True)
+    print(f"[Z moe-mesh] per-leaf (tensor-parallel) low-bit leaves "
+          f"{r0['unfused']}; buckets {r0['buckets']}", flush=True)
+    print(f"[Z moe-mesh] losses {r0['loss']} (the unsharded model's step-0 "
+          f"loss {mean:.6f}, relative {loss_err:.3e}); traffic ratio "
+          f"{r0['traffic_ratio']} (the unsharded Fabric's)", flush=True)
+    print(f"[Z moe-mesh] step seconds by rank "
+          f"{[res['step_s'] for res in ranks]}; init seconds "
+          f"{[round(res['init_s'], 2) for res in ranks]}; peak memory by "
+          f"rank (GiB) train {[round(r['train_peak_gib'], 2) for r in ranks]}"
+          f", decode {[round(r['decode_peak_gib'], 2) for r in ranks]}; "
+          f"ZeRO-1 moments {r0['moment_bytes']} B of "
+          f"{r0['whole_moment_bytes']} B", flush=True)
+    print(f"[Z moe-mesh] launches a step by kernel (rank 0) "
+          f"{r0['launches']}, every decode bf16", flush=True)
+    for k, calls in enumerate(r0["calls"]):
+        print(f"[Z moe-mesh] step {k} collectives of rank 0 (calls, bytes) "
+              f"by group: {calls}", flush=True)
+    print(f"[Z moe-mesh] step-0 gradient blocks within {Q_GRAD_NOISE}x the "
+          f"bf16 noise (relative L2 distance from the float32 gradient, "
+          f"expert-parallel against unsharded bf16: "
+          f"{ {p: (round(a, 5), round(b, 5)) for p, (a, b) in errs.items()} }"
+          f"; the largest ratio {worst}); replicated leaves bit-equal on "
+          f"all ranks and blocks on both data ranks after the last step; "
+          f"routing of the step-0 forward (data rank 0, {moe_layers} MoE "
+          f"layers): {flips} of {choices} top-k choices differ from the "
+          f"unsharded model's, {moved} tokens' expert sets", flush=True)
+    ms = got["step_ms"]
+    print(f"[Z.2 moe-mesh decode] {card}: batch {W_BATCH}, a local cache "
+          f"block {got['local_k']}; {Z_PROMPT}-token prompts, {Z_NEW} "
+          f"greedy tokens; decode step ms median {float(np.median(ms)):.3f} "
+          f"(range {min(ms):.3f}-{max(ms):.3f}); prefill "
+          f"{got['prefill_s']:.3f} s a prompt; {got['launch_calls']} kernel "
+          f"launch calls in one decode step on rank 0; one step's "
+          f"collectives on rank 0, (calls, bytes) by group: {got['calls']}",
+          flush=True)
+    print(f"[Z.2 moe-mesh decode] against the one-device step teacher-forced "
+          f"on the same {Z_PROMPT + Z_NEW} tokens: bf16 within {err!r} "
+          f"(largest logit {big!r}; {err / big:.3e} of it, bound {W_TOL}) "
+          f"at the {int(held[..., 0].sum())} of {held[..., 0].numel()} "
+          f"(position, row)s whose step flipped no expert choice; "
+          f"{flip_tokens} of {flip.numel() * moe_layers} (token, MoE layer) "
+          f"expert sets flipped by bf16 near-ties, {flipped_err!r} at "
+          f"most where one had; float32 ({2 * W_F32_TOKENS} tokens, a "
+          f"float32 cache) within {err32!r} ({err32 / big32:.3e} of "
+          f"{big32!r}, bound {W_TOL32}), its greedy tokens and all "
+          f"{sum(a.numel() for a in picks32)} expert choices equal; bf16 "
+          f"greedy tokens equal: "
+          f"{torch.equal(greedy, got['tokens'])}", flush=True)
+    print(f"[Z moe-mesh] spawn {spawn_s:.2f} s, run Z {run_s:.2f} s",
+          flush=True)
+    launches = dict(r0["kernel_launches"])
+    launches["unpack_ternary_bf16"] = r0["kernel_launches_bf16"]
+    launches["unpack_ternary"] -= r0["kernel_launches_bf16"]
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the launch tooling
 # ---------------------------------------------------------------------------
 
 #: the dry-run's peak bytes over a real rank's max_memory_allocated in the
@@ -4397,10 +4844,9 @@ def y_check_cli(out: str) -> None:
             failed[arch] = d["error"]
         elif d["num_devices"] != 256 or not d["flops_per_device"] > 0:
             fail(f"Y.1 {arch} decode_32k: {d}")
-        # outside the families with tensor parallelism, and the dense
-        # configs whose query heads 16 ranks do not split whole
-        if (cfg.family not in TP_FAMILIES or cfg.vision_patches
-                or cfg.num_heads % 16):
+        # the families whose tensor parallelism is still to port (the
+        # MoE experts, the VLM and query columns that cut a head trace)
+        if cfg.family not in TP_FAMILIES:
             want.add(arch)
     if set(failed) != want or not all(
             e.startswith("NotImplementedError: ") for e in failed.values()):
@@ -4598,7 +5044,7 @@ def main() -> None:
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
                run_hier, run_tuned, run_serve, run_decode, run_elastic,
-               run_straggler, run_serve_mesh, run_examples,
+               run_straggler, run_serve_mesh, run_examples, run_moe_mesh,
                lambda: run_launch_tooling(y_cli)):
         run = fn()
         for k, v in run.pop("launches").items():
@@ -4627,6 +5073,8 @@ if __name__ == "__main__":
         run_q_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-w-rank"]:
         run_w_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-z-rank"]:
+        run_z_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-y-rank"]:
         run_y_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-x-rank"]:

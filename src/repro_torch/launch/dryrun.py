@@ -19,8 +19,9 @@ on any device.  Usage::
 
 Each cell writes ``<out>/<mesh_name>/<arch>/<shape>.<tag>.json`` with
 the reference's keys (``compile_s`` holds the trace's seconds); a cell
-that fails records its error there, and the CLI exits 1.  The families
-without tensor parallelism fail their 16-wide cells (ROADMAP queue 1).
+that fails records its error there, and the CLI exits 1.  The SSM,
+hybrid and encoder-decoder families, whose tensor parallelism is still
+to port, fail their 16-wide cells (ROADMAP queue 1).
 ``python -m repro_torch.launch.report`` tabulates the JSONs.
 """
 from __future__ import annotations

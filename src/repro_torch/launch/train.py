@@ -35,6 +35,12 @@ on the one device.  Examples, on the CPU:
       -m repro_torch.launch.train --arch qwen3_0p6b --smoke \\
       --device cpu --mesh 2,2 --steps 1 --plan gbin_packed
 
+  # expert parallelism: the MoE's experts over the model axis, the four
+  # ranks started by the launcher itself
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek_moe_16b --smoke --device cpu --mesh 2,2 \\
+      --device-count 4 --steps 2
+
   # a hop plan: FP32 means over 8 workers, a G-Binary vote over 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
       --smoke --device cpu --mesh 2,8,1 --steps 2 --plan hier_fp32_gbinary

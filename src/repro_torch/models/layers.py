@@ -13,10 +13,13 @@ reference's grouped top-k capacity dispatch with shared experts.
 
 Tensor parallelism (``tp=``, a :class:`~repro_torch.models.tp.
 TensorParallel`) follows the reference's partition specs
-(:func:`attention_pspecs`, :func:`mlp_pspecs`): attention runs this
-rank's query heads against the K/V heads they read, K and V projected
-from the replicated ``wk`` / ``wv``, and the MLP runs its column block;
-each ends in the sum over the model group.
+(:func:`attention_pspecs`, :func:`mlp_pspecs`, :func:`moe_pspecs`):
+attention runs this rank's query heads against the K/V heads they read,
+K and V projected from the replicated ``wk`` / ``wv`` (or, where its
+query columns cut a head, the heads that touch them, from Q gathered
+over the group), the MLP runs its column block, and a MoE layer routes
+every token on every rank and runs this rank's experts; each ends in
+the sum over the model group.
 
 The decode path (:func:`attn_decode`) runs one token against a KV cache,
 at one depth for the batch or one depth a row; on a mesh the cache's
@@ -112,7 +115,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 def attention_pspecs(cfg: ModelConfig) -> dict:
-    """TP specs: Q and O sharded over heads, K and V replicated."""
+    """TP specs: Q's columns and O's rows over the model axis (whole
+    heads or not, as GSPMD splits them), K and V replicated."""
     p = {"wq": (None, "model"), "wk": (), "wv": (), "wo": ("model", None)}
     if cfg.qkv_bias:
         p.update({"bq": ("model",), "bk": (), "bv": ()})
@@ -129,14 +133,19 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
     q, kk, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
     if cfg.qkv_bias:
         q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    kk = kk.reshape(b, s, k, hd)
-    v = v.reshape(b, s, k, hd)
+    return _norm_rope(p, q.reshape(b, s, h, hd), kk.reshape(b, s, k, hd),
+                      v.reshape(b, s, k, hd), cfg, positions, table)
+
+
+def _norm_rope(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cfg: ModelConfig, positions, table=None):
+    """The qk-norm (where the config has one) and RoPE of q (B, S, H, hd)
+    and k (B, S, K, hd); v passes through."""
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        kk = rmsnorm(p["k_norm"], kk, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return rope(q, positions, cfg.rope_theta, table), \
-        rope(kk, positions, cfg.rope_theta, table), v
+        rope(k, positions, cfg.rope_theta, table), v
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -251,29 +260,29 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :s].to(q.dtype)
 
 
-def _tp_heads(p: dict, cfg: ModelConfig, tp) -> tuple[dict, tuple]:
-    """This rank's attention parameters and ``(heads, kv heads)``.
-
-    Rank ``m`` holds query heads ``[m h/M, (m+1) h/M)``, which read K/V
-    heads ``[m h/M / G, ...)`` (``G = h / kv``): whole GQA groups when
-    ``G`` divides ``h/M``, else a part of one group's single K/V head.
-    The replicated K/V weights (and biases, and the qk-norm scales) pass
-    through :meth:`~repro_torch.models.tp.TensorParallel.copy`, so their
-    gradients, partial to this rank's heads, are summed over the group.
-    """
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    h_loc = p["wq"].shape[-1] // hd
-    g = h // kv
+def _head_block(cfg: ModelConfig, cols: int):
+    """``(heads, kv heads)`` of a rank's ``cols`` query columns when they
+    are whole heads that hold whole GQA groups or a part of one group's
+    single K/V head; None when they are not (a part of a head, or whole
+    heads that straddle groups unevenly), which runs on column blocks
+    (:func:`_attn_columns`)."""
+    hd, g = cfg.hd, cfg.num_heads // cfg.num_kv_heads
+    h_loc = cols // hd
+    if cols % hd:
+        return None
     if h_loc % g == 0:
-        kv_loc = h_loc // g
-    elif g % h_loc == 0:
-        kv_loc = 1
-    else:
-        raise NotImplementedError(
-            f"{h_loc} query heads a rank split GQA groups of {g} unevenly; "
-            f"the port lays out whole groups or parts of one")
-    k0 = tp.index * h_loc // g
-    cols = slice(k0 * hd, (k0 + kv_loc) * hd)
+        return h_loc, h_loc // g
+    if g % h_loc == 0:
+        return h_loc, 1
+    return None
+
+
+def _replicated_kv(p: dict, tp, cols: slice) -> dict:
+    """``p`` with the K/V weights' (and biases') columns ``cols`` of the
+    replicated ``wk`` / ``wv``, and the qk-norm scales, passed through
+    :meth:`~repro_torch.models.tp.TensorParallel.copy`: this rank reads
+    them for its own heads only, so their gradients, partial, are summed
+    over the group."""
     q = dict(p)
     for name in ("wk", "wv"):
         q[name] = tp.copy(p[name])[:, cols]
@@ -283,7 +292,84 @@ def _tp_heads(p: dict, cfg: ModelConfig, tp) -> tuple[dict, tuple]:
     for name in ("q_norm", "k_norm"):
         if name in p:
             q[name] = {"scale": tp.copy(p[name]["scale"])}
-    return q, (h_loc, kv_loc)
+    return q
+
+
+def _tp_heads(p: dict, cfg: ModelConfig, tp, heads: tuple) -> dict:
+    """This rank's attention parameters for a block of whole ``heads``
+    (:func:`_head_block`).
+
+    Rank ``m`` holds query heads ``[m h/M, (m+1) h/M)``, which read K/V
+    heads ``[m h/M / G, ...)`` (``G = h / kv``): whole GQA groups when
+    ``G`` divides ``h/M``, else a part of one group's single K/V head.
+    """
+    h_loc, kv_loc = heads
+    g = cfg.num_heads // cfg.num_kv_heads
+    k0 = tp.index * h_loc // g
+    return _replicated_kv(p, tp, slice(k0 * cfg.hd, (k0 + kv_loc) * cfg.hd))
+
+
+def _column_heads(cfg: ModelConfig, tp, cols: int) -> tuple[int, int]:
+    """The heads ``[h0, h1)`` that touch this rank's query columns
+    ``[m cols, (m+1) cols)``."""
+    lo = tp.index * cols
+    return lo // cfg.hd, -(-(lo + cols) // cfg.hd)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cfg: ModelConfig, *, causal: bool,
+            is_global: bool) -> torch.Tensor:
+    """q (B, S, H, hd), k and v (B, T, K, hd) -> (B, S, H * hd): the full
+    float32 scores up to ``FLASH_SEQ_THRESHOLD`` tokens, the blocked
+    path above."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if s > FLASH_SEQ_THRESHOLD:
+        out = _flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v,
+                               causal=causal, window=cfg.sliding_window,
+                               is_global=is_global,
+                               scale=1.0 / math.sqrt(hd))
+        return out.reshape(b, s, h * hd)
+    return _full_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                           is_global=is_global)
+
+
+def _attn_columns(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
+                  tp, *, causal: bool, is_global: bool) -> torch.Tensor:
+    """Attention on this rank's ``c = H hd / M`` query columns where they
+    are not whole heads of whole GQA groups (qwen2.5-14B's 40 heads on 16
+    ranks: 2.5 a rank).  ``x`` has entered through ``tp.copy``.
+
+    The rank projects its columns of Q; where they cut a head, Q is
+    gathered over the group (its gradient summed back, each rank's
+    consumers differing) and the rank keeps the heads ``[h0, h1)`` that
+    touch its columns.  Those heads read K/V heads ``[h0 / G, (h1 - 1) /
+    G]``, projected from the replicated ``wk`` / ``wv``
+    (:func:`_replicated_kv`) and repeated to one a query head.  The rank
+    keeps the context columns ``[m c, (m+1) c)``, multiplies them by its
+    rows of ``wo`` and sums over the group."""
+    b, s, _ = x.shape
+    hd, g = cfg.hd, cfg.num_heads // cfg.num_kv_heads
+    c = p["wq"].shape[-1]
+    h0, h1 = _column_heads(cfg, tp, c)
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    q = _mm(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if c % hd:
+        q = tp.gather(q, -1)[..., h0 * hd:h1 * hd]
+    p = _replicated_kv(p, tp, slice(k0 * hd, k1 * hd))
+    kk, v = _mm(x, p["wk"]), _mm(x, p["wv"])
+    if cfg.qkv_bias:
+        kk, v = kk + p["bk"], v + p["bv"]
+    q, kk, v = _norm_rope(p, q.reshape(b, s, h1 - h0, hd),
+                          kk.reshape(b, s, k1 - k0, hd),
+                          v.reshape(b, s, k1 - k0, hd), cfg, positions)
+    own = torch.arange(h0, h1, device=x.device) // g - k0
+    out = _attend(q, kk[:, :, own], v[:, :, own], cfg, causal=causal,
+                  is_global=is_global)
+    lo = tp.index * c - h0 * hd
+    return tp.reduce(out[..., lo:lo + c] @ p["wo"])
 
 
 def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -293,8 +379,9 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     ``is_global`` picks full causal attention over the sliding window on
     a config with one; sequences over ``FLASH_SEQ_THRESHOLD`` take the
-    blocked path.  With ``tp`` and the heads split over its group, this
-    rank's heads run and the output is summed over the group."""
+    blocked path.  With ``tp`` and Q's columns split over its group, this
+    rank's heads (or its column block, :func:`_attn_columns`) run and the
+    output is summed over the group."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -303,20 +390,13 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                                         cfg.num_heads * cfg.hd, "attn/wq")
     if split:
         x = tp.copy(x)
-        p, heads = _tp_heads(p, cfg, tp)
+        heads = _head_block(cfg, p["wq"].shape[-1])
+        if heads is None:
+            return _attn_columns(p, x, cfg, positions, tp, causal=causal,
+                                 is_global=is_global)
+        p = _tp_heads(p, cfg, tp, heads)
     q, k, v = _qkv(p, x, cfg, positions, heads)
-    kv, hd = heads[1], cfg.hd
-    g = heads[0] // kv
-    if s > FLASH_SEQ_THRESHOLD:
-        out = _flash_attention(q.reshape(b, s, kv, g, hd), k, v,
-                               causal=causal, window=cfg.sliding_window,
-                               is_global=is_global,
-                               scale=1.0 / math.sqrt(hd))
-        out = out.reshape(b, s, kv * g * hd) @ p["wo"]
-    else:
-        out = _full_attention(q, k, v, causal=causal,
-                              window=cfg.sliding_window,
-                              is_global=is_global) @ p["wo"]
+    out = _attend(q, k, v, cfg, causal=causal, is_global=is_global) @ p["wo"]
     return tp.reduce(out) if split else out
 
 
@@ -430,29 +510,37 @@ def _combine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, kv * g * hd).to(v.dtype)
 
 
-def _tp_decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
-                   tp):
+def _decode_qkv_columns(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        ctx: dict, tp):
     """The token's q, k and v of every head on a model group that splits
-    the heads: this rank's heads projected (:func:`_tp_heads`), then
-    gathered over the group (B x (H / M + 2 KV / M) x hd a rank).  A K/V
-    head that several ranks hold (a part of one GQA group each) is taken
-    from the first."""
-    pl, (h_loc, kv_loc) = _tp_heads(p, cfg, tp)
-    q, k, v = _qkv(pl, x, cfg, ctx["pos"], (h_loc, kv_loc), table=ctx["rope"])
-    b, s, _, hd = q.shape
-    flat = torch.cat([t.reshape(b, s, -1) for t in (q, k, v)], dim=-1)
-    got = tp.group.all_gather(flat[None]).reshape(tp.size, b, s, -1)
-    nq, nk = h_loc * hd, kv_loc * hd
-    q = got[..., :nq].permute(1, 2, 0, 3).reshape(b, s, tp.size * h_loc, hd)
-    g = cfg.num_heads // cfg.num_kv_heads
-    first = {}
-    for r in range(tp.size):
-        first.setdefault(r * h_loc // g, r)
-    owners = [r for _, r in sorted(first.items())]
-    k = torch.cat([got[r, ..., nq:nq + nk] for r in owners], dim=-1)
-    v = torch.cat([got[r, ..., nq + nk:] for r in owners], dim=-1)
-    kv = cfg.num_kv_heads
-    return q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd)
+    Q's columns, whole heads or not: this rank's ``c`` columns of Q and
+    its block of K's and V's ``KV hd`` columns (an M-th of each; the
+    whole, projected on every rank and not gathered, where M does not
+    divide them), gathered over the group in one call; then qk-norm and
+    RoPE on the whole heads."""
+    b, s, _ = x.shape
+    c, n = p["wq"].shape[-1], cfg.num_kv_heads * cfg.hd
+    kv_split = n % tp.size == 0
+    nk = n // tp.size if kv_split else n
+    cols = slice(tp.index * nk, tp.index * nk + nk) if kv_split \
+        else slice(None)
+    q = _mm(x, p["wq"])
+    kk, v = _mm(x, p["wk"][:, cols]), _mm(x, p["wv"][:, cols])
+    if cfg.qkv_bias:
+        q, kk, v = q + p["bq"], kk + p["bk"][cols], v + p["bv"][cols]
+    parts = (q, kk, v) if kv_split else (q,)
+    got = tp.group.all_gather(torch.cat(parts, dim=-1)[None]).reshape(
+        tp.size, b, s, -1)
+
+    def whole(lo, hi):
+        return got[..., lo:hi].permute(1, 2, 0, 3).reshape(b, s, -1)
+    q = whole(0, c)
+    if kv_split:
+        kk, v = whole(c, c + nk), whole(c + nk, c + 2 * nk)
+    kv, hd = cfg.num_kv_heads, cfg.hd
+    return _norm_rope(p, q.reshape(b, s, cfg.num_heads, hd),
+                      kk.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd),
+                      cfg, ctx["pos"], ctx["rope"])
 
 
 def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -473,10 +561,10 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     -1e30 and an exact 0 after the softmax), so its bits do not depend
     on the other rows.
 
-    On a mesh: ``tp`` splits the heads over the model group, whose ranks
-    gather the token's q, k and v of every head, attend with all of
-    them, and keep their heads' context for the row-parallel ``wo``
-    (summed over the group); ``seq`` (or ``ctx["seq"]``) spreads the
+    On a mesh: ``tp`` splits Q's columns over the model group, whose
+    ranks gather the token's q, k and v of every head, attend with all
+    of them, and keep their columns of the context for the row-parallel
+    ``wo`` (summed over the group); ``seq`` (or ``ctx["seq"]``) spreads the
     cache's positions over a group, whose partial softmaxes are gathered
     and combined (:func:`_combine`: float32 sums in another order than
     the one-device softmax, so not bit-equal to it).
@@ -487,7 +575,7 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     split = tp is not None and tp.split(p["wq"].shape[-1],
                                         cfg.num_heads * cfg.hd, "attn/wq")
     if split:
-        q, k_new, v_new = _tp_decode_qkv(p, x, cfg, ctx, tp)
+        q, k_new, v_new = _decode_qkv_columns(p, x, cfg, ctx, tp)
     else:
         q, k_new, v_new = _qkv(p, x, cfg, ctx["pos"], table=ctx["rope"])
     _write_token(cache_k, k_new[:, 0], ctx)
@@ -555,8 +643,8 @@ def mlp_pspecs(cfg: ModelConfig) -> dict:
 
 
 def moe_pspecs(cfg: ModelConfig) -> dict:
-    """The reference's expert-parallel specs (experts over the model
-    axis); the port does not run them yet (ROADMAP queue 1)."""
+    """The reference's expert-parallel specs: the experts over the model
+    axis, the router replicated, the shared experts an MLP's."""
     p = {"router": (), "w_gate": ("model", None, None),
          "w_up": ("model", None, None), "w_down": ("model", None, None)}
     if cfg.moe.num_shared:
@@ -565,12 +653,14 @@ def moe_pspecs(cfg: ModelConfig) -> dict:
 
 
 def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                tp=None) -> torch.Tensor:
+                tp=None, d_ff: int | None = None) -> torch.Tensor:
     """SwiGLU MLP, or the GELU MLP where the tree has no ``w_gate``.
-    With ``tp`` and the hidden width split over its group, this rank's
-    columns run and the output is summed over the group."""
-    split = tp is not None and tp.split(p["w_up"].shape[-1], cfg.d_ff,
-                                        "mlp/w_up")
+    With ``tp`` and the hidden width (``d_ff``, the config's by default;
+    a MoE config's shared experts and dense layers have their own) split
+    over its group, this rank's columns run and the output is summed
+    over the group."""
+    split = tp is not None and tp.split(p["w_up"].shape[-1],
+                                        d_ff or cfg.d_ff, "mlp/w_up")
     if split:
         x = tp.copy(x)
     if "w_gate" in p:
@@ -589,29 +679,44 @@ def _top_k(x: torch.Tensor, k: int):
     return torch.gather(x, -1, idx), idx
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                tp=None) -> torch.Tensor:
     """Top-k capacity-based MoE over groups of ``group_size`` tokens.
 
     Each group's tokens choose k experts by router softmax; the k
     choices take capacity slots in choice order, token order within a
     choice (a per-group cumulative count), and a choice past an expert's
-    ``cap`` slots is dropped.  Shared experts see every token."""
+    ``cap`` slots is dropped.  Shared experts see every token.
+
+    With ``tp`` and the experts split over its group (the model axis
+    divides ``num_experts``), rank ``m`` holds experts ``[m E/M, (m+1)
+    E/M)``: ``x`` and the replicated router enter through ``tp.copy``,
+    the routing, top-k, capacity and ``combine`` are computed whole on
+    every rank (the same bits as one device's), each rank runs its
+    experts on their slots and combines them with its experts' slice of
+    ``combine``, and the routed output is summed over the group; the
+    shared experts run column- then row-parallel (:func:`mlp_forward`).
+    Experts the axis does not divide are replicated and run whole."""
     m = cfg.moe
     dt = _dtype(cfg)
     b, s, d = x.shape
     t = b * s
+    e, k = m.num_experts, m.top_k
+    e_loc = p["w_up"].shape[0]
+    split = tp is not None and tp.split(e_loc, e, "moe/w_up")
+    xin, router = (tp.copy(x), tp.copy(p["router"])) if split else \
+        (x, p["router"])
     gs = min(m.group_size, t)
     pad = (-t) % gs
-    xt = x.reshape(t, d)
+    xt = xin.reshape(t, d)
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
     g = (t + pad) // gs
     xg = xt.reshape(g, gs, d)
-    e, k = m.num_experts, m.top_k
     cap = max(4, int(gs * k / e * m.capacity_factor))
     cap = min(cap, gs)
 
-    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32), p["router"])
+    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32), router)
     gates = torch.softmax(logits, dim=-1)
     topv, topi = _top_k(gates, k)                            # (g, gs, k)
     topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
@@ -629,6 +734,8 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
         combine = combine + pos_oh.to(dt) * (
             topv[..., i, None, None] * onehot[..., None].to(dt))
+    if split:                                   # this rank's experts
+        combine = combine[:, :, tp.index * e_loc:(tp.index + 1) * e_loc]
     dispatch = (combine > 0).to(dt)
 
     expert_in = _einsum("gsec,gsd->gecd", dispatch, xg)
@@ -640,6 +747,9 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     expert_out = _einsum("gecf,efd->gecd", h, p["w_down"])
     y = _einsum("gsec,gecd->gsd", combine, expert_out)
     y = y.reshape(t + pad, d)[:t].reshape(b, s, d)
+    if split:
+        y = tp.reduce(y)
     if "shared" in p:
-        y = y + mlp_forward(p["shared"], x, cfg)
+        y = y + mlp_forward(p["shared"], x, cfg, tp=tp,
+                            d_ff=m.d_expert * m.num_shared)
     return y

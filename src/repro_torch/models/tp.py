@@ -3,9 +3,11 @@ for the reference's ``param_pspecs``, as autograd functions.
 
 The reference shards parameters over the ``"model"`` mesh axis and lets
 GSPMD place the collectives (``repro/models/transformer.py:194-236``,
-``layers.py:119-127``): Q and O split over heads with K and V replicated,
-the MLP column- then row-parallel, the embedding (and so the tied head)
-split over the vocabulary.  Here each rank holds its blocks and the
+``layers.py:119-127``, ``:435-442``): Q's columns and O's rows split
+evenly (whole heads or not) with K and V replicated, the MLP column- then
+row-parallel, the experts of a MoE layer over the group, the embedding
+(and so the tied head) split over the vocabulary, the VLM's
+``patch_proj`` over its output columns.  Here each rank holds its blocks and the
 model's forward calls the collectives itself, Megatron-style:
 
   * :meth:`TensorParallel.copy` — identity forward, all-reduce backward:
@@ -15,14 +17,20 @@ model's forward calls the collectives itself, Megatron-style:
   * :meth:`TensorParallel.reduce` — all-reduce forward, identity
     backward: the row-parallel outputs, the vocab-parallel lookup and
     the cross-entropy's sums;
+  * :meth:`TensorParallel.gather` — all-gather forward (every rank's
+    block, concatenated), and backward this rank's block of the
+    gradient, summed over the group first where each rank's consumers
+    of the whole tensor differ (a reduce-scatter, as an all-reduce and a
+    slice): the query columns of attention whose heads the group does
+    not split whole, and the VLM's column-parallel ``patch_proj``;
   * :meth:`TensorParallel.embed` and :meth:`TensorParallel.cross_entropy`
     — the vocab-parallel lookup (mask, gather, all-reduce) and the float32
     cross-entropy from vocab-sharded logits (max, sum-exp and target logit
     reduced over the group).
 
-The forward all-reduce is a custom operator (``repro_torch::
-tp_all_reduce``) so that a selective-checkpoint policy sees it and can
-save its output: under ``remat_policy="dots"`` the recompute runs no
+The forward all-reduce and all-gather are custom operators
+(``repro_torch::tp_all_reduce``, ``tp_all_gather``) so that a
+selective-checkpoint policy sees them and can save their outputs: under ``remat_policy="dots"`` the recompute runs no
 collective (:func:`repro_torch.models.transformer._remat`).  Every
 collective goes through the group's :class:`~repro_torch.core.
 collectives.DistributedGroup`, which counts it in ``calls_by_op``.
@@ -55,8 +63,43 @@ def _identity_backward(ctx, grad):
 
 _tp_all_reduce.register_autograd(_identity_backward)
 
-#: the operator a selective-checkpoint policy saves
+
+
+@torch.library.custom_op("repro_torch::tp_all_gather", mutates_args=())
+def _tp_all_gather(x: torch.Tensor, group_id: int, dim: int,
+                   partial: bool) -> torch.Tensor:
+    return _GROUPS[group_id].all_gather_dim(x, dim).contiguous()
+
+
+@_tp_all_gather.register_fake
+def _(x, group_id, dim, partial):
+    group = _GROUPS[group_id]
+    if x.device.type == "meta":       # the dry-run's call, as above
+        return group.all_gather_dim(x, dim).contiguous()
+    shape = list(x.shape)
+    shape[dim] *= group.size
+    return x.new_empty(shape)
+
+
+def _gather_context(ctx, inputs, output):
+    x, ctx.group_id, ctx.dim, ctx.partial = inputs
+    ctx.rows = x.shape[ctx.dim]
+
+
+def _gather_backward(ctx, grad):
+    group = _GROUPS[ctx.group_id]
+    if ctx.partial:
+        grad = group.all_reduce(grad.contiguous())
+    k = group.rank()[0]
+    return grad.narrow(ctx.dim, k * ctx.rows, ctx.rows), None, None, None
+
+
+_tp_all_gather.register_autograd(_gather_backward,
+                                 setup_context=_gather_context)
+
+#: the operators a selective-checkpoint policy saves
 TP_ALL_REDUCE = torch.ops.repro_torch.tp_all_reduce.default
+TP_ALL_GATHER = torch.ops.repro_torch.tp_all_gather.default
 
 
 class _Copy(torch.autograd.Function):
@@ -105,6 +148,18 @@ class TensorParallel:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the group; the gradient passes unchanged."""
         return _tp_all_reduce(x.contiguous(), self._id)
+
+    def gather(self, x: torch.Tensor, dim: int, *,
+               partial: bool = True) -> torch.Tensor:
+        """Every rank's block ``x`` concatenated along ``dim``, in rank
+        order.  The gradient is this rank's block of the whole one's,
+        summed over the group first when ``partial`` (each rank's
+        consumers of the whole tensor differ, so each holds a part of
+        its gradient); with ``partial=False`` the consumers are
+        replicated, every rank holds the whole gradient, and the
+        backward runs no collective."""
+        return _tp_all_gather(x.contiguous(), self._id, dim % x.dim(),
+                              partial)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the group, outside autograd."""

@@ -33,13 +33,15 @@ chunked_scan`).
 without allocating it (what a bucket layout needs).
 
 Tensor parallelism (``tp``, a :class:`~repro_torch.models.tp.
-TensorParallel` over the model group) runs the dense decoder-only family:
-each rank holds the blocks :func:`param_pspecs` gives it
-(:func:`shard_params`; a rank initialises the whole tree from the seed
-and keeps its blocks, so it starts from the unsharded run's weights),
-the embedding and the tied or untied head are vocab-parallel and the
-loss is the vocab-parallel float32 cross-entropy.  The other families
-raise at a model axis above 1 (ROADMAP queue 1).  The decode step takes
+TensorParallel` over the model group) runs the decoder-only families
+(dense, MoE with its experts over the group, the VLM): each rank holds
+the blocks :func:`param_pspecs` gives it (:func:`shard_params`; a rank
+initialises the whole tree from the seed and keeps its blocks, so it
+starts from the unsharded run's weights), the embedding and the tied or
+untied head are vocab-parallel, the VLM's ``patch_proj``
+column-parallel, and the loss is the vocab-parallel float32
+cross-entropy.  The SSM, hybrid and encoder-decoder families raise at a
+model axis above 1 (ROADMAP queue 1).  The decode step takes
 the same split (:class:`DecodeLayout`, built by
 :func:`repro_torch.runtime.serve.build_serve_step` on a mesh), with the
 cache's sequence spread over a group; every family decodes with its
@@ -63,12 +65,12 @@ from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
 from .layers import _dtype, _normal
-from .tp import TP_ALL_REDUCE, TensorParallel
+from .tp import TP_ALL_GATHER, TP_ALL_REDUCE, TensorParallel
 
 #: the families this port runs: all of the reference's
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
-#: the families it runs on a model axis above 1
-TP_FAMILIES = ("dense",)
+#: the families it runs on a model axis above 1: the decoder-only ones
+TP_FAMILIES = ("dense", "moe", "vlm")
 
 
 def global_attention_flags(cfg: ModelConfig) -> np.ndarray:
@@ -152,11 +154,16 @@ def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
     if cfg.moe is not None and not dense_ffn:
         p["moe"] = _init_moe(cfg, gen, device, lead)
     elif cfg.d_ff or dense_ffn:
-        f = cfg.d_ff
-        if dense_ffn and cfg.moe is not None:
-            f = cfg.moe.d_expert * (cfg.moe.top_k + cfg.moe.num_shared)
-        p["mlp"] = _init_mlp(cfg, gen, device, lead, f)
+        p["mlp"] = _init_mlp(cfg, gen, device, lead, _mlp_width(cfg))
     return p
+
+
+def _mlp_width(cfg: ModelConfig) -> int:
+    """The hidden width of a layer's dense MLP: a MoE config's dense
+    layers take ``d_expert * (top_k + num_shared)``."""
+    if cfg.moe is not None:
+        return cfg.moe.d_expert * (cfg.moe.top_k + cfg.moe.num_shared)
+    return cfg.d_ff
 
 
 def _init_encoder_layer(cfg: ModelConfig, gen, device, n: int) -> dict:
@@ -325,9 +332,10 @@ def _layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     x = x + a
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        return x + L.moe_forward(p["moe"], h, cfg)
+        return x + L.moe_forward(p["moe"], h, cfg, tp=tp)
     if "mlp" in p:
-        return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp)
+        return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp,
+                                 d_ff=_mlp_width(cfg))
     return x
 
 
@@ -364,11 +372,21 @@ def _vocab_split(params: dict, cfg: ModelConfig, tp) -> bool:
 def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   patch_feats: torch.Tensor | None = None,
                   tp: TensorParallel | None = None) -> torch.Tensor:
+    """The tokens' embeddings (vocab-parallel where ``tp`` splits the
+    vocabulary), a VLM's projected patches prepended: ``patch_proj`` is
+    column-parallel where ``tp`` splits ``d_model``, its output columns
+    gathered over the group (replicated consumers: the gradient needs no
+    sum)."""
     if _vocab_split(params, cfg, tp):
-        return tp.embed(params["embed"]["tok"], tokens)
-    x = params["embed"]["tok"][tokens]
+        x = tp.embed(params["embed"]["tok"], tokens)
+    else:
+        x = params["embed"]["tok"][tokens]
     if cfg.vision_patches and patch_feats is not None:
-        proj = patch_feats.to(x.dtype) @ params["embed"]["patch_proj"]["w"]
+        w = params["embed"]["patch_proj"]["w"]
+        proj = patch_feats.to(x.dtype) @ w
+        if tp is not None and tp.split(w.shape[-1], cfg.d_model,
+                                       "embed/patch_proj"):
+            proj = tp.gather(proj, -1, partial=False)
         x = torch.cat([proj, x], dim=1)            # prepend image patches
     return x
 
@@ -399,10 +417,12 @@ def _unstack(layers: dict, n: int) -> list[dict]:
 
 #: the ops whose outputs ``remat_policy="dots"`` saves: the matrix
 #: products (``jax.checkpoint_policies.checkpoint_dots``'s dot_general)
-#: and the tensor-parallel all-reduce that follows a row-parallel product
+#: and the tensor-parallel collectives: the all-reduce that follows a
+#: row-parallel product and the gather of a column block
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                    torch.ops.aten.addmm.default,
-                   torch.ops.aten.baddbmm.default, TP_ALL_REDUCE})
+                   torch.ops.aten.baddbmm.default, TP_ALL_REDUCE,
+                   TP_ALL_GATHER})
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -432,12 +452,12 @@ def _remat(cfg: ModelConfig, fn, *args) -> torch.Tensor:
 def check_model_axis(cfg: ModelConfig, size: int) -> None:
     """Raise for a family whose tensor parallelism is still to port, on a
     model axis of ``size`` above 1."""
-    if size > 1 and (cfg.family not in TP_FAMILIES or cfg.vision_patches):
+    if size > 1 and cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a model axis of {size}: the "
-            f"port runs tensor parallelism for the dense decoder-only "
-            f"family; the MoE (expert-parallel), VLM, SSM, hybrid and "
-            f"encoder-decoder families are still to port (ROADMAP queue 1)")
+            f"port runs tensor parallelism for the decoder-only families "
+            f"{TP_FAMILIES}; the ssm, hybrid and encdec families are still "
+            f"to port (ROADMAP queue 1)")
 
 
 def _check_tp(cfg: ModelConfig, tp) -> TensorParallel | None:
@@ -651,8 +671,8 @@ class DecodeLayout:
     """One rank's share of a decode step on a process mesh
     (:func:`repro_torch.runtime.serve.build_serve_step` builds it).
 
-    ``tp`` splits the dense family's heads, MLP columns and vocabulary
-    over the model group; ``seq`` spreads the self-attention cache's
+    ``tp`` splits Q's columns, the MLP's, the experts and the
+    vocabulary over the model group; ``seq`` spreads the self-attention cache's
     positions over a group (the model group in the batched layout, the
     world in the sequence-sharded one), ``cross`` the cross cache's
     frames; ``data`` is the data group when the batch's rows are spread
@@ -665,18 +685,19 @@ class DecodeLayout:
     data: Any = None
 
 
-def _moe_decode(p: dict, h: torch.Tensor, cfg: ModelConfig,
-                data) -> torch.Tensor:
+def _moe_decode(p: dict, h: torch.Tensor, cfg: ModelConfig, data,
+                tp: TensorParallel | None = None) -> torch.Tensor:
     """The MoE layer of a decode step.  With ``data`` (the batch's rows
     spread over the data group) the layer's input is gathered over it
     and dispatched as one group, and this rank keeps its rows: the
     capacity is the whole batch's, as in the reference, where a
-    dispatch of each rank's rows alone would drop other choices."""
+    dispatch of each rank's rows alone would drop other choices.  With
+    ``tp`` the experts run expert-parallel over the model group."""
     if data is None:
-        return L.moe_forward(p, h, cfg)
+        return L.moe_forward(p, h, cfg, tp=tp)
     rows = h.shape[0]
     k = data.rank()[0]
-    y = L.moe_forward(p, data.all_gather(h[None]), cfg)
+    y = L.moe_forward(p, data.all_gather(h[None]), cfg, tp=tp)
     return y[k * rows:(k + 1) * rows]
 
 
@@ -701,9 +722,10 @@ def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
         data = layout.data if layout is not None else None
-        return x + _moe_decode(p["moe"], h, cfg, data), state
+        return x + _moe_decode(p["moe"], h, cfg, data, tp), state
     if "mlp" in p:
-        return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp), state
+        return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp,
+                                 d_ff=_mlp_width(cfg)), state
     return x, state
 
 

@@ -9,8 +9,8 @@ holds its blocks of the reference's GSPMD layouts
 (:func:`serve_shardings`):
 
   * batched decode (the data ranks divide the batch): the batch over
-    the data axes, the cache's sequence over ``"model"``; the dense
-    family's heads, MLP columns and vocabulary over ``"model"`` too
+    the data axes, the cache's sequence over ``"model"``; Q's columns,
+    the MLP's, the experts and the vocabulary over ``"model"`` too
     (:mod:`repro_torch.models.tp`), its ranks gathering the token's q,
     k and v of every head;
   * ``shard_seq`` (a batch they do not divide, such as ``long_500k``'s
@@ -21,15 +21,16 @@ softmaxes are combined over the ranks that hold a row's sequence
 (:func:`repro_torch.models.layers.attn_decode`; float32 sums in another
 order than the one-device softmax, so close to it, not bit-equal).  A
 MoE layer gathers its input over the data ranks and dispatches the
-whole batch, as the reference's capacity counts it.  The step takes the
+whole batch, as the reference's capacity counts it, each model rank
+running its experts on it.  The step takes the
 global token (and a global (B,) position) as the reference's caller
 holds it, the rank's blocks of the parameters
 (:func:`~repro_torch.models.transformer.shard_params`) and of the cache
 (``init_cache(..., mesh=mesh)``), and returns the whole (B, V) logits
-on every rank, as the reference's replicated output.  The families
-other than the dense one raise by name at a model axis above 1 (their
-tensor parallelism is ROADMAP queue 1 item 4); every family serves on
-a ``(D, 1)`` mesh.
+on every rank, as the reference's replicated output.  The SSM, hybrid
+and encoder-decoder families raise by name at a model axis above 1
+(their tensor parallelism is ROADMAP queue 1 item 4); every family
+serves on a ``(D, 1)`` mesh.
 
 ``donate=True`` mirrors the reference's donated cache: the step writes
 into the cache it is given (the KV tensors in place; the recurrent
@@ -213,8 +214,9 @@ def build_cached_prefill(cfg: ModelConfig, mesh=None, *, dp_axes=("data",),
 def build_prefill(cfg: ModelConfig, mesh, *, dp_axes=("data",)):
     """(params, batch) -> logits (B, S, V): the forward pass with the
     batch over the data ranks (which must divide it, as the reference's
-    ``P(dp)`` placement requires) and, for the dense family, the heads,
-    MLP columns and vocabulary over the model ranks; ``params`` are this
+    ``P(dp)`` placement requires) and, for the decoder-only families,
+    Q's columns, the MLP's, the experts and the vocabulary over the
+    model ranks; ``params`` are this
     rank's blocks (``sh["params"]`` of :func:`build_serve_step`), and
     every rank gets the whole logits.  A MoE layer dispatches each
     rank's tokens, which is the reference's function when they fill

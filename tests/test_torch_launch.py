@@ -12,7 +12,8 @@
     over a fake group of 4, counts 7 x the FLOPs and 7 x the ring
     model's wire bytes (the counterpart of ``tests/test_hlo_walk.py``);
   * the dry-run CLI traces qwen3-0.6B's ``decode_32k`` on the 16 x 16
-    mesh;
+    mesh, and the dry-run in this process full deepseek-moe-16b's, its
+    experts over the 16 model ranks, with its collectives by group;
   * the dry-run's trace of rank 0 of a fake (2, 2) mesh (the qwen3 SMOKE
     model, gbin_packed, AdamW with ZeRO-1) equals one step of four real
     gloo ranks: collective calls and bytes by group and op, FLOPs
@@ -260,6 +261,28 @@ def test_dryrun_cli_decode_32k_on_the_production_mesh(tmp_path):
         [sys.executable, "-m", "repro_torch.launch.report", "--results",
          str(tmp_path)], capture_output=True, text=True, env=env,
         timeout=SPAWN_TIMEOUT).stdout
+
+
+def test_dryrun_traces_expert_parallel_decode_on_the_production_mesh(
+        tmp_path):
+    """Full deepseek-moe-16b's ``decode_32k`` on a fake 16 x 16 mesh, in
+    this process on ``meta``: ``ok``, its 64 experts 4 a model rank.
+    Rank 0's collectives by group: a layer's heads and partials gathered
+    over the model group and its attention summed, the dense first
+    layer's MLP summed, each of the 27 MoE layers' input gathered over
+    the data group and its routed and shared experts summed over the
+    model group; the embedding summed, the vocabulary gathered over the
+    model group and the logits' rows over the data group."""
+    res = dryrun.run_cell("deepseek_moe_16b", "decode_32k", False,
+                          "gbin_packed", str(tmp_path), force=True)
+    assert "error" not in res, res.get("traceback")
+    assert res["mesh"] == {"data": 16, "model": 16}
+    layers, moe = 28, 27
+    by_group = res["collectives"]["by_group"]
+    assert by_group["model"]["calls"] == {
+        "all_reduce": layers + 1 + 2 * moe + 1, "all_gather": 2 * layers + 1}
+    assert by_group["data"]["calls"] == {"all_gather": moe + 1}
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

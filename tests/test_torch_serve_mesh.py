@@ -20,6 +20,11 @@
       - deepseek-moe (capacity factor 0.25, so that the 16-token step
         puts an expert past its capacity), hymba, xLSTM and whisper on
         (4, 1), batched, and hymba, xLSTM and whisper ``shard_seq``;
+      - deepseek-moe on (2, 2), batched: its experts over the model ranks
+        (the input gathered over the data ranks, then expert-parallel),
+        and qwen2.5 with 6 query and 2 KV heads on (1, 4), batched: 48 of
+        192 query columns a rank, 1.5 heads in GQA groups of 3, as
+        qwen2.5-14B's 40 heads on 16 ranks;
 
     every rank's logits (the whole (B, V), replicated) within ``TOL`` of
     the one-device path's (float32 sums in another order: the combine of
@@ -29,11 +34,13 @@
     ``build_serve_step(cfg, mesh)`` on four forced host devices in one
     JAX subprocess (weights carried across by ``params_from_jax``); the
     MoE batch overflows and a dispatch of each rank's rows alone parts
-    from the one-device path by O(1); the collectives of one step by op;
+    from the one-device path by O(1); the collectives of one step by op
+    (qwen3's, and the expert-parallel step's);
     ``build_prefill`` (the forward, the batch over the data ranks) within
     ``TOL`` of the one-device forward for qwen3 on (2, 2) and
     deepseek-moe on (4, 1).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,12 +94,23 @@ CASES.update({
     "xlstm/seq": ("xlstm_125m", (4, 1), 1, 8, 6, None),
     "whisper/batched": ("whisper_tiny", (4, 1), 8, 8, 6, None),
     "whisper/seq": ("whisper_tiny", (4, 1), 1, 8, 6, None),
+    "moe/ep": ("deepseek_moe_16b", (2, 2), 16, 8, 4, None),
+    "qwen2p5/columns": ("qwen2p5_14b:6h", (1, 4), 4, 16, 12, None),
 })
+#: SMOKE configs changed by name: ``arch:variant``
+VARIANTS = {"6h": {"num_heads": 6, "num_kv_heads": 2}}
 #: the cases the reference's own mesh step runs
 REF_CASES = {k: v for k, v in CASES.items() if v[0] in DENSE}
 #: prompt length of qwen3's batched case through the cached prefill
 PREFILL = 6
 MOE_CAPACITY_FACTOR = 0.25
+
+
+def _config(arch: str):
+    """A SMOKE config by name, ``arch:variant`` changed by ``VARIANTS``."""
+    base, _, variant = arch.partition(":")
+    cfg = get_config(base, smoke=True)
+    return dataclasses.replace(cfg, **VARIANTS[variant]) if variant else cfg
 
 
 def _norm(spec) -> tuple:
@@ -220,7 +238,8 @@ def world(tmp_path_factory, reference):
     logs = [open(out / f"rank{r}.log", "w") for r in range(4)]
     program = RANK_PROGRAM % {"cases": CASES, "dense": DENSE,
                               "prefill": PREFILL,
-                              "cf": MOE_CAPACITY_FACTOR}
+                              "cf": MOE_CAPACITY_FACTOR,
+                              "variants": VARIANTS}
     try:
         procs = [subprocess.Popen(
             [sys.executable, "-c", program],
@@ -284,7 +303,7 @@ def test_cache_blocks_assemble_the_one_device_cache(world, case):
     the one-device cache (every position written once, by its owner)."""
     ranks, _ = world
     arch, mesh, batch, max_seq, _, _ = CASES[case]
-    cfg = get_config(arch, smoke=True)
+    cfg = _config(arch)
     specs = serve_shardings(cfg, {"data": mesh[0], "model": mesh[1]},
                             batch=batch, max_seq=max_seq)["cache"]
     extents = {"data": mesh[0], "model": mesh[1]}
@@ -321,7 +340,7 @@ def test_moe_batch_overflows_and_needs_the_whole_dispatch(world):
     path, and a dispatch of each rank's 4 rows alone parts from it."""
     ranks, _ = world
     info = ranks[0][1]
-    load, cap = info["moe/overflow"]
+    load, cap = info["moe/batched/overflow"]
     assert load > cap
     one = ranks[0][0]["moe/batched/one"]
     per_rank = ranks[0][0]["moe/batched/per_rank"]
@@ -348,6 +367,24 @@ def test_collectives_of_a_step(world):
                               "all_reduce": 2 * layers + 1}
         assert s["world"] == {"all_gather": layers}
         assert s["data"] == {}
+
+
+def test_collectives_of_an_expert_parallel_step(world):
+    """deepseek-moe's batched (2, 2) step, 3 layers (one dense, two
+    MoE): a layer's heads and partials gathered over the model group and
+    its attention summed, the dense layer's MLP summed, a MoE layer's
+    input gathered over the data group and its routed and shared experts
+    summed over the model group, the embedding summed and the vocabulary
+    gathered; the logits' rows over the data group."""
+    ranks, _ = world
+    layers = get_config("deepseek_moe_16b", smoke=True).num_layers
+    moe = layers - 1
+    for _, info in ranks:
+        b = info["moe/ep/calls"]
+        assert b["model"] == {"all_gather": 2 * layers + 1,
+                              "all_reduce": layers + 1 + 2 * moe + 1}
+        assert b["data"] == {"all_gather": moe + 1}
+        assert b["world"] == {}
 
 
 REFERENCE_PROGRAM = r'''
@@ -421,16 +458,19 @@ from repro_torch.runtime.serve import (build_cached_prefill, build_prefill,
                                        build_serve_step)
 
 CASES, DENSE = %(cases)r, %(dense)r
-PREFILL, CF = %(prefill)r, %(cf)r
+PREFILL, CF, VARIANTS = %(prefill)r, %(cf)r, %(variants)r
 with np.load(os.environ["REF_FILE"]) as f:
     REF = {k: f[k] for k in f.files if k.startswith("params/")}
 meshes = {shape: ProcessMesh(shape, device="cpu")
-          for shape in ((2, 2), (4, 1))}
+          for shape in sorted({case[1] for case in CASES.values()})}
 arrays, info = {}, {}
 
 
 def config(arch):
-    cfg = get_config(arch, smoke=True)
+    base, _, variant = arch.partition(":")
+    cfg = get_config(base, smoke=True)
+    if variant:
+        cfg = dataclasses.replace(cfg, **VARIANTS[variant])
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=CF))
@@ -470,9 +510,9 @@ moe_inputs = []
 real_moe = L.moe_forward
 
 
-def recording_moe(p, x, cfg):
+def recording_moe(p, x, cfg, tp=None):
     moe_inputs.append((p["router"], x))
-    return real_moe(p, x, cfg)
+    return real_moe(p, x, cfg, tp=tp)
 
 
 def overflow(cfg):
@@ -515,6 +555,7 @@ for case, (arch, shape, b, s, n, offs) in CASES.items():
     keep_cache(f"{case}/cache", cache)
     if R == 0:
         one, _ = build_serve_step(cfg, batch=b, max_seq=s)
+        moe_inputs.clear()
         L.moe_forward = recording_moe
         rows, cache1 = decode(one, whole, init_cache(
             cfg, b, s, dtype=torch.float32, device="cpu"), toks, offs)
@@ -522,7 +563,7 @@ for case, (arch, shape, b, s, n, offs) in CASES.items():
         arrays[f"{case}/one"] = np.stack(rows)
         keep_cache(f"{case}/one/cache", cache1)
         if cfg.moe is not None:
-            info["moe/overflow"] = overflow(cfg)
+            info[f"{case}/overflow"] = overflow(cfg)
             # each data rank's rows dispatched alone
             per = []
             k = b // shape[0]

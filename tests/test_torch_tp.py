@@ -7,23 +7,30 @@
   * the families and codecs the port does not run on a model axis raise
     by name;
   * one spawn of four gloo ranks (``torch.set_num_threads(1)``, a
-    ``file://`` store, 60 s collective timeouts) beside one JAX
-    subprocess on four forced host devices (the reference's parameters,
-    its per-shard votes and its Trainer on a ``("data", "model")`` mesh of
-    (2, 2)).  The ranks build a :class:`ProcessMesh` of (2, 2), then one
+    ``file://`` store, 60 s collective timeouts) after five JAX
+    subprocesses on four forced host devices, run at once (the
+    reference's parameters, its per-shard votes and its Trainers on a
+    ``("data", "model")`` mesh of (2, 2): qwen3's and each MoE model's).  The ranks build a :class:`ProcessMesh` of (2, 2), then one
     of (1, 4) on the same world, and the parent compares:
 
       - the dense SMOKE models (qk-norm, qkv bias, GELU, local/global
-        layers), from the reference's parameters: logits (gathered over
-        the vocabulary) equal the unsharded port's to rtol 1e-5 / atol
-        1e-5 (as the model tests hold them), the loss to rtol 1e-5,
-        every gradient block to rtol 1e-4 / atol 1e-5 (``wk`` / ``wv`` and
-        the qk-norm scales included, which sum over the model group);
+        layers), the MoE ones (deepseek-moe and llama4-scout: the experts
+        over the model axis), the VLM (phi3-vision with seeded
+        ``patch_feats``) and qwen2.5 with 6 query and 2 KV heads (on
+        (1, 4) 48 of 192 query columns a rank: 1.5 heads in GQA groups
+        of 3, as qwen2.5-14B's 40 heads on 16 ranks), from the
+        reference's parameters: logits (gathered over the vocabulary)
+        equal the unsharded port's to rtol 1e-5 / atol 1e-5 (as the
+        model tests hold them), the loss to rtol 1e-5, every gradient
+        block to rtol 1e-4 / atol 1e-5 (``wk`` / ``wv``, the qk-norm
+        scales and the router included, which sum over the model
+        group, and ``patch_proj``);
       - the packed vote of a tensor-parallel leaf (G-Binary, G-Ternary and
         EF, fused and staged) byte-equal to the reference's per-shard
         vote (``_packed_a2a_local`` on each block, the body of
         ``lowbit_packed_a2a``'s inner ``shard_map``; G-Binary also
-        through ``lowbit_packed_a2a(model_spec=...)`` itself), and
+        through ``lowbit_packed_a2a(model_spec=...)`` itself; an expert
+        leaf ``(L, E, d, d_e)`` split on its expert axis too), and
         ``vote_psum`` on it byte-equal to the reference's vote on the
         GSPMD leaf (as numbers: zeros of either sign as zeros, the jitted
         gate's +0.0); the G-Ternary and EF per-shard results differ from the
@@ -39,12 +46,18 @@
         norm the whole model's (to rtol 1e-5); the paper controller's
         cosines from a random tree's blocks equal the whole tree's, and
         three steps under it admit as ``Fabric(num_workers=2)`` does on
-        the unsharded model;
+        the unsharded model; two gbin_packed Trainer steps of each MoE
+        SMOKE model at (2, 2), each from the reference Trainer's
+        parameters: losses within rtol 1e-5 of the reference's (2, 2)
+        Trainer's, traffic ratios equal;
       - ``remat_policy="dots"`` against ``"full"``: the same gradients,
         and exactly one model-group all-reduce fewer a layer (the
         attention's, which the full recompute runs again; it stops before
-        the MLP's, which the backward does not need).
+        the MLP's, which the backward does not need); on deepseek-moe at
+        (2, 2) and the 6-head qwen2.5 at (1, 4) the same gradients, with
+        the counts stated in the test.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -81,6 +94,12 @@ SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 SPAWN_TIMEOUT = 300
 #: the dense SMOKE configs run tensor-parallel
 DENSE = ("qwen3_0p6b", "qwen2p5_14b", "gemma3_27b", "starcoder2_15b")
+#: the MoE SMOKE configs, experts over the model axis
+MOE = ("deepseek_moe_16b", "llama4_scout_17b_a16e")
+#: SMOKE configs changed by name: ``arch:variant``
+VARIANTS = {"6h": {"num_heads": 6, "num_kv_heads": 2}}
+#: every decoder-only model held against the unsharded one
+MODELS = DENSE + MOE + ("phi3_vision_4p2b", "qwen2p5_14b:6h")
 MESHES = ((2, 2), (1, 4))
 #: the vote cases on one tensor-parallel leaf: (schedule, ternary, EF)
 VOTES = {"packed/gbinary": ("packed_a2a", False, False),
@@ -91,7 +110,47 @@ VOTES = {"packed/gbinary": ("packed_a2a", False, False),
          "vote/gbinary/ef": ("vote_psum", False, True),
          "vote/gternary/ef": ("vote_psum", True, True)}
 LEAF = (77, 260)                          # sharded over its columns
+#: a stacked expert leaf (L, E, d, d_e), sharded over its experts
+EXPERT_LEAF, EXPERT_SPEC = (2, 4, 7, 33), (None, "model", None, None)
+EXPERT_VOTES = sorted(k for k, v in VOTES.items() if v[0] == "packed_a2a")
 TRAIN = dict(seq=16, batch=8, lr=1e-3)
+
+
+#: model-group collectives of one loss and its gradients under each
+#: remat policy, {policy: calls by op}.  The forward's are the same under
+#: both: the embedding's sum, the cross-entropy's max and sum, and a
+#: layer's row-parallel sums (attention, MLP; a MoE layer's routed and
+#: shared experts), and on column blocks a gather of Q a layer.  "dots"
+#: adds the backward's sums: each ``tp.copy`` (x into attention, MLP and
+#: router; wk, wv, their biases, the router; the head's input) and each
+#: gather of Q summed back.  "full" recomputes a layer up to the last
+#: collective its backward needs: the attention's sum, and a MoE layer's
+#: routed sum before its shared experts (one dense layer and two MoE:
+#: 5 more); Q's gather and the attention's sum (2 a layer on column
+#: blocks).  deepseek-moe at (2, 2): 11 in the forward; the 6-head
+#: qwen2.5 at (1, 4): 7 all-reduces and 2 gathers.
+DOTS_CASES = {
+    "deepseek_moe_16b": ((2, 2), {
+        "full": {"all_reduce": 11 + 17 + 5},
+        "dots": {"all_reduce": 11 + 17}}),
+    "qwen2p5_14b:6h": ((1, 4), {
+        "full": {"all_gather": 2 + 2, "all_reduce": 7 + 15 + 2},
+        "dots": {"all_gather": 2, "all_reduce": 7 + 15}}),
+}
+
+
+#: what the two programs below are formatted with
+PROGRAM_ARGS = {"dense": DENSE, "votes": VOTES, "leaf": LEAF, "train": TRAIN,
+                "moe": MOE, "variants": VARIANTS, "models": MODELS,
+                "expert": (EXPERT_LEAF, EXPERT_SPEC),
+                "dots": {a: mesh for a, (mesh, _) in DOTS_CASES.items()}}
+
+
+def _config(arch: str):
+    """A SMOKE config by name, ``arch:variant`` changed by ``VARIANTS``."""
+    base, _, variant = arch.partition(":")
+    cfg = get_config(base, smoke=True)
+    return dataclasses.replace(cfg, **VARIANTS[variant]) if variant else cfg
 
 
 def _jtree_specs(tree) -> list:
@@ -125,19 +184,24 @@ def test_param_pspecs_equal_the_references(arch, mesh):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The JAX side, run once: blocks, per-shard votes, parameters and
-    the (2, 2) Trainer."""
-    out = tmp_path_factory.mktemp("tp_ref") / "ref.npz"
-    proc = _start_reference(out)
-    return _finish_reference(proc, out)
+    """The JAX side, run once, in five processes at once: blocks,
+    per-shard votes and the dense parameters; qwen3's (2, 2) Trainer;
+    each MoE model's parameters and Trainer; the other models'
+    parameters."""
+    out = tmp_path_factory.mktemp("tp_ref")
+    parts = ("main", "qwen3", *MOE, "others")
+    procs = [_start_reference(out / f"{part}.npz", part) for part in parts]
+    ref = {}
+    for part, proc in zip(parts, procs):
+        ref.update(_finish_reference(proc, out / f"{part}.npz"))
+    return ref
 
 
-def _start_reference(out):
+def _start_reference(out, part: str):
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(SRC=SRC, OUT_FILE=str(out), JAX_PLATFORMS="cpu",
-               OMP_NUM_THREADS="1")
-    program = REFERENCE_PROGRAM % {"dense": DENSE, "votes": VOTES,
-                                   "leaf": LEAF, "train": TRAIN}
+               OMP_NUM_THREADS="1", PART=part)
+    program = REFERENCE_PROGRAM % PROGRAM_ARGS
     return subprocess.Popen([sys.executable, "-c", program], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -192,9 +256,7 @@ def test_place_inverts_shard_of(spec):
 # what a model axis does not run
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "llama4_scout_17b_a16e",
-                                  "phi3_vision_4p2b", "xlstm_125m",
-                                  "hymba_1p5b", "whisper_tiny"])
+@pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1p5b", "whisper_tiny"])
 def test_families_without_tensor_parallelism_raise(arch):
     cfg = get_config(arch, smoke=True)
     params = init_params(cfg, device="meta")
@@ -277,9 +339,7 @@ def world(tmp_path_factory, reference):
     ref = tmp_path_factory.mktemp("tp_ref_copy") / "ref.npz"
     np.savez(ref, **reference)
     out = tmp_path_factory.mktemp("tp") / "out"
-    return spawn_ranks(RANK_PROGRAM % {"dense": DENSE, "votes": VOTES,
-                                       "leaf": LEAF, "train": TRAIN},
-                       4, out, REF_FILE=ref)
+    return spawn_ranks(RANK_PROGRAM % PROGRAM_ARGS, 4, out, REF_FILE=ref)
 
 
 def _coords(mesh, r):
@@ -312,11 +372,11 @@ def test_process_mesh_lays_ranks_out_as_jax_make_mesh(world):
 
 
 @pytest.mark.parametrize("mesh", MESHES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_logits_and_loss_equal_the_unsharded_model(world, arch, mesh):
     tag = f"{mesh[0]}x{mesh[1]}"
     full = world[0][0][f"full/{arch}/logits"]
-    cfg = get_config(arch, smoke=True)
+    cfg = _config(arch)
     vocab_split = cfg.vocab_size % mesh[1] == 0
     logits = _assemble(world, f"{tag}/{arch}/logits",
                        (None, None, "model") if vocab_split else (),
@@ -329,10 +389,10 @@ def test_logits_and_loss_equal_the_unsharded_model(world, arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_gradients_equal_the_unsharded_model(world, arch, mesh):
     tag = f"{mesh[0]}x{mesh[1]}"
-    cfg = get_config(arch, smoke=True)
+    cfg = _config(arch)
     like = init_params(cfg, device="meta")
     extents = {"data": mesh[0], "model": mesh[1]}
     specs = sanitize_pspecs(param_pspecs(cfg), like, extents)
@@ -422,7 +482,7 @@ def test_trainer_losses_equal_the_reference_trainer(world, reference):
                                        reference[f"trainer/{k}/agg_norm"],
                                        rtol=1e-5)
             assert info[f"trainer/{k}/traffic"] == pytest.approx(
-                float(reference[f"trainer/{k}/traffic"]), rel=1e-12)
+                float(reference[f"trainer/{k}/traffic_ratio"]), rel=1e-12)
 
 
 def test_trainer_aggregates_equal_the_per_shard_twin(world):
@@ -515,6 +575,84 @@ def test_dots_gives_the_full_gradients_with_fewer_all_reduces(world):
         assert info["dots/dots/forward"] == info["dots/full/forward"]
 
 
+@pytest.mark.parametrize("case", EXPERT_VOTES)
+def test_expert_leaf_votes_equal_the_references(world, reference, case):
+    """The packed vote of an expert leaf's block (a split on the leading
+    expert axis of a stacked 4-D leaf), fused and staged, byte-equal to
+    the reference's per-shard vote; EF residuals to 1e-6 of each
+    worker's block's beta."""
+    _, _, ef = VOTES[case]
+    want = reference[f"expert/{case}/u"]
+    for tag in ("", "/staged"):
+        got = _assemble(world, f"expert/{case}{tag}/u", EXPERT_SPEC, (2, 2),
+                        EXPERT_LEAF)
+        assert _same_bits(got, want), (case, tag)
+    if not ef:
+        return
+    new_ef = _assemble(world, f"expert/{case}/ef", ("data", *EXPERT_SPEC),
+                       (2, 2), (2, *EXPERT_LEAF))
+    x = np.abs(reference["expert/grads"] + reference["expert/efs"])
+    n, e = EXPERT_LEAF[0], EXPERT_LEAF[1]
+    beta = x.reshape(2, n, 2, e // 2, -1).mean(axis=(1, 3, 4))   # (W, M)
+    bound = np.repeat(beta, e // 2, axis=1)[:, None, :, None, None]
+    assert (np.abs(new_ef - reference[f"expert/{case}/ef"])
+            <= 1e-6 * bound).all(), case
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_trainer_losses_equal_the_reference_trainer(world, reference,
+                                                        arch):
+    """Two gbin_packed steps at (2, 2), experts over the model ranks and
+    ZeRO-1 over the data ranks, each from the reference Trainer's
+    parameters: losses and the aggregates' norm to rtol 1e-5, the traffic
+    ratio priced on the whole leaves, and every parameter block after
+    each step (the aggregation, AdamW and ZeRO-1 on the 4-D expert
+    leaves) against the reference Trainer's to 1% of the learning rate
+    (a flipped vote or a misplaced block moves an element by ~2 lr; the
+    expert leaves agree to ~5e-10).  llama4-scout's router is held only
+    to AdamW's bound: top-1 renormalises its one gate to ``v / (v +
+    1e-9)``, so its gradient is ~1e-9 of the loss's, the size of float32
+    rounding, and AdamW scales that noise up to ~lr / 2 on both sides."""
+    lr = TRAIN["lr"]
+    noise = {"llama4_scout_17b_a16e": "layers/moe/router"}
+    for arrays, info in world:
+        for k in range(2):
+            for key in ("loss", "agg_norm"):
+                np.testing.assert_allclose(info[f"moe/{arch}/{k}/{key}"],
+                                           reference[f"moe/{arch}/{k}/{key}"],
+                                           rtol=1e-5, err_msg=key)
+            assert info[f"moe/{arch}/{k}/traffic"] == pytest.approx(
+                float(reference[f"moe/{arch}/{k}/traffic_ratio"]),
+                rel=1e-12)
+            prefix = f"moe/{arch}/{k + 1}/params/"
+            names = [n[len(prefix):] for n in arrays if n.startswith(prefix)]
+            assert "layers/moe/w_up" in names
+            for p in names:
+                got, want = arrays[prefix + p], \
+                    arrays[f"moe/{arch}/{k + 1}/ref/{p}"]
+                if noise.get(arch) == p:
+                    assert np.abs(got - want).max() <= 2 * lr, (k, p)
+                    continue
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-2 * lr,
+                                           err_msg=f"{k} {p}")
+
+
+@pytest.mark.parametrize("arch", sorted(DOTS_CASES))
+def test_dots_gives_the_full_gradients_on_experts_and_column_blocks(world,
+                                                                     arch):
+    _, want = DOTS_CASES[arch]
+    like = init_params(_config(arch), device="meta")
+    for arrays, info in world:
+        for p, _ in T.flatten(like):
+            np.testing.assert_array_equal(
+                arrays[f"dots/{arch}/dots/grad/{p}"],
+                arrays[f"dots/{arch}/full/grad/{p}"], p)
+        for policy, calls in want.items():
+            assert info[f"dots/{arch}/{policy}/calls"] == calls, policy
+        assert info[f"dots/{arch}/dots/forward"] == \
+            info[f"dots/{arch}/full/forward"]
+
+
 REFERENCE_PROGRAM = r'''
 import functools, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -531,19 +669,65 @@ from repro.models import init_params
 from repro.optim import AdamW
 from repro.runtime import Trainer, TrainerConfig
 
+import dataclasses
 DENSE, VOTES, LEAF, TRAIN = %(dense)r, %(votes)r, %(leaf)r, %(train)r
+MOE, VARIANTS, MODELS = %(moe)r, %(variants)r, %(models)r
+EXPERT_LEAF, EXPERT_SPEC = %(expert)r
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
 out = {}
+
+
+def config(arch):
+    base, _, variant = arch.partition(":")
+    cfg = get_config(base, smoke=True)
+    return dataclasses.replace(cfg, **VARIANTS[variant]) if variant else cfg
+
+
+def put(prefix, tree):
+    for kp, a in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[prefix + name(kp)] = np.asarray(a)
 
 
 def name(kp):
     return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
 
 
-def put(prefix, tree):
-    for kp, a in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        out[prefix + name(kp)] = np.asarray(a)
+def train(cfg, prefix):
+    """The reference's Trainer on the (2, 2) mesh: two gbin_packed steps,
+    the parameters before each and after the last, each step's loss,
+    traffic ratio and aggregates' norm."""
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=TRAIN["seq"],
+                             batch=TRAIN["batch"], seed=0)
+    tr = Trainer(cfg, mesh, AdamW(peak_lr=TRAIN["lr"], warmup_steps=1,
+                                  total_steps=10), data,
+                 plan=plan_presets()["gbin_packed"],
+                 tcfg=TrainerConfig(dp_axes=("data",), log_interval=1000))
+    tr.init_state()
+    put(f"{prefix}/0/params/", tr.state.params)
+    for k in range(2):
+        tr.run(k + 1)
+        for key in ("loss", "traffic_ratio", "agg_norm"):
+            out[f"{prefix}/{k}/{key}"] = np.asarray(tr.history[-1][key])
+        put(f"{prefix}/{k + 1}/params/", tr.state.params)
+
+
+# the parts that run in processes of their own, beside "main"
+PART = os.environ["PART"]
+if PART != "main":
+    # each MoE model's part draws its parameters and runs its Trainer,
+    # "others" draws the parameters of the models in neither group
+    others = [a for a in MODELS if a not in DENSE + MOE]
+    drawn = (PART,) if PART in MOE else others if PART == "others" else ()
+    for arch in drawn:
+        put(f"params/{arch}/", init_params(jax.random.PRNGKey(0),
+                                           config(arch)))
+    if PART == "qwen3":
+        train(get_config("qwen3_0p6b", smoke=True), "trainer")
+    if PART in MOE:
+        train(config(PART), f"moe/{PART}")
+    np.savez(os.environ["OUT_FILE"], **out)
+    sys.exit(0)
 
 
 # the block shard_map hands the device at (d, m)
@@ -559,8 +743,7 @@ for nm, spec in {"cols": P(None, "model"), "rows": P("model", None),
 
 # the dense SMOKE models' parameters
 for arch in DENSE:
-    put(f"params/{arch}/", init_params(jax.random.PRNGKey(0),
-                                       get_config(arch, smoke=True)))
+    put(f"params/{arch}/", init_params(jax.random.PRNGKey(0), config(arch)))
 
 # per-shard votes on a leaf sharded over its columns: the body of
 # lowbit_packed_a2a's inner shard_map over "model", run with both axes
@@ -612,22 +795,29 @@ for case, (sched, ternary, ef) in VOTES.items():
         assert np.array_equal(u, out[f"lowbit/{case}/u"]), case
     out[f"lowbit/{case}/u"], out[f"lowbit/{case}/ef"] = u, ne
 
-# the reference's Trainer on the (2, 2) mesh
-cfg = get_config("qwen3_0p6b", smoke=True)
-data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=TRAIN["seq"],
-                         batch=TRAIN["batch"], seed=0)
-tr = Trainer(cfg, mesh, AdamW(peak_lr=TRAIN["lr"], warmup_steps=1,
-                              total_steps=10), data,
-             plan=plan_presets()["gbin_packed"],
-             tcfg=TrainerConfig(dp_axes=("data",), log_interval=1000))
-tr.init_state()
-put("trainer/0/params/", tr.state.params)
-for k in range(2):
-    tr.run(k + 1)
-    out[f"trainer/{k}/loss"] = np.asarray(tr.history[-1]["loss"])
-    out[f"trainer/{k}/traffic"] = np.asarray(tr.history[-1]["traffic_ratio"])
-    out[f"trainer/{k}/agg_norm"] = np.asarray(tr.history[-1]["agg_norm"])
-    put(f"trainer/{k + 1}/params/", tr.state.params)
+# per-shard votes on an expert leaf (L, E, d, d_e), its experts over
+# "model": the same body on each block
+gs = rng.randn(W, *EXPERT_LEAF).astype(np.float32)
+efs = (0.1 * rng.randn(W, *EXPERT_LEAF)).astype(np.float32)
+out["expert/grads"], out["expert/efs"] = gs, efs
+spec = P("data", *EXPERT_SPEC)
+G, E = (jax.device_put(jnp.asarray(a), NamedSharding(mesh, spec))
+        for a in (gs, efs))
+for case, (sched, ternary, ef) in VOTES.items():
+    if sched != "packed_a2a":
+        continue
+
+    @functools.partial(jax.shard_map, mesh=mesh, in_specs=(spec,) * 2,
+                       out_specs=(P(*EXPERT_SPEC), spec), check_vma=False)
+    def local(g, e):
+        u, ne = _packed_a2a_local(g[0], ("data",), W, ternary=ternary,
+                                  gate_phase=1, ef=e[0] if ef else None,
+                                  interpret=None,
+                                  kernels=KF.vote_kernel_set())
+        return u, (ne if ef else e[0])[None]
+    u, ne = jax.jit(local)(G, E)
+    out[f"expert/{case}/u"], out[f"expert/{case}/ef"] = map(np.asarray, (u, ne))
+
 np.savez(os.environ["OUT_FILE"], **out)
 '''
 
@@ -661,6 +851,8 @@ from repro_torch.runtime import Trainer, TrainerConfig
 from repro_torch.runtime.shardings import shard_of
 
 DENSE, VOTES, LEAF, TRAIN = %(dense)r, %(votes)r, %(leaf)r, %(train)r
+MOE, VARIANTS, MODELS = %(moe)r, %(variants)r, %(models)r
+EXPERT_LEAF, EXPERT_SPEC = %(expert)r
 with np.load(os.environ["REF_FILE"]) as f:
     REF = {k: f[k] for k in f.files}
 arrays, info = {}, {}
@@ -671,10 +863,22 @@ def host(prefix):
                         if k.startswith(prefix)])
 
 
+def config(arch):
+    base, _, variant = arch.partition(":")
+    cfg = get_config(base, smoke=True)
+    return dataclasses.replace(cfg, **VARIANTS[variant]) if variant else cfg
+
+
 def batch_of(cfg, b=2, s=24):
     rng = np.random.RandomState(0)
-    return {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))),
-            "labels": torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))}
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                    (b, s))),
+             "labels": torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                    (b, s)))}
+    if cfg.vision_patches:
+        batch["patch_feats"] = torch.from_numpy(rng.randn(
+            b, cfg.vision_patches, cfg.vision_feat_dim).astype(np.float32))
+    return batch
 
 
 def value_and_grads(params, cfg, batch, tp=None):
@@ -684,9 +888,9 @@ def value_and_grads(params, cfg, batch, tp=None):
     return logits.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-# -- the unsharded models (every rank; rank 0 keeps them) -------------------
-for arch in DENSE:
-    cfg = get_config(arch, smoke=True)
+# -- the unsharded models (rank 0) -------------------------------------------
+for arch in MODELS:
+    cfg = config(arch)
     if R == 0:
         full = params_from_jax(host(f"params/{arch}/"), device="cpu")
         logits, loss, grads = value_and_grads(full, cfg, batch_of(cfg))
@@ -706,8 +910,8 @@ for shape in ((2, 2), (1, 4)):
     info[f"{tag}/model_group"] = [mesh.model_group.rank()[0],
                                   mesh.model_group.size]
     tp = TensorParallel(mesh.model_group)
-    for arch in DENSE:
-        cfg = get_config(arch, smoke=True)
+    for arch in MODELS:
+        cfg = config(arch)
         local = params_from_jax(host(f"params/{arch}/"), device="cpu",
                                 cfg=cfg, extents=mesh.extents,
                                 coords=mesh.coords)
@@ -748,6 +952,74 @@ for case, (sched, ternary, ef) in VOTES.items():
         arrays[f"lowbit/{case}/unsharded/u"] = u.numpy()
         if ef:
             arrays[f"lowbit/{case}/unsharded/ef"] = ne.numpy()
+
+# -- votes on an expert leaf, its experts over "model" -----------------------
+GS, EFS = REF["expert/grads"], REF["expert/efs"]
+for case, (sched, ternary, ef) in VOTES.items():
+    if sched != "packed_a2a":
+        continue
+    mode = "gternary" if ternary else "gbinary"
+    for tag, fused in (("", True), ("/staged", False)):
+        ctx = AggregationContext(group=mesh.data_group, num_workers=2,
+                                 fused_kernels=fused, mesh=mesh)
+        pol = LeafPolicy(mode, sched, model_spec=EXPERT_SPEC, gate_phase=1,
+                         error_feedback=ef)
+        g, e = (torch.from_numpy(shard_of(a[d], EXPERT_SPEC, mesh.extents,
+                                          mesh.coords).copy())[None]
+                for a in (GS, EFS))
+        u, ne = aggregate_leaf(ctx, g, pol, ef=e if ef else None)
+        arrays[f"expert/{case}{tag}/u"] = u.numpy()
+        if ef and fused:
+            arrays[f"expert/{case}/ef"] = ne.numpy()
+
+# -- two MoE Trainer steps at (2, 2), each from the reference's parameters --
+ADAM = AdamW(peak_lr=TRAIN["lr"], warmup_steps=1, total_steps=10)
+for arch in MOE:
+    cfg = config(arch)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=TRAIN["seq"],
+                             batch=TRAIN["batch"], seed=0)
+    tr = Trainer(cfg, ADAM, data, plan=plan_presets()["gbin_packed"],
+                 fabric=Fabric(mesh=mesh), device="cpu",
+                 tcfg=TrainerConfig(log_interval=1000))
+    tr.init_state()
+    model = tr.state.model
+    for k in range(2):
+        ref = params_from_jax(host(f"moe/{arch}/{k}/params/"), device="cpu",
+                              cfg=cfg, extents=mesh.extents,
+                              coords=mesh.coords)
+        with torch.no_grad():
+            for t, x in zip(T.leaves(model.tree()), T.leaves(ref)):
+                t.copy_(x)
+        tr.run(k + 1)
+        info[f"moe/{arch}/{k}/loss"] = tr.history[-1]["loss"]
+        info[f"moe/{arch}/{k}/traffic"] = tr.history[-1]["traffic_ratio"]
+        info[f"moe/{arch}/{k}/agg_norm"] = tr.history[-1]["agg_norm"]
+        after = params_from_jax(host(f"moe/{arch}/{k + 1}/params/"),
+                                device="cpu", cfg=cfg, extents=mesh.extents,
+                                coords=mesh.coords)
+        for (p, x), y in zip(T.flatten(model.tree()), T.leaves(after)):
+            arrays[f"moe/{arch}/{k + 1}/params/{p}"] = \
+                x.detach().numpy().copy()
+            arrays[f"moe/{arch}/{k + 1}/ref/{p}"] = y.numpy()
+
+# -- "dots" against "full" on the experts and on column blocks --------------
+for arch, shape in %(dots)r.items():
+    m = meshes[f"{shape[0]}x{shape[1]}"]
+    tp = TensorParallel(m.model_group)
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(config(arch), remat=True,
+                                remat_policy=policy)
+        local = params_from_jax(host(f"params/{arch}/"), device="cpu", cfg=c,
+                                extents=m.extents, coords=m.coords)
+        leaves = [t.requires_grad_() for t in T.leaves(local)]
+        m.model_group.reset_counts()
+        loss = loss_fn(local, c, batch_of(c, 4, 16), tp)
+        info[f"dots/{arch}/{policy}/forward"] = dict(
+            m.model_group.calls_by_op)
+        grads = torch.autograd.grad(loss, leaves)
+        info[f"dots/{arch}/{policy}/calls"] = dict(m.model_group.calls_by_op)
+        for (p, _), g in zip(T.flatten(local), grads):
+            arrays[f"dots/{arch}/{policy}/grad/{p}"] = g.numpy()
 
 # -- two Trainer steps at (2, 2), each from the reference's parameters ------
 cfg = get_config("qwen3_0p6b", smoke=True)
@@ -815,7 +1087,6 @@ for policy in ("full", "dots"):
         arrays[f"dots/{policy}/grad/{p}"] = g.numpy()
 
 # -- the paper controller on the (2, 2) mesh ---------------------------------
-ADAM = AdamW(peak_lr=TRAIN["lr"], warmup_steps=1, total_steps=10)
 
 
 def paper(fabric):
