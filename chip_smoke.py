@@ -135,18 +135,18 @@ Phases (any failure exits non-zero before the result line):
                     1,681,143,808 parameters), W = 4, 16 x 512 tokens,
                     gbin_packed, AdamW, 3 steps: 15 buckets, 12 packed, the
                     traffic ratio 0.27310381290117447;
-       N. xlstm     xlstm-125m whole (9 mLSTM and 3 sLSTM blocks;
-                    183,565,128 parameters), W = 2, 8 x 256 tokens (the
+       N. xlstm     xlstm-125m cut to 4 blocks (3 mLSTM, 1 sLSTM;
+                    112,700,184 parameters), W = 2, 8 x 256 tokens (the
                     scans in 16 checkpointed chunks of 16 steps),
-                    gbin_packed, AdamW, 2 steps: 11 buckets, 8 packed, one
+                    gbin_packed, AdamW, 2 steps: 7 buckets, 4 packed, one
                     of them float32 (w_if, r), the traffic ratio
-                    0.4391217050767943;
-       O. hymba     hymba-1.5b cut to 5 layers (0, 2, 4 global, 1 and 3 in
-                    the 1024-token window; attention beside a Mamba head;
-                    304,036,800 parameters), W = 2, 4 x 2048 tokens,
+                    0.6954820233478944;
+       O. hymba     hymba-1.5b cut to 4 layers (0, 2, 3 global, 1 in the
+                    1024-token window; attention beside a Mamba head;
+                    263,710,400 parameters), W = 2, 4 x 2048 tokens,
                     gbin_packed, AdamW, 2 steps: 12 buckets, 9 packed, two
                     of them float32 (w_dt; w_bc and a_log), the traffic
-                    ratio 0.3576435484125606;
+                    ratio 0.4075318986281921;
        P. whisper   whisper-tiny whole (4 encoder, 4 decoder layers;
                     36,586,752 parameters), W = 4, 16 x 448 tokens and
                     16 x 1500 x 384 seeded frames a step, gbin_packed,
@@ -272,7 +272,8 @@ Phases (any failure exits non-zero before the result line):
                     launching what ``layout_kernel_stats`` models, the EF
                     rows finite;
  15. serving on a process mesh:
-       W. serve-mesh  full qwen3-0.6B (bf16, the default bf16 cache) on a
+       W. serve-mesh  qwen3-0.6B cut to 7 layers (bf16, the default
+                    bf16 cache) on a
                     (data 2) x (model 2) process mesh: four gloo ranks
                     spawned on cuda:0 (``chip_smoke.py --run-w-rank r
                     dir``), each holding its blocks of the parameters
@@ -346,13 +347,13 @@ Phases (any failure exits non-zero before the result line):
                     (16 x 16 and 2 x 16 x 16: 256 and 512 ranks played
                     by one process under a fake process group, on
                     ``meta`` tensors; long_500k skipped), then
-                    ``decode_32k`` of every architecture on 16 x 16: the
-                    failures exactly the families whose tensor
-                    parallelism is still to port (xlstm-125m, hymba-1.5b,
-                    whisper-tiny), each a NotImplementedError, the MoE
-                    configs (experts over 16 model ranks), the VLM and
-                    qwen2.5-14B (40 query heads on 16 ranks: 320 columns
-                    a rank, 2.5 heads) tracing; the report's tables.  Y.2, beside it: run Q's train step and run
+                    ``decode_32k`` of every architecture on 16 x 16,
+                    every one tracing with collectives on the model
+                    group: the MoE configs (experts over 16 model
+                    ranks), the VLM, qwen2.5-14B (40 query heads on 16
+                    ranks: 320 columns a rank, 2.5 heads), xlstm-125m,
+                    hymba-1.5b and whisper-tiny; the report's tables.
+                    Y.2, beside it: run Q's train step and run
                     W's batched decode step on four gloo ranks on cuda:0
                     (``chip_smoke.py --run-y-rank r dir``), and the
                     dry-run's trace of the same cells on a fake (2, 2)
@@ -361,14 +362,54 @@ Phases (any failure exits non-zero before the result line):
                     the traced peak within Y_PEAK_BAND of the rank's
                     ``max_memory_allocated``, the roofline bound no
                     longer than the measured step;
- 19. print the kernels line (launches summed over the runs, runs Q's, X's
-     mesh examples', Z's and Y's from rank 0), the card, then ``{"ok":
-     true, "device": {...}}`` last.
+ 19. tensor parallelism of every family, codec and hop plan:
+       AA. tp-families  AA.1-AA.4 on four gloo ranks spawned on cuda:0 as
+                    (data 2) x (model 2) (``chip_smoke.py --run-aa-rank r
+                    dir``), each model at full width: xlstm-125m cut to 4
+                    blocks (3 mLSTM, 1 sLSTM; d 768, 4 heads, the scans
+                    whole on every rank, vocabulary 50,304 split) under
+                    gbin_packed, hymba-1.5b cut to 2 layers (25 / 5
+                    heads on column blocks, its Mamba heads 800 channels
+                    a rank, vocabulary 32,001 replicated) under
+                    int4_backbone, whisper-tiny whole (1500 frames, 3
+                    heads a rank) under topk_backbone; each 2 steps of 2
+                    x 128 tokens a data rank, AdamW with ZeRO-1: finite
+                    losses equal on every rank, the launches a step the
+                    layout's low-bit units give (the packed vote's three
+                    kernels, int4_quant's two with the model group's
+                    absmax on a tensor-parallel leaf, threshold_mask with
+                    the group's threshold), every step's low-bit
+                    aggregates byte-equal to their twins (the per-shard
+                    vote; int4 and top-k on the whole leaf gathered over
+                    the model group, or on the bucket), replicas equal,
+                    ZeRO-1 moments half; then each model decoded on the
+                    mesh (batch 4, 64-token prompts, 16 greedy tokens,
+                    bf16 cache, and a float32 pass).  Here, against the
+                    unsharded model on the same parameters: the step-0
+                    loss (run Q's bound) and its float32 loss (to 1e-5),
+                    the step-0 gradient blocks within run Q's bf16-noise
+                    yardstick, the bf16 decode within 2^-4 of the
+                    largest logit, the float32 pass within 1e-4 with its
+                    greedy tokens.  AA.5 on eight gloo ranks as (pod 2)
+                    x (data 2) x (model 2) (``--run-aa-hop-rank``): an
+                    FP32 mean over the data pair, then the packed
+                    G-Binary vote over the pods, on four of qwen3-0.6B's
+                    stacked leaves split on their model axis: each
+                    block byte-equal to the per-shard twin, one launch
+                    each of sign_pack, vote_combine and float32
+                    unpack_ternary a leaf, no collective on the model
+                    group; step and decode seconds, peak memory a rank,
+                    collectives a step by group, launch calls a decode
+                    step and the run's seconds printed;
+ 20. print the kernels line (launches summed over the runs, runs Q's, X's
+     mesh examples', Z's, AA's and Y's from rank 0), the card, then
+     ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -2009,37 +2050,47 @@ def run_deepseek_moe(steps: int = 3) -> dict:
 N_TOKENS = 256
 
 
+#: run N's blocks: xlstm-125m's 12 cut to 4 (3 mLSTM, 1 sLSTM), for the
+#: script's time limit once run AA joined
+N_BLOCKS = 4
+
+
 def run_xlstm(steps: int = 2) -> dict:
-    """Run N: xlstm-125m at full width and depth (9 mLSTM and 3 sLSTM
-    blocks), W = 2 workers, 8 x ``N_TOKENS`` tokens a step (the chunked
-    scans), gbin_packed, AdamW: 8 packed buckets, one of them float32
-    (w_if, r)."""
-    from repro_torch.configs import get_config
-    from repro_torch.optim import AdamW
-
-    return drive_zoo("N xlstm-125m", get_config("xlstm_125m"), workers=2,
-                     seq_len=N_TOKENS, batch=8,
-                     optimizer=AdamW(peak_lr=3e-4, warmup_steps=2,
-                                     total_steps=steps),
-                     buckets=(11, 8, 1), ratio=0.4391217050767943,
-                     params=183_565_128, steps=steps)
-
-
-def run_hymba(steps: int = 2) -> dict:
-    """Run O: hymba-1.5b at full width cut to 5 layers (0, 2 and 4 global,
-    1 and 3 in the 1024-token window), W = 2, 4 x 2048 tokens, gbin_packed,
-    AdamW: 9 packed buckets, two of them float32 (w_dt; w_bc and a_log)."""
+    """Run N: xlstm-125m at full width cut to N_BLOCKS blocks (blocks 0-2
+    mLSTM, 3 sLSTM), W = 2 workers, 8 x ``N_TOKENS`` tokens a step (the
+    chunked scans), gbin_packed, AdamW: 4 packed buckets, one of them
+    float32 (w_if, r); the reference's traffic ratio of the cut
+    model."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.optim import AdamW
 
-    cfg = dataclasses.replace(get_config("hymba_1p5b"), num_layers=5)
+    cfg = dataclasses.replace(get_config("xlstm_125m"), num_layers=N_BLOCKS)
+    return drive_zoo("N xlstm-125m", cfg, workers=2,
+                     seq_len=N_TOKENS, batch=8,
+                     optimizer=AdamW(peak_lr=3e-4, warmup_steps=2,
+                                     total_steps=steps),
+                     buckets=(7, 4, 1), ratio=0.6954820233478944,
+                     params=112_700_184, steps=steps)
+
+
+def run_hymba(steps: int = 2) -> dict:
+    """Run O: hymba-1.5b at full width cut to 4 layers (0, 2 and 3
+    global, 1 in the 1024-token window; 5 before run AA joined the
+    script), W = 2, 4 x 2048 tokens, gbin_packed, AdamW: 9 packed
+    buckets, two of them float32 (w_dt; w_bc and a_log)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config("hymba_1p5b"), num_layers=4)
     return drive_zoo("O hymba-1.5b", cfg, workers=2, seq_len=2048, batch=4,
                      optimizer=AdamW(peak_lr=3e-4, warmup_steps=2,
                                      total_steps=steps),
-                     buckets=(12, 9, 2), ratio=0.3576435484125606,
-                     params=304_036_800, steps=steps)
+                     buckets=(12, 9, 2), ratio=0.4075318986281921,
+                     params=263_710_400, steps=steps)
 
 
 def run_whisper(steps: int = 3) -> dict:
@@ -2662,14 +2713,16 @@ def record_routing():
 
 
 def unsharded_yardstick(name: str, cfg, batch: dict, grads: dict, mesh_shape,
-                        shard: int, routing: list | None = None) -> tuple:
+                        shard: int, routing: list | None = None,
+                        f32_loss: list | None = None) -> tuple:
     """The unsharded model (seed 0, as the ranks') on the same parameters:
     its mean loss over the data ranks' shards of ``batch``, and each
     step-0 gradient block of data rank 0's model ranks (``grads[m]``,
     path -> block) against it on that rank's shard: the relative L2
     distance from the float32 gradient, tensor-parallel and unsharded
     bf16; fails where the first is beyond Q_GRAD_NOISE x the second plus
-    2^-8.  ``routing`` collects the bf16 forward's expert choices.
+    2^-8.  ``routing`` collects the bf16 forward's expert choices,
+    ``f32_loss`` the float32 model's loss on data rank 0's shard.
     Returns (mean loss, {path: distances}, the worst leaf, the model)."""
     import dataclasses
 
@@ -2697,8 +2750,11 @@ def unsharded_yardstick(name: str, cfg, batch: dict, grads: dict, mesh_shape,
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = T.map_leaves(
         lambda x: x.detach().to(torch.float32).requires_grad_(), params)
-    whole32 = torch.autograd.grad(loss_fn(params32, cfg32, shards[0]),
-                                  T.leaves(params32))
+    loss32 = loss_fn(params32, cfg32, shards[0])
+    if f32_loss is not None:
+        f32_loss.append(float(loss32.detach()))
+    whole32 = torch.autograd.grad(loss32, T.leaves(params32))
+    del loss32
     del params32
     extents = {"data": mesh_shape[0], "model": mesh_shape[1]}
     specs = T.leaves(sanitize_pspecs(param_pspecs(cfg), params, extents))
@@ -3526,8 +3582,8 @@ def decode_model(arch: str) -> None:
     cross = []
     real_cross = L.cross_attn_forward
 
-    def recorded(*args):
-        out = real_cross(*args)
+    def recorded(*args, **kwargs):
+        out = real_cross(*args, **kwargs)
         cross.append(out)
         return out
 
@@ -3922,6 +3978,19 @@ W_TOL = 2.0 ** -4
 W_TOL32 = 1e-4
 
 
+#: run W's layers: qwen3-0.6B's 28 cut to 7, for the script's time
+#: limit once run AA joined
+W_LAYERS = 7
+
+
+def w_config():
+    """Run W's model: qwen3-0.6B at full width cut to W_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3_0p6b"), num_layers=W_LAYERS)
+
+
 def w_prompt(cfg) -> torch.Tensor:
     return torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (W_BATCH, W_PROMPT)))
@@ -3944,7 +4013,8 @@ def w_layout(mesh, cfg, params, batch: int, prompt, new: int = W_NEW,
     step(params, prompt[:, :1], init_cache(cfg, batch, max_seq,
                                            device="cuda", mesh=mesh), 0)
     cache = init_cache(cfg, batch, max_seq, device="cuda", mesh=mesh)
-    local_k = tuple(cache["k"].shape)
+    # an xLSTM's cache holds its blocks' states and no KV
+    local_k = tuple(cache["k"].shape) if "k" in cache else None
     n = prompt.shape[1]
     with record_routing() as picks:
         torch.cuda.synchronize()
@@ -4032,12 +4102,11 @@ def one_device_logits(cfg, params, prompt, tokens, max_seq: int,
 
 
 def run_w_rank(rank: int, out: str) -> None:
-    """One rank of run W: full qwen3-0.6B on a (data 2) x (model 2) mesh,
+    """One rank of run W: run W's model on a (data 2) x (model 2) mesh,
     four gloo ranks on cuda:0, the batched and the shard_seq layout."""
     from datetime import timedelta
 
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.core import ProcessMesh
     from repro_torch.core import tree as T
     from repro_torch.models import init_params
@@ -4048,7 +4117,7 @@ def run_w_rank(rank: int, out: str) -> None:
                             rank=rank, world_size=W_MESH[0] * W_MESH[1],
                             timeout=timedelta(seconds=120))
     mesh = ProcessMesh(W_MESH, device="cuda:0")
-    cfg = get_config("qwen3_0p6b")
+    cfg = w_config()
     whole = init_params(cfg, generator=torch.Generator(device="cuda")
                         .manual_seed(0), device="cuda")
     params = T.map_leaves(torch.Tensor.clone, shard_params(
@@ -4075,23 +4144,23 @@ def run_w_rank(rank: int, out: str) -> None:
 
 
 def run_serve_mesh() -> dict:
-    """Run W: full qwen3-0.6B served on a (data 2) x (model 2) process
-    mesh, four gloo ranks on cuda:0: the batched layout (batch 4, the
-    cache's 256 positions 128 a model rank) and the shard_seq layout
-    (batch 1, 64 positions a rank), each a 64-token prompt through the
-    mesh's cached prefill and 32 greedy tokens, and a float32 pass (8
-    prompt tokens, 8 greedy ones); then, in this process, the one-device
-    step teacher-forced on the same tokens."""
+    """Run W: qwen3-0.6B at full width cut to W_LAYERS layers served on
+    a (data 2) x (model 2) process mesh, four gloo ranks on cuda:0: the
+    batched layout (batch 4, the cache's 256 positions 128 a model
+    rank) and the shard_seq layout (batch 1, 64 positions a rank), each
+    a 64-token prompt through the mesh's cached prefill and 32 greedy
+    tokens, and a float32 pass (8 prompt tokens, 8 greedy ones); then,
+    in this process, the one-device step teacher-forced on the same
+    tokens."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.core import tree as T
     from repro_torch.models import init_cache, init_params
     from repro_torch.runtime.serve import build_serve_step
 
     world = W_MESH[0] * W_MESH[1]
     ranks, _, spawn_s = spawn_ranks("--run-w-rank", world)
-    cfg = get_config("qwen3_0p6b")
+    cfg = w_config()
     params = init_params(cfg, generator=torch.Generator(device="cuda")
                          .manual_seed(0), device="cuda")
     prompt = w_prompt(cfg).cuda()
@@ -4673,6 +4742,647 @@ def run_moe_mesh() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: tensor parallelism of the recurrent and encoder-decoder
+# families, the mean codecs and a hop plan on a model axis (run AA)
+# ---------------------------------------------------------------------------
+
+AA_MESH = (2, 2)            # (data, model)
+AA_STEPS = 2
+AA_SHARD, AA_SEQ = 2, 128   # sequences of AA_SEQ tokens a data rank
+#: run AA's models: (the layers kept, None for the whole model; the plan)
+AA_MODELS = {"xlstm_125m": (4, "gbin_packed"),
+             "hymba_1p5b": (2, "int4_backbone"),
+             "whisper_tiny": (None, "topk_backbone")}
+AA_PROMPT, AA_NEW, AA_MAX_SEQ = 64, 16, 128
+#: the step-0 batch's float32 loss on the mesh against the unsharded
+#: model's: the CPU tests' tolerance for the same comparison
+AA_LOSS32_RTOL = 1e-5
+AA_HOP_MESH = (2, 2, 2)     # (pod, data, model)
+#: AA.5's leaves (qwen3-0.6B's stacked attention and MLP weights) and its
+#: plan: an FP32 mean over the 2 data ranks, then the packed G-Binary vote
+#: over the 2 pods (hier_fp32_gbinary's hops, sized to these axes)
+AA_HOP_LEAVES = ("layers/attn/wq", "layers/attn/wo", "layers/mlp/w_up",
+                 "layers/mlp/w_down")
+AA_HOP_PLAN = ("hier_fp32_gbinary_2x2",
+               (("fp32", 2, None), ("gbinary", None, "packed_a2a")))
+
+
+def aa_config(arch: str):
+    """Run AA's ``arch``: full width, cut to AA_MODELS' layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = AA_MODELS[arch][0]
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def aa_data(cfg):
+    from repro_torch.data import FramesStream, SyntheticLMStream
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=AA_SEQ,
+                             batch=AA_MESH[0] * AA_SHARD, seed=0,
+                             learnable=False)
+    if cfg.family == "encdec":
+        return FramesStream(data, cfg.encoder_seq, cfg.d_model)
+    return data
+
+
+def aa_twin(mode: str, flat: torch.Tensor) -> torch.Tensor:
+    """The plain twin of one low-bit unit's aggregate from its (W, N)
+    payload: the packed G-Binary vote, or each worker's int4 / top-k
+    encode (its absmax or k-th largest |x| over the payload) and their
+    float32 mean, as the psum's sum and division give it."""
+    from repro_torch.fabric import get_codec
+    from repro_torch.kernels import ref
+    w, n = flat.shape
+    if mode == "gbinary":
+        return torch.cat([twin_vote(flat[:, c:c + TWIN_CHUNK])
+                          for c in range(0, n, TWIN_CHUNK)])
+    if mode == "int4":
+        enc = ref.from_plane(ref.int4_quant_plane(ref.to_plane(
+            flat.to(torch.float32))), n).to(flat.dtype)
+    else:
+        k = max(1, int(n * get_codec(mode).fraction))
+        thresh = torch.topk(flat.to(torch.float32).abs(), k,
+                            dim=1).values[:, -1].to(flat.dtype)
+        enc = ref.from_plane(ref.threshold_mask_plane(ref.to_plane(flat),
+                                                      thresh), n)
+    # summed in rank order from the first row, as the group's all-reduce
+    # adds them (a sum from +0.0 would turn -0.0 + -0.0 into +0.0)
+    total = enc[0].to(torch.float32)
+    for row in enc[1:]:
+        total = total + row.to(torch.float32)
+    return total / w
+
+
+def aa_whole(mesh, blocks: torch.Tensor, spec) -> torch.Tensor:
+    """A tensor-parallel leaf's (W, *block) blocks on each model rank ->
+    the (W, *leaf) whole leaves, on every rank of the model group."""
+    from repro_torch.runtime.shardings import block_slices, global_shape
+    w = blocks.shape[0]
+    parts = mesh.model_group.all_gather(blocks[None]).reshape(
+        mesh.model_size, *blocks.shape)
+    shape = global_shape(tuple(blocks.shape[1:]), spec, mesh.extents)
+    whole = blocks.new_empty((w, *shape))
+    for m in range(mesh.model_size):
+        sl = block_slices(shape, spec, mesh.extents,
+                          dict(mesh.coords, model=m))
+        whole[(slice(None), *sl)] = parts[m]
+    return whole
+
+
+def aa_units(layout, specs) -> list:
+    """The layout's low-bit units, ``(codec, schedule, leaf names,
+    tensor-parallel)``: a bucket's leaves, or one per-leaf leaf."""
+    from repro_torch.core import codec_name, schedule_name
+    units = [(codec_name(b.key.mode), schedule_name(b.key.schedule),
+              [s.name for s in b.slots], False) for b in layout.buckets]
+    units += [(codec_name(u.key.mode), schedule_name(u.key.schedule),
+               [u.name], any(e is not None for e in specs[u.name]))
+              for u in layout.unfused]
+    return [u for u in units if u[0] != "fp32"]
+
+
+def aa_launches(units, wrappers) -> dict:
+    """The kernel launches a step of ``units`` makes: the packed vote's
+    three kernels a unit, int4_quant's two, threshold_mask's one."""
+    want = dict.fromkeys(wrappers, 0)
+    for codec, sched, _, _ in units:
+        if sched == "packed_a2a":
+            for n in ("sign_pack", "vote_combine", "unpack_ternary"):
+                want[n] += 1
+        elif codec == "int4":
+            want["int4_quant"] += 2
+        elif codec == "topk":
+            want["threshold_mask"] += 1
+    return want
+
+
+def aa_train(rank: int, out: str, mesh, arch: str, wrappers) -> dict:
+    """AA.1-AA.3 on this rank: ``arch`` (aa_config) under its plan, AdamW
+    with ZeRO-1, AA_STEPS steps.  Every step recomputes the workers'
+    gradients and holds each low-bit unit's aggregate to its twin: the
+    per-shard vote of the blocks, or int4 / top-k on the whole leaf
+    gathered over the model group for a tensor-parallel leaf (its scale
+    or threshold the whole leaf's), or on the bucket's payload."""
+    import dataclasses
+
+    from repro_torch.core import tree as T
+    from repro_torch.fabric import Fabric, plan_presets
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.shardings import shard_of
+
+    cfg = aa_config(arch)
+    data = aa_data(cfg)
+    plan = plan_presets()[AA_MODELS[arch][1]]
+    fabric = Fabric(mesh=mesh)
+    trainer = Trainer(cfg, AdamW(peak_lr=3e-4, warmup_steps=2,
+                                 total_steps=AA_STEPS), data, plan=plan,
+                      fabric=fabric, seed=0, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.init_state()
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0}
+    model = trainer.state.model
+    params = model.tree()
+    specs = dict(T.flatten(trainer.pspecs))
+    layout = fabric.layout_for(params, plan, trainer.pspecs)
+    units = aa_units(layout, specs)
+    res["units"] = units
+    st = trainer.state.opt
+    res["moment_bytes"] = sum(m.numel() * 4 for m in
+                              T.leaves(st.mu) + T.leaves(st.nu))
+    res["whole_moment_bytes"] = sum(2 * 4 * p.numel()
+                                    for p in T.leaves(params))
+    # ZeRO-1's partition: a leaf with a dimension the data ranks divide
+    # keeps an M-th of its moments, any other all of them
+    res["zero_moment_bytes"] = sum(
+        2 * 4 * p.numel() // (1 if d is None else mesh.data_size)
+        for p, d in zip(T.leaves(params), trainer.zero.dims))
+    res["params_local"] = sum(p.numel() for p in T.leaves(params))
+    want = aa_launches(units, wrappers)
+    decode_by = wrappers["unpack_ternary"].launches_by_dtype
+    res.update(loss=[], step_s=[], launches=[], calls=[], twin_checked=0,
+               decode_dtypes=[])
+    names = {n for _, _, group, _ in units for n in group}
+    for k in range(AA_STEPS):
+        batch = {n: torch.as_tensor(v).cuda()
+                 for n, v in data.batch_at(k).items()}
+        grads, _ = fabric.worker_grads(params, batch, model.loss)
+        if k == 0 and mesh.data_index == 0:
+            # the parent's unsharded yardstick: the gradient blocks, and
+            # this shard's float32 loss on a float32 copy of the blocks
+            torch.save({p: g[0].cpu() for p, g in T.flatten(grads)},
+                       os.path.join(out, f"grads_{arch}_{rank}.pt"))
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = T.map_leaves(lambda t: t.detach().to(torch.float32),
+                               params)
+            shard = {n: v[:AA_SHARD] for n, v in batch.items()}
+            with torch.no_grad():
+                res["loss32"] = float(loss_fn(p32, cfg32, shard,
+                                              trainer.tp))
+            del p32
+        # every data rank's block, stacked: (W, *block)
+        peers = {p: mesh.data_group.all_gather(g).reshape(
+            mesh.data_size, *g.shape[1:])
+            for p, g in T.flatten(grads) if p in names}
+        del grads
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        dtype_before = dict(decode_by)
+        mesh.reset_counts()
+        trainer.run(k + 1)
+        rec = trainer.history[-1]
+        delta = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+        if delta != want:
+            fail(f"AA {arch} rank {rank} step {k}: launches {delta}, the "
+                 f"layout's units {want}")
+        if not np.isfinite(rec["loss"]):
+            fail(f"AA {arch} rank {rank} step {k}: loss {rec['loss']}")
+        res["loss"].append(rec["loss"])
+        res["step_s"].append(rec["step_time_s"])
+        res["traffic_ratio"] = rec["traffic_ratio"]
+        res["launches"].append({n: d for n, d in delta.items() if d})
+        res["decode_dtypes"].append({str(dt): n - dtype_before[dt]
+                                     for dt, n in decode_by.items()
+                                     if n != dtype_before[dt]})
+        res["calls"].append({
+            name: (dict(g.calls_by_op), dict(g.bytes_by_op))
+            for name, g in (("data", mesh.data_group),
+                            ("model", mesh.model_group),
+                            ("world", mesh.world))})
+        agg = dict(T.flatten(trainer.last_aggregates))
+        for codec, _, group, tp in units:
+            if tp and codec != "gbinary":       # the whole leaf's statistic
+                p = group[0]
+                whole = aa_whole(mesh, peers[p], specs[p])
+                twin = aa_twin(codec, whole.reshape(whole.shape[0], -1))
+                twin = shard_of(twin.reshape(whole.shape[1:]), specs[p],
+                                mesh.extents, mesh.coords)
+                got = agg[p]
+                del whole
+            else:
+                twin = aa_twin(codec, torch.cat(
+                    [peers[n].reshape(peers[n].shape[0], -1)
+                     for n in group], dim=1))
+                got = torch.cat([agg[n].reshape(-1) for n in group])
+            if not same(got.reshape(-1), twin.reshape(-1)):
+                fail(f"AA {arch} rank {rank} step {k}: the aggregate of "
+                     f"{group} ({codec}) differs from its twin")
+            res["twin_checked"] += 1
+        del peers, agg
+        bad = [p for p, x in T.flatten(model.tree()) if not _q_same_across(
+            mesh.data_group if any(e is not None for e in specs[p])
+            else mesh.world, x)]
+        if bad:
+            fail(f"AA {arch} rank {rank} step {k}: replicas differ on {bad}")
+    res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, model, params, layout, st
+    free()
+    return res
+
+
+def aa_decode(rank: int, mesh, arch: str) -> dict:
+    """AA.4 on this rank: the seed's parameters of ``arch``, this rank's
+    blocks, W_BATCH rows of AA_PROMPT-token prompts through the mesh's
+    cached prefill and AA_NEW greedy tokens (bf16 cache), then the float32
+    pass."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import shard_params
+
+    cfg = aa_config(arch)
+    whole = init_params(cfg, generator=torch.Generator(device="cuda")
+                        .manual_seed(0), device="cuda")
+    blocks = T.map_leaves(torch.Tensor.clone, shard_params(
+        whole, cfg, mesh.extents, mesh.coords))
+    del whole
+    free()
+    prompt = w_prompt(cfg)[:, :AA_PROMPT].cuda()
+    res = w_layout(mesh, cfg, blocks, W_BATCH, prompt, new=AA_NEW,
+                   max_seq=AA_MAX_SEQ)
+    res["logits_sum"] = float(res["logits"].sum())
+    res["f32"] = w_f32(mesh, cfg, blocks, W_BATCH, prompt,
+                       max_seq=AA_MAX_SEQ)
+    if rank:                    # the logits are replicated: keep rank 0's
+        res.pop("logits")
+        res.pop("f32")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del blocks
+    free()
+    return res
+
+
+def aa_time_int4(mesh) -> dict | None:
+    """The split int4_quant entry at the main path's leaf (one plane of
+    MAIN_N float32 elements) on data rank 0's model group: phase 1 (the
+    absmax launch) and phase 2 (the quantize launch) on model rank 0
+    alone, device clock, the other rank waiting; the group's all-reduce
+    of the absmax bits between them, host clock around 20 calls on both
+    ranks; the whole entry through its wrapper, and its result against
+    the twin with the same group.  None on the other data ranks."""
+    from repro_torch.kernels import build, fused, ref
+
+    if mesh.data_index:
+        return None
+    group = mesh.model_group
+    gen = torch.Generator(device="cuda").manual_seed(7 + mesh.model_index)
+    planes = ref.to_plane(torch.randn(1, MAIN_N, generator=gen,
+                                      device="cuda"))
+    bits = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(planes)
+    n = planes[0].numel()
+    stream = build.stream_ptr(planes.device)
+    absmax = build.bind("int4_quant", "int4_absmax_f32", 2, 2)
+    quantize = build.bind("int4_quant", "int4_quantize_f32", 3, 2, 1)
+
+    def phase1():
+        build.check(absmax(planes.data_ptr(), bits.data_ptr(), 1, n,
+                           stream), "int4_quant")
+
+    def phase2():
+        build.check(quantize(planes.data_ptr(), bits.data_ptr(),
+                             out.data_ptr(), 1, n, 7.0, stream), "int4_quant")
+
+    res = {}
+    group.barrier()
+    if mesh.model_index == 0:
+        res["phase1_ms"] = time_ms(phase1)
+        res["phase2_ms"] = time_ms(phase2)
+    group.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        group.all_reduce(bits, "max")
+    torch.cuda.synchronize()
+    res["collective_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    got = fused.int4_quant_plane(planes, group=group)
+    if not same(got, ref.int4_quant_plane(planes, group=group)):
+        fail(f"AA int4 entry: rank {mesh.rank}'s block differs from the "
+             f"twin with the model group's absmax")
+    group.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fused.int4_quant_plane(planes, group=group)
+    torch.cuda.synchronize()
+    res["entry_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    # each input byte read once and each output byte written once (the
+    # scan's second read of the plane is the kernel's own)
+    res["bound_ms"] = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+    return res
+
+
+def run_aa_rank(rank: int, out: str) -> None:
+    """One rank of AA.1-AA.4 on a (data 2) x (model 2) mesh of four gloo
+    ranks on cuda:0: each model of AA_MODELS trained (aa_train), then
+    decoded (aa_decode)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core import ProcessMesh
+    from repro_torch.kernels import kernel_wrappers
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=AA_MESH[0] * AA_MESH[1],
+                            timeout=timedelta(seconds=300))
+    mesh = ProcessMesh(AA_MESH, device="cuda:0")
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = {"coords": mesh.coords}
+    for arch in AA_MODELS:
+        t0 = time.perf_counter()
+        res[arch] = aa_train(rank, out, mesh, arch, wrappers)
+        res[arch]["decode"] = aa_decode(rank, mesh, arch)
+        res[arch]["seconds"] = time.perf_counter() - t0
+    res["kernel_launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    res["int4_entry"] = aa_time_int4(mesh)
+    res["kernel_launches_bf16"] = \
+        wrappers["unpack_ternary"].launches_by_dtype[torch.bfloat16]
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def aa_hop_leaves() -> dict:
+    """AA.5's leaves: {path: (shape, sanitized spec on AA_HOP_MESH)}."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_pspecs
+    from repro_torch.runtime.shardings import sanitize_pspecs
+
+    cfg = q_config()
+    like = init_params(cfg, device="meta")
+    extents = dict(zip(("pod", "data", "model"), AA_HOP_MESH))
+    specs = dict(zip((p for p, _ in T.flatten(like)), T.leaves(
+        sanitize_pspecs(param_pspecs(cfg), like, extents))))
+    shapes = dict(T.flatten(like))
+    return {p: (tuple(shapes[p].shape), tuple(specs[p]))
+            for p in AA_HOP_LEAVES}
+
+
+def aa_hop_grad(i: int, shape, worker: int) -> torch.Tensor:
+    """Worker ``worker``'s bf16 gradient of AA.5's ``i``-th leaf, whole."""
+    gen = torch.Generator(device="cuda").manual_seed(1_000 * i + worker)
+    return torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+
+def run_aa_hop_rank(rank: int, out: str) -> None:
+    """One rank of AA.5: eight gloo ranks on cuda:0 as (pod 2) x (data 2)
+    x (model 2); each of AA_HOP_LEAVES, this worker's block, through
+    AA_HOP_PLAN (hop 0 over ``data``, hop 1 over ``pod``), held to the
+    per-shard twin (the FP32 mean of the data pairs' blocks, then the
+    packed G-Binary vote of the pods')."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core import LeafPolicy, ProcessMesh
+    from repro_torch.fabric import (AggregationContext, HopPlan, HopSpec,
+                                    aggregate_leaf, register_hop_plan)
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.runtime.shardings import shard_of
+
+    torch.cuda.set_device(0)
+    world = AA_HOP_MESH[0] * AA_HOP_MESH[1] * AA_HOP_MESH[2]
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    mesh = ProcessMesh(AA_HOP_MESH, device="cuda:0")
+    name, legs = AA_HOP_PLAN
+    register_hop_plan(HopPlan(name, tuple(HopSpec(*h) for h in legs)))
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    decode_by = wrappers["unpack_ternary"].launches_by_dtype
+    workers = AA_HOP_MESH[0] * AA_HOP_MESH[1]
+    res = {"coords": mesh.coords, "leaves": {}}
+    ctx = AggregationContext(group=mesh.data_group, num_workers=workers,
+                             mesh=mesh)
+    for i, (path, (shape, spec)) in enumerate(aa_hop_leaves().items()):
+        blocks = []
+        for w in range(workers):
+            g = aa_hop_grad(i, shape, w)
+            blocks.append(shard_of(g, spec, mesh.extents,
+                                   mesh.coords).contiguous())
+            del g
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        f32_before = decode_by[torch.float32]
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, _ = aggregate_leaf(ctx, blocks[mesh.data_index][None],
+                              LeafPolicy(name, "hierarchical",
+                                         model_spec=spec))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        means = [(blocks[2 * p].to(torch.float32)
+                  + blocks[2 * p + 1].to(torch.float32)) / 2
+                 for p in range(AA_HOP_MESH[0])]
+        twin = aa_twin("gbinary", torch.stack(means).reshape(
+            AA_HOP_MESH[0], -1))
+        if not same(u.reshape(-1), twin):
+            fail(f"AA.5 rank {rank}: {path}'s aggregate differs from the "
+                 f"per-shard twin")
+        delta = {n: fn.launches - before[n] for n, fn in wrappers.items()
+                 if fn.launches != before[n]}
+        if delta != {"sign_pack": 1, "vote_combine": 1,
+                     "unpack_ternary": 1} or \
+                decode_by[torch.float32] - f32_before != 1:
+            fail(f"AA.5 rank {rank}: {path} launched {delta}, not one each "
+                 f"of the packed vote's kernels with a float32 decode")
+        calls = {n: dict(g.calls_by_op) for n, g in
+                 (("model", mesh.model_group), *mesh.axis_groups.items())}
+        if calls["model"] or calls["data"] != {"all_reduce": 1} or \
+                set(calls["pod"]) != {"all_to_all", "all_gather"}:
+            fail(f"AA.5 rank {rank}: {path}'s collectives by group {calls}")
+        res["leaves"][path] = {"shape": shape, "spec": spec,
+                               "block": tuple(blocks[0].shape),
+                               "seconds": seconds, "launches": delta,
+                               "calls": calls}
+        del blocks, means, twin, u
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["kernel_launches"] = {n: fn.launches for n, fn in wrappers.items()}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_tp_families() -> dict:
+    """Run AA: tensor parallelism of the recurrent and encoder-decoder
+    families, of the mean codecs and of a hop plan on a model axis.
+    AA.1-AA.4 (``chip_smoke.py --run-aa-rank r dir``, four gloo ranks on
+    cuda:0 as (data 2) x (model 2)): xlstm-125m cut to 4 blocks (3
+    mLSTM, 1 sLSTM) under gbin_packed, hymba-1.5b cut to 2 layers under
+    int4_backbone and whisper-tiny whole (1500 frames) under
+    topk_backbone, each 2 steps of AA_SHARD x AA_SEQ tokens a data rank
+    with AdamW and ZeRO-1, every step's aggregates held to the twins on
+    the ranks (aa_train); then each decoded on the mesh (aa_decode).
+    Here, against the unsharded model on the same parameters: the step-0
+    loss, its float32 loss, the step-0 gradient blocks (bf16 noise), the
+    bf16 decode and the float32 pass.  AA.5 (``--run-aa-hop-rank``, eight
+    gloo ranks as (pod 2) x (data 2) x (model 2)): AA_HOP_PLAN on four of
+    qwen3-0.6B's leaves, split on their model axis."""
+    import dataclasses
+
+    from repro_torch.core import tree as T
+
+    t_run = time.perf_counter()
+    card = card_line()
+    world = AA_MESH[0] * AA_MESH[1]
+    ranks, grads, spawn_s = spawn_ranks(
+        "--run-aa-rank", world,
+        extra=lambda out: {arch: {r: torch.load(os.path.join(
+            out, f"grads_{arch}_{r}.pt")) for r in range(AA_MESH[1])}
+            for arch in AA_MODELS})
+    r0 = ranks[0]
+    for arch, (layers, preset) in AA_MODELS.items():
+        cfg = aa_config(arch)
+        got = r0[arch]
+        for r, res in enumerate(ranks):
+            mine = res[arch]
+            if mine["loss"] != got["loss"]:
+                fail(f"AA {arch}: rank {r}'s losses {mine['loss']}, rank "
+                     f"0's {got['loss']}")
+            if mine["moment_bytes"] != mine["zero_moment_bytes"] or \
+                    mine["moment_bytes"] > 0.51 * mine["whole_moment_bytes"]:
+                fail(f"AA {arch}: rank {r}'s ZeRO-1 moments "
+                     f"{mine['moment_bytes']} B, its partition's "
+                     f"{mine['zero_moment_bytes']} B, whole "
+                     f"{mine['whole_moment_bytes']} B")
+            if not mine["decode"]["finite"]:
+                fail(f"AA.4 {arch}: rank {r}'s decode logits not finite")
+            if mine["decode"]["logits_sum"] != \
+                    got["decode"]["logits_sum"] or not torch.equal(
+                        mine["decode"]["tokens"], got["decode"]["tokens"]):
+                fail(f"AA.4 {arch}: rank {r}'s logits or tokens differ")
+        loss32 = []
+        mean, errs, worst, model = unsharded_yardstick(
+            f"AA {arch}", cfg, aa_data(cfg).batch_at(0), grads.pop(arch),
+            AA_MESH, AA_SHARD, f32_loss=loss32)
+        loss_err = abs(got["loss"][0] - mean) / abs(mean)
+        err32 = abs(r0[arch]["loss32"] - loss32[0]) / abs(loss32[0])
+        if loss_err > Q_LOSS_RTOL or err32 > AA_LOSS32_RTOL:
+            fail(f"AA {arch}: step-0 loss {got['loss'][0]} against the "
+                 f"unsharded {mean} (relative {loss_err}), float32 "
+                 f"{r0[arch]['loss32']} against {loss32[0]} (relative "
+                 f"{err32}, bound {AA_LOSS32_RTOL})")
+        dec = got["decode"]
+        prompt = w_prompt(cfg)[:W_BATCH, :AA_PROMPT].cuda()
+        params = model.tree()
+        one = one_device_logits(cfg, params, prompt, dec["tokens"],
+                                AA_MAX_SEQ)
+        err = float((dec["logits"] - one).abs().max())
+        big = float(one.abs().max())
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = T.map_leaves(lambda t: t.detach().to(torch.float32), params)
+        f32 = dec["f32"]
+        one32 = one_device_logits(cfg32, p32, prompt[:, :W_F32_TOKENS],
+                                  f32["tokens"], AA_MAX_SEQ,
+                                  dtype=torch.float32)
+        del p32, params, model
+        free()
+        e32 = float((f32["logits"][W_F32_TOKENS - 1:] - one32).abs().max())
+        big32 = float(one32.abs().max())
+        same32 = torch.equal(one32[:-1].argmax(-1).T, f32["tokens"])
+        if not err <= W_TOL * big:
+            fail(f"AA.4 {arch}: the mesh's bf16 logits {err} from the "
+                 f"one-device step's, over {W_TOL} of the largest {big}")
+        if not (e32 <= W_TOL32 * big32 and same32):
+            fail(f"AA.4 {arch} float32: the mesh's logits {e32} from the "
+                 f"one-device step's (bound {W_TOL32} of {big32}), greedy "
+                 f"tokens equal {same32}")
+        cut = (f"cut to {layers} layers" if layers else "whole")
+        print(f"[AA {arch}] {card}: {world} gloo ranks on cuda:0 as (data, "
+              f"model) = {AA_MESH}, {cfg.name} {cut} ({got['params_local']} "
+              f"parameters a rank), {preset}, AdamW with ZeRO-1 "
+              f"(moments {got['moment_bytes']} B of "
+              f"{got['whole_moment_bytes']} B), "
+              f"{AA_MESH[0]} x {AA_SHARD} x {AA_SEQ} tokens; low-bit units "
+              f"(codec, schedule, leaves, tensor-parallel) {got['units']}",
+              flush=True)
+        print(f"[AA {arch}] losses {got['loss']} (the unsharded model's "
+              f"step-0 loss {mean:.6f}, relative {loss_err:.3e}; float32 "
+              f"{r0[arch]['loss32']!r} against {loss32[0]!r}, relative "
+              f"{err32:.3e}); traffic ratio {got['traffic_ratio']}; every "
+              f"step's {len(got['units'])} low-bit aggregates byte-equal "
+              f"to their twins on every rank ({got['twin_checked']} on rank "
+              f"0)", flush=True)
+        print(f"[AA {arch}] step seconds by rank "
+              f"{[res[arch]['step_s'] for res in ranks]}; init seconds "
+              f"{[round(res[arch]['init_s'], 2) for res in ranks]}; peak "
+              f"memory by rank (GiB) train "
+              f"{[round(res[arch]['train_peak_gib'], 2) for res in ranks]}, "
+              f"decode "
+              f"{[round(res[arch]['decode']['peak_gib'], 2) for res in ranks]}"
+              f"; the model's seconds on rank 0 {got['seconds']:.2f}",
+              flush=True)
+        print(f"[AA {arch}] launches a step by kernel (rank 0) "
+              f"{got['launches']}, unpack_ternary by decode dtype "
+              f"{got['decode_dtypes']}", flush=True)
+        for k, calls in enumerate(got["calls"]):
+            print(f"[AA {arch}] step {k} collectives of rank 0 (calls, "
+                  f"bytes) by group: {calls}", flush=True)
+        print(f"[AA {arch}] step-0 gradient blocks within {Q_GRAD_NOISE}x "
+              f"the bf16 noise (relative L2 distance from the float32 "
+              f"gradient, tensor-parallel against unsharded bf16: "
+              f"{ {p: (round(a, 5), round(b, 5)) for p, (a, b) in errs.items()} }"
+              f"; the largest ratio {worst})", flush=True)
+        ms = dec["step_ms"]
+        print(f"[AA.4 {arch} decode] batch {W_BATCH}, {AA_PROMPT}-token "
+              f"prompts, {AA_NEW} greedy tokens, bf16 cache; decode step ms "
+              f"median {float(np.median(ms)):.3f} (range "
+              f"{min(ms):.3f}-{max(ms):.3f}); prefill {dec['prefill_s']:.3f}"
+              f" s a prompt; {dec['launch_calls']} kernel launch calls in "
+              f"one decode step on rank 0; one step's collectives on rank "
+              f"0, (calls, bytes) by group: {dec['calls']}; against the "
+              f"one-device step teacher-forced on the same tokens: bf16 "
+              f"within {err!r} ({err / big:.3e} of the largest {big!r}, "
+              f"bound {W_TOL}), float32 within {e32!r} ({e32 / big32:.3e} "
+              f"of {big32!r}, bound {W_TOL32}), its greedy tokens equal",
+              flush=True)
+    t4 = r0["int4_entry"]
+    print(f"[AA int4_quant entry] {card}: one plane of {MAIN_N} float32 "
+          f"elements on model rank 0 of data rank 0's group: phase 1 "
+          f"(absmax) {t4['phase1_ms']:.4f} ms, phase 2 (quantize) "
+          f"{t4['phase2_ms']:.4f} ms, device clock, the other rank idle; "
+          f"the model group's all-reduce of the absmax bits "
+          f"{t4['collective_ms']:.4f} ms, host clock; the whole entry "
+          f"{t4['entry_ms']:.4f} ms a call, host clock (both ranks on the "
+          f"one card); bound {t4['bound_ms']:.4f} ms; byte-equal to the "
+          f"twin with the group's absmax", flush=True)
+    aa_s = time.perf_counter() - t_run
+    hops, _, hop_spawn_s = spawn_ranks("--run-aa-hop-rank",
+                                       AA_HOP_MESH[0] * AA_HOP_MESH[1]
+                                       * AA_HOP_MESH[2])
+    for path, leaf in hops[0]["leaves"].items():
+        secs = [h["leaves"][path]["seconds"] for h in hops]
+        print(f"[AA.5 hop plan] {card}: {AA_HOP_PLAN[0]} on {path} "
+              f"{leaf['shape']} (spec {leaf['spec']}, a block "
+              f"{leaf['block']}) over eight gloo ranks on cuda:0 as (pod, "
+              f"data, model) = {AA_HOP_MESH}: every rank's block byte-equal "
+              f"to the per-shard twin; launches {leaf['launches']} (a "
+              f"float32 decode); collectives of rank 0 by group "
+              f"{leaf['calls']}; seconds by rank "
+              f"{[round(s, 4) for s in secs]}", flush=True)
+    run_s = time.perf_counter() - t_run
+    print(f"[AA tp-families] spawns {spawn_s:.2f} s (AA.1-AA.4) and "
+          f"{hop_spawn_s:.2f} s (AA.5); AA.1-AA.4 with their checks "
+          f"{aa_s:.2f} s; peak by rank in AA.5 (GiB) "
+          f"{[round(h['peak_gib'], 2) for h in hops]}; run AA {run_s:.2f} s",
+          flush=True)
+    launches = dict(r0["kernel_launches"])
+    for k, v in hops[0]["kernel_launches"].items():
+        launches[k] += v
+    launches["unpack_ternary_bf16"] = r0["kernel_launches_bf16"]
+    launches["unpack_ternary"] -= r0["kernel_launches_bf16"]
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the launch tooling
 # ---------------------------------------------------------------------------
 
@@ -4809,10 +5519,9 @@ def y_trace() -> dict:
 
 def y_check_cli(out: str) -> None:
     """Y.1's checks on the dry-run's JSONs, and its report."""
-    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import report
     from repro_torch.models import SHAPES
-    from repro_torch.models.transformer import TP_FAMILIES
 
     def load(run, mesh, arch, name):
         with open(os.path.join(out, run, mesh, arch, name)) as f:
@@ -4836,29 +5545,20 @@ def y_check_cli(out: str) -> None:
                     d["collectives"]["pod_crossing_wire_bytes"] > 0):
                 fail(f"Y.1 {mesh} qwen3 train: pod-crossing wire bytes "
                      f"{d['collectives']['pod_crossing_wire_bytes']}")
-    failed, want = {}, set()
+    # every family traces on 16 model ranks: the MoE experts, the VLM,
+    # query columns that cut a head, the recurrences and whisper
     for arch in ARCH_IDS:
-        cfg = get_config(arch)
         d = load("every", "pod_16x16", arch, "decode_32k.decode.json")
-        if "error" in d:
-            failed[arch] = d["error"]
-        elif d["num_devices"] != 256 or not d["flops_per_device"] > 0:
-            fail(f"Y.1 {arch} decode_32k: {d}")
-        # the families whose tensor parallelism is still to port (the
-        # MoE experts, the VLM and query columns that cut a head trace)
-        if cfg.family not in TP_FAMILIES:
-            want.add(arch)
-    if set(failed) != want or not all(
-            e.startswith("NotImplementedError: ") for e in failed.values()):
-        fail(f"Y.1 decode_32k failures {failed}, expected on {sorted(want)}")
+        model = d.get("collectives", {}).get("by_group", {}).get("model", {})
+        if "error" in d or d["num_devices"] != 256 or \
+                not d["flops_per_device"] > 0 or not model.get("calls"):
+            fail(f"Y.1 {arch} decode_32k: {d.get('error') or d}")
     cells = report.load_cells(os.path.join(out, "qwen3")) + [
         c for c in report.load_cells(os.path.join(out, "every"))
         if c["arch"] != "qwen3_0p6b"]
     for mesh in ("pod_16x16", "multipod_2x16x16"):
         print(f"[Y dryrun] report {mesh}:\n"
               f"{report.fmt_table(cells, mesh)}", flush=True)
-    for arch, e in failed.items():
-        print(f"[Y dryrun] {arch} decode_32k on 16 x 16: {e}", flush=True)
 
 
 def start_y_cli() -> dict:
@@ -4917,10 +5617,9 @@ def run_launch_tooling(cli: dict | None = None) -> dict:
             p.wait(timeout=900)
             with open(os.path.join(out, f"{name}.log")) as f:
                 text = f.read()
-            if p.returncode != (0 if name == "qwen3" else 1):
+            if p.returncode != 0:
                 print(text[-6000:], flush=True)
-                fail(f"Y.1 {name} dry-run: exit {p.returncode} (the "
-                     f"families without tensor parallelism fail 'every')")
+                fail(f"Y.1 {name} dry-run: exit {p.returncode}")
             for line in text.splitlines():
                 if line.startswith(("[pod", "[multi")):
                     print(f"[Y dryrun] {line}", flush=True)
@@ -4991,7 +5690,19 @@ def run_launch_tooling(cli: dict | None = None) -> dict:
     return {"launches": launches}
 
 
+def timed(fn):
+    """``fn()``, its wall seconds printed under its name: what each phase
+    adds to the script's time limit."""
+    t0 = time.perf_counter()
+    out = fn()
+    name = fn.func.__name__ if isinstance(fn, functools.partial) \
+        else fn.__name__
+    print(f"[time] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on a GPU")
     card = card_line()
@@ -5004,7 +5715,7 @@ def main() -> None:
     print(f"built {built} in {time.perf_counter() - t0:.2f} s", flush=True)
     y_cli = start_y_cli()       # CPU work: phase Y reads it
 
-    rows = check_kernels()
+    rows = timed(check_kernels)
     # timed with the checks' memory still cached, as the training path
     # runs: for tens of ms after empty_cache() returns their ~29 GiB,
     # every memory-bound kernel on the H100 runs 6-16% slower, PyTorch's
@@ -5016,13 +5727,14 @@ def main() -> None:
     free()
     launches = dict.fromkeys(rows, 0)
     runs = (run_gbin_packed, run_per_leaf_ef, run_staged,
-            lambda: run_mean_codec("C int4", "int4_backbone", "int4_quant"),
-            lambda: run_mean_codec("D top-k", "topk_backbone",
-                                   "threshold_mask"),
+            functools.partial(run_mean_codec, "C int4", "int4_backbone",
+                              "int4_quant"),
+            functools.partial(run_mean_codec, "D top-k", "topk_backbone",
+                              "threshold_mask"),
             run_host_local, run_paper_controller, run_grad_accum,
             run_harness)
     for fn in runs:
-        run = fn()
+        run = timed(fn)
         for k, v in run.pop("launches").items():
             launches[k] += v
         del run
@@ -5032,21 +5744,21 @@ def main() -> None:
     group = nccl_group()
     try:
         for fn in (run_nccl, run_restore_replay):
-            run = fn(group)
+            run = timed(functools.partial(fn, group))
             for k, v in run.pop("launches").items():
                 launches[k] += v
             del run
             free()
     finally:
         dist.destroy_process_group()
-    run_gloo_on_card()
+    timed(run_gloo_on_card)
     free()
     for fn in (check_blocked_attention, run_gemma_4k, run_deepseek_moe,
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
                run_hier, run_tuned, run_serve, run_decode, run_elastic,
                run_straggler, run_serve_mesh, run_examples, run_moe_mesh,
-               lambda: run_launch_tooling(y_cli)):
-        run = fn()
+               run_tp_families, functools.partial(run_launch_tooling, y_cli)):
+        run = timed(fn)
         for k, v in run.pop("launches").items():
             launches[k] += v
         del run
@@ -5059,6 +5771,8 @@ def main() -> None:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
                for name, row in rows.items()]
+    print(f"[script] {card}: every phase passed, "
+          f"{time.perf_counter() - t_main:.1f} s with the build", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5075,6 +5789,10 @@ if __name__ == "__main__":
         run_w_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-z-rank"]:
         run_z_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-aa-rank"]:
+        run_aa_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--run-aa-hop-rank"]:
+        run_aa_hop_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-y-rank"]:
         run_y_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--run-x-rank"]:

@@ -76,23 +76,38 @@ __global__ void quantize_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// amax_bits: one zeroed uint32 per plane; it holds the planes' absmax
-// bit patterns after the call.
-extern "C" int int4_quant_f32(const void* x, void* amax_bits, void* out,
-                              long long planes, long long per_plane,
-                              float levels, void* stream) {
+// The two launches are two entry points, so that a caller may reduce the
+// absmax bits over a group of ranks between them (a tensor-parallel
+// leaf: each rank holds a block, and the scale is the whole leaf's, the
+// max of the blocks' bits over the model group).
+//
+// Phase 1.  amax_bits: one zeroed uint32 per plane; it holds the planes'
+// absmax bit patterns after the call.
+extern "C" int int4_absmax_f32(const void* x, void* amax_bits,
+                               long long planes, long long per_plane,
+                               void* stream) {
   if (planes <= 0 || per_plane <= 0) return (int)cudaSuccess;
   if (planes > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = (cudaStream_t)stream;
   long long blocks = (per_plane + kThreads - 1) / kThreads;
   long long scan = blocks < kMaxAbsmaxBlocks ? blocks : kMaxAbsmaxBlocks;
   absmax_bits_kernel<<<dim3((unsigned)scan, (unsigned)planes), kThreads, 0,
-                       s>>>((const float*)x, (unsigned int*)amax_bits,
-                            per_plane);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                       (cudaStream_t)stream>>>(
+      (const float*)x, (unsigned int*)amax_bits, per_plane);
+  return (int)cudaGetLastError();
+}
+
+// Phase 2: quantize every plane with the absmax whose bits amax_bits
+// holds (phase 1's, or a group's max of them).
+extern "C" int int4_quantize_f32(const void* x, const void* amax_bits,
+                                 void* out, long long planes,
+                                 long long per_plane, float levels,
+                                 void* stream) {
+  if (planes <= 0 || per_plane <= 0) return (int)cudaSuccess;
+  if (planes > 65535) return (int)cudaErrorInvalidConfiguration;
+  long long blocks = (per_plane + kThreads - 1) / kThreads;
   quantize_kernel<<<dim3((unsigned)blocks, (unsigned)planes), kThreads, 0,
-                    s>>>((const float*)x, (const unsigned int*)amax_bits,
-                         (float*)out, per_plane, levels);
+                    (cudaStream_t)stream>>>(
+      (const float*)x, (const unsigned int*)amax_bits, (float*)out,
+      per_plane, levels);
   return (int)cudaGetLastError();
 }

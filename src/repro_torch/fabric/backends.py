@@ -14,8 +14,11 @@ model axis) reaches ``aggregate`` as this rank's block
 (``repro/fabric/backends.py:150-175``): ``packed_a2a`` votes the block
 alone, ``vote_psum`` sees the whole leaf through the session mesh's model
 group, and the FP32 mean and ``sign_of_mean`` are elementwise.  A mean
-codec with an encode of its own (int4's absmax, top-k's threshold) spans
-the whole leaf and raises there: it is still to port (ROADMAP queue 1).
+codec with an encode of its own spans the whole leaf, as the reference's
+encode on the GSPMD leaf does (``repro/fabric/extra_codecs.py:79-84``,
+``:132-138``): int4's absmax and top-k's k-th largest |x| are taken
+over the model group.  A hop plan hands every hop the leaf's spec and
+the session's mesh, so each hop sees the block as its backend does.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 from ..core.lowbit import (LeafPolicy, _ef_inject, _ef_update,
                            fp32_allreduce, lowbit_packed_a2a,
                            lowbit_vote_psum, sign_of_mean)
-from ..core.modes import Schedule, codec_name, wire_schedule
+from ..core.modes import Schedule, wire_schedule
 from .codecs import get_codec, resolve_leaf_gate_mask, ring_wire_bytes
 from .registry import AggregationContext, get_schedule, register_schedule
 
@@ -67,16 +70,10 @@ class Fp32AllreduceBackend:
 
     def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
         codec = get_codec(policy.mode)
-        if getattr(policy, "model_spec", None) is not None and \
-                codec_name(policy.mode) not in ("fp32", "identity"):
-            raise NotImplementedError(
-                f"the {codec_name(policy.mode)} codec on a tensor-parallel "
-                f"leaf: its encode spans the whole leaf (an absmax or a "
-                f"threshold over every block), still to port (ROADMAP "
-                f"queue 1)")
         ks = _codec_kernels(ctx, codec)
         if ks is not None and ks.means:
-            u = self.aggregate_flat(ctx, g.reshape(g.shape[0], -1), codec)
+            u = self._encoded_mean(ctx, g.reshape(g.shape[0], -1), codec, ks,
+                                   _shard(ctx, g, policy))
             return u.reshape(g.shape[1:]), ef
         return codec.decode(ctx, fp32_allreduce(codec.encode(ctx, g),
                                                 ctx.group)), ef
@@ -85,12 +82,17 @@ class Fp32AllreduceBackend:
                        gate=None):
         ks = _codec_kernels(ctx, codec)
         if ks is not None and ks.means:
-            # the codec's encode kernel on each rank's flat payload (the
-            # same bits as codec.encode), the mean, then the decodes
-            u = fp32_allreduce(ks.encode_flat(flat), ctx.group)
-            return codec.decode(ctx, ks.decode_apply(u))
+            return self._encoded_mean(ctx, flat, codec, ks)
         return codec.decode(ctx, fp32_allreduce(codec.encode(ctx, flat),
                                                 ctx.group))
+
+    @staticmethod
+    def _encoded_mean(ctx, flat, codec, ks, shard=None):
+        """The codec's encode kernel on each rank's flat payload (the
+        same bits as ``codec.encode``; over the whole leaf where ``shard``
+        marks a tensor-parallel block), the mean, then the decodes."""
+        u = fp32_allreduce(ks.encode_flat(flat, shard), ctx.group)
+        return codec.decode(ctx, ks.decode_apply(u))
 
     def wire_bytes_per_device(self, n_elements: int, mode,
                               num_workers: int) -> float:
@@ -225,6 +227,11 @@ class HierarchicalBackend:
     hop (``HopPlan.group_sizes``), which the reference does not check
     (ROADMAP queue 3).
 
+    A tensor-parallel leaf's block takes every hop with the leaf's spec
+    and the session's mesh, whose model group is every hop's: each hop's
+    backend sees the block as it does on a flat route (the reference
+    hands every hop's ``LeafPolicy`` the ``model_spec``).
+
     EF is threaded around the whole route: injected before hop 0 and
     updated from the injected gradient after the last hop, as the bucket
     layer does around a flat collective.  The bucket zero gate reaches
@@ -262,8 +269,8 @@ class HierarchicalBackend:
                 f"{ctx.num_workers} workers, but the group's hops hold "
                 f"{extents} (innermost first); register a plan whose fixed "
                 f"hops equal the axis extents")
-        return [(hop, [dataclasses.replace(ctx, group=g, num_workers=s,
-                                           mesh=None) for g in groups])
+        return [(hop, [dataclasses.replace(ctx, group=g, num_workers=s)
+                       for g in groups])
                 for hop, groups, s in zip(plan.hops, levels, sizes)]
 
     @staticmethod
@@ -284,17 +291,13 @@ class HierarchicalBackend:
     def aggregate(self, ctx: AggregationContext, g, policy, ef=None):
         codec = get_codec(policy.mode)
         plan = self._plan_of(codec)
-        if getattr(policy, "model_spec", None) is not None:
-            raise NotImplementedError(
-                f"hop plan {plan.name!r} on a tensor-parallel leaf (spec "
-                f"{policy.model_spec}): hop plans on a model axis above 1 "
-                f"are still to port (ROADMAP queue 1 item 8)")
         use_ef = (ef is not None and policy.error_feedback
                   and codec.threads_ef)
         g_eff, _ = _ef_inject(g, ef if use_ef else None)
 
         def run(hop, backend, hcodec, sched, hop_ctx, block):
             hop_policy = LeafPolicy(mode=hop.codec, schedule=sched,
+                                    model_spec=policy.model_spec,
                                     gate_phase=policy.gate_phase)
             return backend.aggregate(hop_ctx, block, hop_policy, None)[0]
 

@@ -311,17 +311,22 @@ def _planes3(planes: torch.Tensor, what: str) -> torch.Tensor:
     return p3
 
 
-def int4_quant_plane(planes: torch.Tensor, *,
-                     levels: float = 7.0) -> torch.Tensor:
+def int4_quant_plane(planes: torch.Tensor, *, levels: float = 7.0,
+                     group=None) -> torch.Tensor:
     """Absmax int4 fake-quant of float32 value planes (M, LANE) or
     (L, M, LANE), one scale per plane.
 
     Two launches, counted as two: the absmax of each plane (an atomic
     max on the bits of |x|, into a per-plane slot on the card), then the
-    quantize pass.  No scale is read back to the host.
+    quantize pass.  With ``group`` (the model group of a
+    tensor-parallel leaf, whose ranks hold its blocks) the slots are
+    reduced by max over the group between the launches, as int32 (the
+    bits of a non-negative float order as the float), so every rank
+    quantizes with the whole leaf's absmax.  No scale is read back to
+    the host.
     """
     if build.on_cpu(planes):
-        return int4_quant_plane_plain(planes, levels)
+        return int4_quant_plane_plain(planes, levels, group)
     if planes.dtype != torch.float32:
         raise TypeError(f"int4_quant_plane takes float32, got {planes.dtype}")
     p3 = _planes3(planes, "int4_quant_plane")
@@ -329,11 +334,19 @@ def int4_quant_plane(planes: torch.Tensor, *,
                             device=p3.device)
     out = torch.empty_like(p3)
     if build.meta_call("int4_quant", (p3,), out, launches=2):
+        if group is not None:           # the dry-run counts the collective
+            group.all_reduce(amax_bits, "max")
         return out.reshape(planes.shape)
-    fn = build.bind("int4_quant", "int4_quant_f32", 3, 2, 1)
-    build.check(fn(p3.data_ptr(), amax_bits.data_ptr(), out.data_ptr(),
-                   p3.shape[0], p3[0].numel(), float(levels),
-                   build.stream_ptr(p3.device)), "int4_quant")
+    stream = build.stream_ptr(p3.device)
+    absmax = build.bind("int4_quant", "int4_absmax_f32", 2, 2)
+    build.check(absmax(p3.data_ptr(), amax_bits.data_ptr(), p3.shape[0],
+                       p3[0].numel(), stream), "int4_quant")
+    if group is not None:
+        amax_bits = group.all_reduce(amax_bits, "max")
+    quantize = build.bind("int4_quant", "int4_quantize_f32", 3, 2, 1)
+    build.check(quantize(p3.data_ptr(), amax_bits.data_ptr(), out.data_ptr(),
+                         p3.shape[0], p3[0].numel(), float(levels), stream),
+                "int4_quant")
     int4_quant_plane.launches += 2
     return out.reshape(planes.shape)
 
@@ -490,8 +503,11 @@ class KernelSet:
         raise NotImplementedError
 
     # --- mean-reduction entry points (means=True sets) ---
-    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
-        """(ranks, N) payload -> each rank's encoded payload, same shape."""
+    def encode_flat(self, flat: torch.Tensor, shard=None) -> torch.Tensor:
+        """(ranks, N) payload -> each rank's encoded payload, same shape.
+        ``shard`` (a :class:`~repro_torch.runtime.shardings.ShardView`)
+        marks the payload as a block of a tensor-parallel leaf: the
+        encode's statistic spans the whole leaf, over its model group."""
         raise NotImplementedError
 
     def decode_apply(self, payload: torch.Tensor) -> torch.Tensor:
@@ -553,7 +569,8 @@ class VoteKernelSet(KernelSet):
 
 
 class Int4KernelSet(KernelSet):
-    """Absmax int4 fake-quant for the ``int4`` codec, one scale per rank."""
+    """Absmax int4 fake-quant for the ``int4`` codec, one scale per rank
+    (per tensor-parallel leaf, over its model group)."""
     name = "int4"
     means = True
 
@@ -563,10 +580,11 @@ class Int4KernelSet(KernelSet):
     def signature(self) -> str:
         return f"int4:v1:levels={self.levels:g}"
 
-    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
+    def encode_flat(self, flat: torch.Tensor, shard=None) -> torch.Tensor:
         n = flat.shape[-1]
         planes = ref.to_plane(flat.to(torch.float32))
-        out = int4_quant_plane(planes, levels=self.levels)
+        out = int4_quant_plane(planes, levels=self.levels,
+                               group=None if shard is None else shard.group)
         return ref.from_plane(out, n).to(flat.dtype)
 
     def launches(self, *, fused: bool, distributed: bool = True,
@@ -582,9 +600,39 @@ class Int4KernelSet(KernelSet):
         return n * (2 * _F32 + _F32)
 
 
+def kth_largest(x: torch.Tensor, k: int, group) -> torch.Tensor:
+    """The ``k``-th largest value of each row of ``x`` (L, n),
+    non-negative float32, over the rows of every rank of ``group``
+    concatenated: a radix select on the int32 bits (a non-negative
+    float's bits order as the float), a byte a pass from the top.  Each
+    pass counts the candidates' next byte in 256 bins, sums the counts
+    over the group (one all-reduce of L x 256 int64, 2 KiB a row) and
+    keeps the bin that holds the k-th; four passes fix the 32 bits, on
+    the device, with nothing read back to the host.  The value
+    ``torch.topk`` of the rows gathered whole would give."""
+    bits = x.contiguous().view(torch.int32)
+    lead = bits.shape[0]
+    prefix = torch.zeros((lead, 1), dtype=torch.int32, device=x.device)
+    rank = torch.full((lead, 1), k, dtype=torch.int64, device=x.device)
+    for shift in (24, 16, 8, 0):
+        digit = ((bits >> shift) & 0xFF).long()
+        if shift == 24:
+            cand = torch.ones_like(digit)
+        else:
+            cand = ((bits >> (shift + 8)) == (prefix >> (shift + 8))).long()
+        hist = torch.zeros((lead, 256), dtype=torch.int64, device=x.device)
+        hist = group.all_reduce(hist.scatter_add_(1, digit, cand))
+        above = hist.flip(1).cumsum(1).flip(1)      # candidates >= each bin
+        pick = (above >= rank).sum(1, keepdim=True) - 1
+        rank = rank - (above - hist).gather(1, pick)
+        prefix = prefix | (pick.to(torch.int32) << shift)
+    return prefix.view(torch.float32)[:, 0]
+
+
 class TopKKernelSet(KernelSet):
     """Magnitude-threshold sparsify for the ``topk`` codec: each rank
-    keeps its ``fraction`` largest |x| (ties at the threshold too)."""
+    keeps its ``fraction`` largest |x| (ties at the threshold too); a
+    tensor-parallel leaf's ranks, the whole leaf's."""
     name = "topk"
     means = True
 
@@ -594,13 +642,18 @@ class TopKKernelSet(KernelSet):
     def signature(self) -> str:
         return f"topk:v1:f={self.fraction:g}"
 
-    def encode_flat(self, flat: torch.Tensor) -> torch.Tensor:
+    def encode_flat(self, flat: torch.Tensor, shard=None) -> torch.Tensor:
         # each rank's threshold: its k-th largest |x| (torch.topk, as the
-        # reference's lax.top_k), rounded to the payload's dtype
+        # reference's lax.top_k), rounded to the payload's dtype; on a
+        # tensor-parallel leaf the whole leaf's k-th over the model group
         f = flat.to(torch.float32).abs()
-        k = max(1, int(f.shape[-1] * self.fraction))
-        thresh = torch.topk(f, k, dim=-1).values[..., -1].to(flat.dtype)
-        out = threshold_mask_plane(ref.to_plane(flat), thresh)
+        if shard is None:
+            k = max(1, int(f.shape[-1] * self.fraction))
+            thresh = torch.topk(f, k, dim=-1).values[..., -1]
+        else:
+            k = max(1, int(shard.numel * self.fraction))
+            thresh = kth_largest(f, k, shard.group)
+        out = threshold_mask_plane(ref.to_plane(flat), thresh.to(flat.dtype))
         return ref.from_plane(out, flat.shape[-1])
 
     def launches(self, *, fused: bool, distributed: bool = True,

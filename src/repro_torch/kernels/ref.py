@@ -221,8 +221,8 @@ def vote_pipeline_dense(stack: torch.Tensor, num_workers: int,
     return unpack_ternary(sw, mw)
 
 
-def int4_quant_plane(planes: torch.Tensor,
-                     levels: float = 7.0) -> torch.Tensor:
+def int4_quant_plane(planes: torch.Tensor, levels: float = 7.0,
+                     group=None) -> torch.Tensor:
     """Absmax int4 fake-quant, one scale per leading plane.
 
     ``s = max|x| * float32(1 / levels)`` over each (M, LANE) plane (the
@@ -230,11 +230,17 @@ def int4_quant_plane(planes: torch.Tensor,
     ``levels`` into this product), ``safe = s`` where ``s > 0`` else 1
     (so a zero or NaN scale becomes 1), then ``clip(round(x / safe),
     -levels, levels) * safe`` with a true division and round half to
-    even; NaN stays NaN through the clip.
+    even; NaN stays NaN through the clip.  With ``group`` the absmax is
+    the max over its ranks' planes, taken on the int32 bits as the
+    kernel takes it (a tensor-parallel leaf's scale).
     """
     inv = torch.full((), 1.0 / levels, dtype=torch.float32,
                      device=planes.device)
-    scale = planes.abs().amax(dim=(-2, -1), keepdim=True) * inv
+    amax = planes.abs().amax(dim=(-2, -1), keepdim=True)
+    if group is not None:
+        amax = group.all_reduce(amax.view(torch.int32), "max").view(
+            torch.float32)
+    scale = amax * inv
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(planes / safe), -levels, levels)
     return q * safe

@@ -36,7 +36,8 @@ on the one device.  Examples, on the CPU:
       --device cpu --mesh 2,2 --steps 1 --plan gbin_packed
 
   # expert parallelism: the MoE's experts over the model axis, the four
-  # ranks started by the launcher itself
+  # ranks started by the launcher itself (every family runs on a model
+  # axis: --arch xlstm_125m or hymba_1p5b the same way)
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek_moe_16b --smoke --device cpu --mesh 2,2 \\
       --device-count 4 --steps 2

@@ -19,7 +19,9 @@ K and V projected from the replicated ``wk`` / ``wv`` (or, where its
 query columns cut a head, the heads that touch them, from Q gathered
 over the group), the MLP runs its column block, and a MoE layer routes
 every token on every rank and runs this rank's experts; each ends in
-the sum over the model group.
+the sum over the model group.  Whisper's cross-attention runs its query
+columns the same way against K/V heads projected from the replicated
+encoder output (:func:`cross_attn_columns`).
 
 The decode path (:func:`attn_decode`) runs one token against a KV cache,
 at one depth for the batch or one depth a row; on a mesh the cache's
@@ -595,28 +597,77 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def cross_attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        enc_k: torch.Tensor, enc_v: torch.Tensor, *,
-                       group=None) -> torch.Tensor:
+                       group=None, tp=None) -> torch.Tensor:
     """Decoder cross-attention over the encoder's projected K/V.
 
     x: (B,S,d); enc_k / enc_v: (B,T_enc,K,hd) from :func:`cross_kv`.  No
     mask: every query sees every frame.  With ``group`` the frames are
     spread over it, this rank holding its share, and the partial
-    softmaxes are combined (:func:`_combine`)."""
+    softmaxes are combined (:func:`_combine`).  With ``tp`` splitting
+    Q's columns (a decode step on a mesh, outside autograd) the token's
+    q of every head is gathered over the model group, every head attends
+    (each rank's frames hold every K/V head), and the rank keeps its
+    context columns for its rows of ``wo``, summed over the group."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
+    h, hd = cfg.num_heads, cfg.hd
+    q = _mm(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.hd)
+    split = tp is not None and tp.split(p["wq"].shape[-1], h * hd,
+                                        "cross/wq")
+    if split:
+        q = tp.group.all_gather_dim(q, -1)
+    q = q.reshape(b, s, h, hd)
     if group is not None:
-        return _combine(q, enc_k, enc_v, None, group) @ p["wo"]
-    probs = torch.softmax(_gqa_scores(q, enc_k), dim=-1)
-    return _gqa_out(probs, enc_v) @ p["wo"]
+        out = _combine(q, enc_k, enc_v, None, group)
+    else:
+        out = _gqa_out(torch.softmax(_gqa_scores(q, enc_k), dim=-1), enc_v)
+    if not split:
+        return _mm(out, p["wo"])
+    cols = p["wo"].shape[0]
+    return tp.reduce(_mm(out[..., tp.index * cols:(tp.index + 1) * cols],
+                         p["wo"]))
+
+
+def cross_attn_columns(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                       cfg: ModelConfig, tp) -> torch.Tensor:
+    """Cross-attention of this rank's ``c = H hd / M`` query columns over
+    the encoder's output ``enc`` (B, T_enc, d), replicated (training on
+    a model axis; whisper-tiny's 6 heads on 16 ranks give 24 columns a
+    rank).
+
+    As :func:`_attn_columns`: Q's column block, gathered where it cuts a
+    head, the heads ``[h0, h1)`` that touch the columns, their K/V heads
+    projected from the replicated ``wk`` / ``wv`` (:func:`_replicated_kv`)
+    and ``enc`` (through ``tp.copy``: every rank reads it for its own
+    heads), then the context columns ``[m c, (m+1) c)`` times this
+    rank's rows of ``wo``, summed over the group.  No RoPE, no mask."""
+    b, s, _ = x.shape
+    hd, g = cfg.hd, cfg.num_heads // cfg.num_kv_heads
+    c = p["wq"].shape[-1]
+    h0, h1 = _column_heads(cfg, tp, c)
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    q = _mm(tp.copy(x), p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if c % hd:
+        q = tp.gather(q, -1)[..., h0 * hd:h1 * hd]
+    enc_k, enc_v = cross_kv(_replicated_kv(p, tp, slice(k0 * hd, k1 * hd)),
+                            tp.copy(enc), cfg)
+    own = torch.arange(h0, h1, device=x.device) // g - k0
+    probs = torch.softmax(_gqa_scores(q.reshape(b, s, h1 - h0, hd),
+                                      enc_k[:, :, own]), dim=-1)
+    out = _gqa_out(probs, enc_v[:, :, own])
+    lo = tp.index * c - h0 * hd
+    return tp.reduce(_mm(out[..., lo:lo + c], p["wo"]))
 
 
 def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
-    """The encoder's output projected to cross-attention K/V."""
+    """The encoder's output projected to cross-attention K/V, of the K/V
+    heads ``wk``'s columns hold (every head, or a rank's block)."""
     b, t, _ = enc_out.shape
-    k, hd = cfg.num_kv_heads, cfg.hd
+    hd = cfg.hd
+    k = p["wk"].shape[-1] // hd
     kk = (enc_out @ p["wk"]).reshape(b, t, k, hd)
     v = (enc_out @ p["wv"]).reshape(b, t, k, hd)
     if cfg.qkv_bias:

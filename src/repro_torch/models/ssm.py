@@ -21,6 +21,30 @@ and the gate products ``xu @ w_if``, ``x @ w_dt`` and ``x @ w_bc``.
 The decode steps (``mlstm_decode``, ``slstm_decode``, ``mamba_decode``)
 run one token through the same cells and return the new state in place
 of the old, as the reference's do; a state is float32 in any model.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.models.tp.
+TensorParallel`) follows the reference's partition specs
+(``repro/models/transformer.py:85-98``, ``:205-219``):
+
+  * mLSTM: ``w_up`` and ``w_ogate`` by columns, ``w_q``, ``w_k``, ``w_v``,
+    ``w_if`` and ``w_down`` by rows.  q, k, v and the gate
+    pre-activations are this rank's rows' products summed over the group
+    (``if_bias`` added once, after the sum), the stabilised scan runs
+    whole on every rank (xlstm-125m's 4 heads do not split over 16
+    ranks), and its output enters ``w_down``'s rows through
+    ``tp.scatter``;
+  * sLSTM: ``w_in`` and ``bias`` by blocks of the fused z/i/f/o columns,
+    which do not fall on gate boundaries, so the pre-activation (and
+    ``bias``, and ``r`` where the heads split) is gathered whole, the
+    scan runs whole, and ``w_down`` is row-parallel as above;
+  * the Mamba head: channel-parallel.  ``w_in``, ``a_log``,
+    ``skip_scale`` and ``w_out`` hold this rank's channels, the
+    replicated ``w_dt``, ``dt_bias`` and ``w_bc`` enter through
+    ``tp.copy`` (their gradients are partial), and each rank scans its
+    channels with a (B, d / M, n) state.
+
+A block whose leaves the model axis does not divide is replicated, as
+the reference's ``sanitize_spec`` leaves it, and runs whole.
 """
 from __future__ import annotations
 
@@ -137,45 +161,82 @@ def scale_qk(t: torch.Tensor, hd: int) -> torch.Tensor:
     return t / torch.full((), math.sqrt(hd), dtype=t.dtype, device=t.device)
 
 
-def _mlstm_preact(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _split(tp, local: int, full: int, what: str) -> bool:
+    return tp is not None and tp.split(local, full, what)
+
+
+def _row_parallel(tp, split: bool, y: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``y @ w`` for a replicated ``y`` (every rank's whole): with
+    ``w``'s rows split, this rank's block of ``y`` (``tp.scatter``)
+    times its rows, summed over the group."""
+    if not split:
+        return y @ w
+    return tp.reduce(tp.scatter(y, -1) @ w)
+
+
+def _mlstm_preact(p: dict, x: torch.Tensor, cfg: ModelConfig, tp=None):
+    """q, k, v, the input and forget gates' pre-activations (whole on
+    every rank), the output gate (this rank's columns under ``tp``) and
+    whether the block is split."""
     b, s, _ = x.shape
-    di = p["w_up"].shape[1]
+    di = int(cfg.d_model * cfg.ssm.proj_factor)
     h = cfg.num_heads
     hd = di // h
+    split = _split(tp, p["w_up"].shape[1], di, "mlstm/w_up")
+    if split:
+        x = tp.copy(x)
     xu = x @ p["w_up"]
-    q = scale_qk((xu @ p["w_q"]).reshape(b, s, h, hd), hd)
-    k = scale_qk((xu @ p["w_k"]).reshape(b, s, h, hd), hd)
-    v = (xu @ p["w_v"]).reshape(b, s, h, hd)
-    gif = (xu.to(torch.float32) @ p["w_if"]) + p["if_bias"]
+    if split:       # this rank's rows of each product, summed at once
+        qkv = tp.reduce(torch.cat([xu @ p[w] for w in ("w_q", "w_k", "w_v")],
+                                  dim=-1))
+        q, k, v = qkv.split(di, dim=-1)
+        gif = tp.reduce(xu.to(torch.float32) @ p["w_if"]) + p["if_bias"]
+    else:
+        q, k, v = (xu @ p[w] for w in ("w_q", "w_k", "w_v"))
+        gif = (xu.to(torch.float32) @ p["w_if"]) + p["if_bias"]
+    q = scale_qk(q.reshape(b, s, h, hd), hd)
+    k = scale_qk(k.reshape(b, s, h, hd), hd)
+    v = v.reshape(b, s, h, hd)
     it, ft = gif[..., :h], gif[..., h:]
     o = torch.sigmoid(x @ p["w_ogate"])
-    return q, k, v, it, ft, o
+    return q, k, v, it, ft, o, split
 
 
-def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlstm_down(p: dict, o: torch.Tensor, h: torch.Tensor, tp,
+                split: bool) -> torch.Tensor:
+    """``(o * h) @ w_down``; with ``w_down``'s rows split, ``h`` (whole
+    on every rank) cut to this rank's block by ``tp.scatter`` to meet
+    ``o``'s columns, and the product summed over the group."""
+    if not split:
+        return (o * h) @ p["w_down"]
+    return tp.reduce((o * tp.scatter(h, -1)) @ p["w_down"])
+
+
+def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
     """Full-sequence mLSTM block (training / prefill)."""
     b, s, _ = x.shape
-    di = p["w_up"].shape[1]
-    q, k, v, it, ft, o = _mlstm_preact(p, x, cfg)
+    q, k, v, it, ft, o, split = _mlstm_preact(p, x, cfg, tp)
     f32 = torch.float32
     xs = (q.transpose(0, 1).to(f32), k.transpose(0, 1).to(f32),
           v.transpose(0, 1).to(f32), it.transpose(0, 1), ft.transpose(0, 1))
     _, hs = chunked_scan(_mlstm_cell, mlstm_init_state(cfg, b, x.device), xs,
                          s)
-    hs = hs.transpose(0, 1).reshape(b, s, di).to(x.dtype)       # (B,S,di)
-    return (o * hs) @ p["w_down"]
+    hs = hs.transpose(0, 1).reshape(b, s, -1).to(x.dtype)       # (B,S,di)
+    return _mlstm_down(p, o, hs, tp, split)
 
 
-def mlstm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+def mlstm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                 tp=None):
     """One-token mLSTM step; x: (B, 1, d) -> ((B, 1, d), new state)."""
     b = x.shape[0]
-    di = p["w_up"].shape[1]
-    q, k, v, it, ft, o = _mlstm_preact(p, x, cfg)
+    q, k, v, it, ft, o, split = _mlstm_preact(p, x, cfg, tp)
     f32 = torch.float32
     new_state, h_t = _mlstm_cell(state, (q[:, 0].to(f32), k[:, 0].to(f32),
                                          v[:, 0].to(f32), it[:, 0], ft[:, 0]))
-    h_t = h_t.reshape(b, 1, di).to(x.dtype)
-    return (o * h_t) @ p["w_down"], new_state
+    h_t = h_t.reshape(b, 1, -1).to(x.dtype)
+    return _mlstm_down(p, o, h_t, tp, split), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -228,23 +289,49 @@ def _slstm_cell(p: dict, cfg: ModelConfig, state: dict, x_in: torch.Tensor):
     return {"c": c_t, "n": n_t, "h": h_t, "m": m_t}, h_t
 
 
-def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _slstm_input(p: dict, x: torch.Tensor, cfg: ModelConfig, tp=None):
+    """The input pre-activation (..., 4d) float32 and the cell's
+    parameters, whole on every rank: under ``tp`` this rank's column
+    block of ``x @ w_in`` and of ``bias``, and ``r``'s heads where they
+    split, gathered over the group (the scan that reads them runs on
+    every rank, so their gradients need no sum)."""
+    d, q = cfg.d_model, dict(p)
+    if _split(tp, p["w_in"].shape[-1], 4 * d, "slstm/w_in"):
+        x_in = tp.gather((tp.copy(x) @ p["w_in"]).to(torch.float32), -1,
+                         partial=False)
+    else:
+        x_in = (x @ p["w_in"]).to(torch.float32)
+    if _split(tp, p["bias"].shape[0], 4 * d, "slstm/bias"):
+        q["bias"] = tp.gather(p["bias"], 0, partial=False)
+    if _split(tp, p["r"].shape[0], cfg.num_heads, "slstm/r"):
+        q["r"] = tp.gather(p["r"], 0, partial=False)
+    return x_in, q
+
+
+def _slstm_down(p: dict, y: torch.Tensor, cfg: ModelConfig, tp=None):
+    return _row_parallel(tp, _split(tp, p["w_down"].shape[0], cfg.d_model,
+                                    "slstm/w_down"), y, p["w_down"])
+
+
+def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
     b, s, _ = x.shape
-    x_in = (x @ p["w_in"]).to(torch.float32)       # (B,S,4d)
+    x_in, p_all = _slstm_input(p, x, cfg, tp)                  # (B,S,4d)
 
     def step(state, inp):
-        return _slstm_cell(p, cfg, state, inp[0])
+        return _slstm_cell(p_all, cfg, state, inp[0])
 
     _, hs = chunked_scan(step, slstm_init_state(cfg, b, x.device),
                          (x_in.transpose(0, 1),), s)
-    return hs.transpose(0, 1).to(x.dtype) @ p["w_down"]
+    return _slstm_down(p, hs.transpose(0, 1).to(x.dtype), cfg, tp)
 
 
-def slstm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+def slstm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                 tp=None):
     """One-token sLSTM step; x: (B, 1, d) -> ((B, 1, d), new state)."""
-    x_in = (x[:, 0] @ p["w_in"]).to(torch.float32)
-    new_state, h_t = _slstm_cell(p, cfg, state, x_in)
-    return h_t[:, None].to(x.dtype) @ p["w_down"], new_state
+    x_in, p_all = _slstm_input(p, x[:, 0], cfg, tp)
+    new_state, h_t = _slstm_cell(p_all, cfg, state, x_in)
+    return _slstm_down(p, h_t[:, None].to(x.dtype), cfg, tp), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +366,28 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _mamba_scan_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _mamba_split(p: dict, cfg: ModelConfig, tp) -> bool:
+    return _split(tp, p["w_in"].shape[-1], cfg.d_model, "ssm_head/w_in")
+
+
+def _mamba_scan_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       tp=None):
+    """u, exp(dt a), dt b and c of this rank's channels (every channel
+    without ``tp``): ``x`` and the replicated ``w_dt``, ``dt_bias`` and
+    ``w_bc`` enter through ``tp.copy``, the first two cut to the rank's
+    channels."""
     n = cfg.ssm.state_size
     f32 = torch.float32
+    w_dt, dt_bias, w_bc = p["w_dt"], p["dt_bias"], p["w_bc"]
+    if tp is not None:
+        c = p["w_in"].shape[-1]
+        cols = slice(tp.index * c, (tp.index + 1) * c)
+        x = tp.copy(x)
+        w_dt, dt_bias = tp.copy(w_dt)[:, cols], tp.copy(dt_bias)[cols]
+        w_bc = tp.copy(w_bc)
     u = (x @ p["w_in"]).to(f32)                                   # (B,S,d)
-    dt = softplus(x.to(f32) @ p["w_dt"] + p["dt_bias"])
-    bc = x.to(f32) @ p["w_bc"]
+    dt = softplus(x.to(f32) @ w_dt + dt_bias)
+    bc = x.to(f32) @ w_bc
     b_in, c_out = bc[..., :n], bc[..., n:]
     a = -torch.exp(p["a_log"])                                    # (d, n)
     da = torch.exp(dt[..., None] * a)                             # (B,S,d,n)
@@ -298,21 +401,30 @@ def _mamba_step(h, inp):
     return h, torch.sum(h * c_t[:, None, :], dim=-1)              # (B,d)
 
 
-def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mamba_out(p: dict, y: torch.Tensor, x: torch.Tensor, tp):
+    out = y.to(x.dtype) @ p["w_out"]
+    return out if tp is None else tp.reduce(out)
+
+
+def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
     b, s, _ = x.shape
-    u, da, db, c_out = _mamba_scan_inputs(p, x, cfg)
+    tp = tp if _mamba_split(p, cfg, tp) else None
+    u, da, db, c_out = _mamba_scan_inputs(p, x, cfg, tp)
     xs = tuple(t.transpose(0, 1) for t in (u, da, db, c_out))
-    _, ys = chunked_scan(_mamba_step, mamba_init_state(cfg, b, x.device), xs,
-                         s)
+    state = torch.zeros((b, u.shape[-1], cfg.ssm.state_size),
+                        dtype=torch.float32, device=x.device)
+    _, ys = chunked_scan(_mamba_step, state, xs, s)
     y = ys.transpose(0, 1) + p["skip_scale"] * u                  # (B,S,d)
-    return y.to(x.dtype) @ p["w_out"]
+    return _mamba_out(p, y, x, tp)
 
 
 def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 state: torch.Tensor):
+                 state: torch.Tensor, tp=None):
     """One-token head step; x: (B, 1, d), state (B, d, n) -> ((B, 1, d),
-    new state)."""
-    u, da, db, c_out = _mamba_scan_inputs(p, x, cfg)
+    new state); under ``tp`` the state holds this rank's channels."""
+    tp = tp if _mamba_split(p, cfg, tp) else None
+    u, da, db, c_out = _mamba_scan_inputs(p, x, cfg, tp)
     h, y = _mamba_step(state, (u[:, 0], da[:, 0], db[:, 0], c_out[:, 0]))
     y = y + p["skip_scale"] * u[:, 0]
-    return y[:, None].to(x.dtype) @ p["w_out"], h
+    return _mamba_out(p, y[:, None], x, tp), h

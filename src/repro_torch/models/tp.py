@@ -7,8 +7,12 @@ GSPMD place the collectives (``repro/models/transformer.py:194-236``,
 evenly (whole heads or not) with K and V replicated, the MLP column- then
 row-parallel, the experts of a MoE layer over the group, the embedding
 (and so the tied head) split over the vocabulary, the VLM's
-``patch_proj`` over its output columns.  Here each rank holds its blocks and the
-model's forward calls the collectives itself, Megatron-style:
+``patch_proj`` and whisper's ``frame_proj`` over their output columns,
+the recurrent blocks' projections around a scan that runs whole on
+every rank (xLSTM) or on this rank's channels (Hymba's Mamba head,
+``repro/models/transformer.py:85-98``, ``:205-219``).  Here each rank
+holds its blocks and the model's forward calls the collectives itself,
+Megatron-style:
 
   * :meth:`TensorParallel.copy` — identity forward, all-reduce backward:
     where a replicated tensor enters a sharded computation (the layer's
@@ -23,6 +27,10 @@ model's forward calls the collectives itself, Megatron-style:
     of the whole tensor differ (a reduce-scatter, as an all-reduce and a
     slice): the query columns of attention whose heads the group does
     not split whole, and the VLM's column-parallel ``patch_proj``;
+  * :meth:`TensorParallel.scatter` — this rank's block of a tensor every
+    rank holds whole forward, the all-gather of the blocks' gradients
+    backward (Megatron's ``scatter_to_tensor_model_parallel_region``):
+    a replicated scan's output into a row-parallel product;
   * :meth:`TensorParallel.embed` and :meth:`TensorParallel.cross_entropy`
     — the vocab-parallel lookup (mask, gather, all-reduce) and the float32
     cross-entropy from vocab-sharded logits (max, sum-exp and target logit
@@ -115,6 +123,22 @@ class _Copy(torch.autograd.Function):
         return ctx.group.all_reduce(grad.contiguous()), None
 
 
+class _Scatter(torch.autograd.Function):
+    """This rank's block forward, the blocks' gradients gathered
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        rows = x.shape[dim] // group.size
+        return x.narrow(dim, group.rank()[0] * rows, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather_dim(grad.contiguous(), ctx.dim), None, \
+            None
+
+
 class TensorParallel:
     """This rank's place in a model group of ``M`` ranks (a
     :class:`~repro_torch.core.collectives.DistributedGroup`; its rank is
@@ -160,6 +184,12 @@ class TensorParallel:
         backward runs no collective."""
         return _tp_all_gather(x.contiguous(), self._id, dim % x.dim(),
                               partial)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``x``, which every rank holds whole, along
+        ``dim``; the gradient is every rank's block's, gathered (the
+        inverse of ``gather(..., partial=False)``)."""
+        return _Scatter.apply(x, self.group, dim % x.dim())
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the group, outside autograd."""

@@ -33,18 +33,20 @@ chunked_scan`).
 without allocating it (what a bucket layout needs).
 
 Tensor parallelism (``tp``, a :class:`~repro_torch.models.tp.
-TensorParallel` over the model group) runs the decoder-only families
-(dense, MoE with its experts over the group, the VLM): each rank holds
-the blocks :func:`param_pspecs` gives it (:func:`shard_params`; a rank
-initialises the whole tree from the seed and keeps its blocks, so it
-starts from the unsharded run's weights), the embedding and the tied or
-untied head are vocab-parallel, the VLM's ``patch_proj``
-column-parallel, and the loss is the vocab-parallel float32
-cross-entropy.  The SSM, hybrid and encoder-decoder families raise at a
-model axis above 1 (ROADMAP queue 1).  The decode step takes
-the same split (:class:`DecodeLayout`, built by
+TensorParallel` over the model group) runs every family: each rank
+holds the blocks :func:`param_pspecs` gives it (:func:`shard_params`; a
+rank initialises the whole tree from the seed and keeps its blocks, so
+it starts from the unsharded run's weights), the embedding and the
+tied or untied head are vocab-parallel where the axis divides the
+vocabulary, the VLM's ``patch_proj`` and whisper's ``frame_proj``
+column-parallel, the MoE's experts over the group, the recurrent blocks
+as :mod:`repro_torch.models.ssm` lays them out, and the loss is the
+vocab-parallel float32 cross-entropy.  The decode step takes the same
+split (:class:`DecodeLayout`, built by
 :func:`repro_torch.runtime.serve.build_serve_step` on a mesh), with the
-cache's sequence spread over a group; every family decodes with its
+cache's sequence spread over a group (whisper's cross cache its
+frames), an xLSTM's states replicated over the model group and a
+hybrid's Mamba states split by channel; every family decodes with its
 batch spread over the data ranks.
 """
 from __future__ import annotations
@@ -69,8 +71,6 @@ from .tp import TP_ALL_GATHER, TP_ALL_REDUCE, TensorParallel
 
 #: the families this port runs: all of the reference's
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
-#: the families it runs on a model axis above 1: the decoder-only ones
-TP_FAMILIES = ("dense", "moe", "vlm")
 
 
 def global_attention_flags(cfg: ModelConfig) -> np.ndarray:
@@ -328,7 +328,7 @@ def _layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     a = L.attn_forward(p["attn"], h, cfg, is_global=is_global,
                        positions=positions, tp=tp)
     if cfg.hybrid_parallel:
-        a = 0.5 * (a + S.mamba_forward(p["ssm_head"], h, cfg))
+        a = 0.5 * (a + S.mamba_forward(p["ssm_head"], h, cfg, tp))
     x = x + a
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
@@ -339,28 +339,33 @@ def _layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _encoder_layer_forward(p: dict, x: torch.Tensor,
-                           cfg: ModelConfig) -> torch.Tensor:
+def _encoder_layer_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           tp: TensorParallel | None = None) -> torch.Tensor:
     """Bidirectional self-attention encoder layer."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + L.attn_forward(p["attn"], h, cfg, causal=False)
+    x = x + L.attn_forward(p["attn"], h, cfg, causal=False, tp=tp)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_forward(p["mlp"], h, cfg)
+    return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp)
 
 
 def _decoder_xlayer_forward(p: dict, x: torch.Tensor, enc: torch.Tensor,
-                            cfg: ModelConfig,
-                            positions: torch.Tensor) -> torch.Tensor:
+                            cfg: ModelConfig, positions: torch.Tensor,
+                            tp: TensorParallel | None = None) -> torch.Tensor:
     """Causal self-attention, cross-attention over the encoder's output
     (its K/V projected here, inside the layer's recompute, as the
-    reference does), then the MLP."""
-    enc_k, enc_v = L.cross_kv(p["cross"], enc, cfg)
+    reference does; on this rank's query columns under ``tp``), then the
+    MLP."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + L.attn_forward(p["attn"], h, cfg, positions=positions)
+    x = x + L.attn_forward(p["attn"], h, cfg, positions=positions, tp=tp)
     h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-    x = x + L.cross_attn_forward(p["cross"], h, cfg, enc_k, enc_v)
+    if tp is not None and tp.split(p["cross"]["wq"].shape[-1],
+                                   cfg.num_heads * cfg.hd, "cross/wq"):
+        x = x + L.cross_attn_columns(p["cross"], h, enc, cfg, tp)
+    else:
+        enc_k, enc_v = L.cross_kv(p["cross"], enc, cfg)
+        x = x + L.cross_attn_forward(p["cross"], h, cfg, enc_k, enc_v)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_forward(p["mlp"], h, cfg)
+    return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp)
 
 
 def _vocab_split(params: dict, cfg: ModelConfig, tp) -> bool:
@@ -389,6 +394,19 @@ def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             proj = tp.gather(proj, -1, partial=False)
         x = torch.cat([proj, x], dim=1)            # prepend image patches
     return x
+
+
+def _project_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                    tp: TensorParallel | None = None) -> torch.Tensor:
+    """Whisper's frame projection: column-parallel where ``tp`` splits
+    ``d_model``, its output columns gathered (replicated consumers, as
+    the VLM's ``patch_proj``)."""
+    w = params["embed"]["frame_proj"]["w"]
+    enc = frames @ w
+    if tp is not None and tp.split(w.shape[-1], cfg.d_model,
+                                   "embed/frame_proj"):
+        enc = tp.gather(enc, -1, partial=False)
+    return enc
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -449,24 +467,9 @@ def _remat(cfg: ModelConfig, fn, *args) -> torch.Tensor:
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def check_model_axis(cfg: ModelConfig, size: int) -> None:
-    """Raise for a family whose tensor parallelism is still to port, on a
-    model axis of ``size`` above 1."""
-    if size > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a model axis of {size}: the "
-            f"port runs tensor parallelism for the decoder-only families "
-            f"{TP_FAMILIES}; the ssm, hybrid and encdec families are still "
-            f"to port (ROADMAP queue 1)")
-
-
-def _check_tp(cfg: ModelConfig, tp) -> TensorParallel | None:
-    """``tp`` when it splits anything (a model axis above 1), else None;
-    raises for the families whose tensor parallelism is still to port."""
-    if tp is None or tp.size == 1:
-        return None
-    check_model_axis(cfg, tp.size)
-    return tp
+def _splitting(tp) -> TensorParallel | None:
+    """``tp`` when it splits anything (a model axis above 1), else None."""
+    return tp if tp is not None and tp.size > 1 else None
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
@@ -476,7 +479,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     features.  An encoder-decoder batch must carry ``frames``.  With
     ``tp`` the parameters are this rank's blocks, and the logits cover
     its block of the vocabulary where the vocabulary is split."""
-    tp = _check_tp(cfg, tp)
+    tp = _splitting(tp)
     x = _embed_tokens(params, cfg, batch["tokens"], batch.get("patch_feats"),
                       tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -485,22 +488,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         for blk in params["blocks"]:
             h = L.rmsnorm(blk["norm1"], x, cfg.norm_eps)
             if "slstm" in blk:
-                x = x + S.slstm_forward(blk["slstm"], h, cfg)
+                x = x + S.slstm_forward(blk["slstm"], h, cfg, tp)
             else:
-                x = x + S.mlstm_forward(blk["mlstm"], h, cfg)
-        return _logits(params, cfg, x)
+                x = x + S.mlstm_forward(blk["mlstm"], h, cfg, tp)
+        return _logits(params, cfg, x, tp)
 
     if cfg.family == "encdec":
         if "frames" not in batch:
             raise KeyError("an encoder-decoder batch carries 'frames' of "
                            "shape (B, encoder_seq, d_model)")
-        enc = batch["frames"].to(x.dtype) @ params["embed"]["frame_proj"]["w"]
+        enc = _project_frames(params, cfg, batch["frames"].to(x.dtype), tp)
         for lp in _unstack(params["encoder"], cfg.encoder_layers):
-            enc = _remat(cfg, _encoder_layer_forward, lp, enc, cfg)
+            enc = _remat(cfg, _encoder_layer_forward, lp, enc, cfg, tp)
         for lp in _unstack(params["layers"], cfg.num_layers):
             x = _remat(cfg, _decoder_xlayer_forward, lp, x, enc, cfg,
-                       positions)
-        return _logits(params, cfg, x)
+                       positions, tp)
+        return _logits(params, cfg, x, tp)
 
     flags = global_attention_flags(cfg)
     n_prefix = _n_prefix(cfg)
@@ -516,7 +519,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
     """Mean next-token cross entropy in float32 over the text positions
     (a VLM's patch positions dropped), weighted by ``loss_mask`` if the
     batch has one; vocab-parallel under ``tp``."""
-    tp = _check_tp(cfg, tp)
+    tp = _splitting(tp)
     logits = forward(params, cfg, batch, tp).to(torch.float32)
     labels = batch["labels"].long()
     if logits.shape[1] != labels.shape[1]:         # VLM: drop patch positions
@@ -716,7 +719,7 @@ def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                       is_global=is_global, ctx=ctx, tp=tp)
     state = None
     if cfg.hybrid_parallel:
-        m, state = S.mamba_decode(p["ssm_head"], h, cfg, cache["ssm"])
+        m, state = S.mamba_decode(p["ssm_head"], h, cfg, cache["ssm"], tp)
         a = 0.5 * (a + m)
     x = x + a
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
@@ -731,36 +734,69 @@ def _layer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
 
 def _decoder_xlayer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                            cache: dict, position, ctx: dict | None = None,
-                           cross=None) -> torch.Tensor:
+                           cross=None,
+                           tp: TensorParallel | None = None) -> torch.Tensor:
     """One cross-attending layer's decode: causal self-attention writing
     the token's K and V into this layer's views of ``cache["k"]`` and
     ``cache["v"]``, cross-attention over ``cache["cross_k"]`` and
     ``cache["cross_v"]`` (their frames spread over the group ``cross``,
-    where it is given), then the MLP."""
+    where it is given), then the MLP; each on its query columns and
+    hidden block under ``tp``."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
-                          position, ctx=ctx)
+                          position, ctx=ctx, tp=tp)
     h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-    args = (p["cross"], h, cfg, cache["cross_k"], cache["cross_v"])
-    x = x + (L.cross_attn_forward(*args) if cross is None else
-             L.cross_attn_forward(*args, group=cross))
+    x = x + L.cross_attn_forward(p["cross"], h, cfg, cache["cross_k"],
+                                 cache["cross_v"], group=cross, tp=tp)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_forward(p["mlp"], h, cfg)
+    return x + L.mlp_forward(p["mlp"], h, cfg, tp=tp)
 
 
 def _ssm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                cache: dict) -> tuple[torch.Tensor, dict]:
+                cache: dict, tp: TensorParallel | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """The xLSTM stack's decode: each block's new state replaces its old
-    one in a new cache tree."""
+    one in a new cache tree (the states whole on every model rank)."""
     blocks = []
     for blk, cb in zip(params["blocks"], cache["blocks"]):
         h = L.rmsnorm(blk["norm1"], x, cfg.norm_eps)
         kind = "slstm" if "slstm" in blk else "mlstm"
         decode = S.slstm_decode if kind == "slstm" else S.mlstm_decode
-        y, state = decode(blk[kind], h, cfg, cb[kind])
+        y, state = decode(blk[kind], h, cfg, cb[kind], tp)
         blocks.append({kind: state})
         x = x + y
-    return _logits(params, cfg, x)[:, 0], {"blocks": blocks}
+    return x, {"blocks": blocks}
+
+
+def _attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                      cache: dict, position, layout: DecodeLayout,
+                      tp: TensorParallel | None):
+    """Every layer of an attention family's decode step: ``(x, cache)``,
+    a hybrid's new Mamba states stacked into a new tree."""
+    # the positions, RoPE tables and masks, once for every layer
+    ctx = L.decode_context(cfg, position, x.shape[0], cache["k"].shape[2],
+                           x.device, layout.seq)
+    if cfg.family == "encdec":
+        for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+            x = _decoder_xlayer_decode(lp, x, cfg, {
+                key: cache[key][i]
+                for key in ("k", "v", "cross_k", "cross_v")}, position, ctx,
+                layout.cross, tp)
+        return x, cache
+    flags = global_attention_flags(cfg).tolist()
+    layers = list(params.get("prefix", [])) + _unstack(
+        params["layers"], cfg.num_layers - _n_prefix(cfg))
+    states = []
+    for i, (lp, is_global) in enumerate(zip(layers, flags)):
+        sub = {"k": cache["k"][i], "v": cache["v"][i]}
+        if cfg.hybrid_parallel:
+            sub["ssm"] = cache["ssm"][i]
+        x, state = _layer_decode(lp, x, cfg, sub, position, bool(is_global),
+                                 ctx, layout)
+        states.append(state)
+    if cfg.hybrid_parallel:
+        cache = dict(cache, ssm=torch.stack(states))
+    return x, cache
 
 
 @torch.inference_mode()
@@ -783,33 +819,13 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     and the logits cover this rank's rows and the whole vocabulary
     (gathered over the model group where it is split)."""
     layout = layout or DecodeLayout()
-    tp = _check_tp(cfg, layout.tp)
+    tp = _splitting(layout.tp)
     x = _embed_tokens(params, cfg, token, tp=tp)
     if cfg.family == "ssm":
-        return _ssm_decode(params, cfg, x, cache)
-    # the positions, RoPE tables and masks, once for every layer
-    ctx = L.decode_context(cfg, position, x.shape[0], cache["k"].shape[2],
-                           x.device, layout.seq)
-    if cfg.family == "encdec":
-        for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
-            x = _decoder_xlayer_decode(lp, x, cfg, {
-                key: cache[key][i]
-                for key in ("k", "v", "cross_k", "cross_v")}, position, ctx,
-                layout.cross)
-        return _logits(params, cfg, x)[:, 0], cache
-    flags = global_attention_flags(cfg).tolist()
-    layers = list(params.get("prefix", [])) + _unstack(
-        params["layers"], cfg.num_layers - _n_prefix(cfg))
-    states = []
-    for i, (lp, is_global) in enumerate(zip(layers, flags)):
-        sub = {"k": cache["k"][i], "v": cache["v"][i]}
-        if cfg.hybrid_parallel:
-            sub["ssm"] = cache["ssm"][i]
-        x, state = _layer_decode(lp, x, cfg, sub, position, bool(is_global),
-                                 ctx, layout)
-        states.append(state)
-    if cfg.hybrid_parallel:
-        cache = dict(cache, ssm=torch.stack(states))
+        x, cache = _ssm_decode(params, cfg, x, cache, tp)
+    else:
+        x, cache = _attention_decode(params, cfg, x, cache, position,
+                                     layout, tp)
     logits = _logits(params, cfg, x, tp)[:, 0]
     if _vocab_split(params, cfg, tp):
         logits = tp.group.all_gather_dim(logits, -1)
@@ -836,7 +852,7 @@ class Transformer(nn.Module):
                  tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
-        self.tp = _check_tp(cfg, tp)
+        self.tp = _splitting(tp)
         device = resolve_device(device)
         if params is None:
             # the meta device holds shapes only and draws nothing

@@ -27,10 +27,10 @@ global token (and a global (B,) position) as the reference's caller
 holds it, the rank's blocks of the parameters
 (:func:`~repro_torch.models.transformer.shard_params`) and of the cache
 (``init_cache(..., mesh=mesh)``), and returns the whole (B, V) logits
-on every rank, as the reference's replicated output.  The SSM, hybrid
-and encoder-decoder families raise by name at a model axis above 1
-(their tensor parallelism is ROADMAP queue 1 item 4); every family
-serves on a ``(D, 1)`` mesh.
+on every rank, as the reference's replicated output.  Every family
+serves on every mesh: an xLSTM's states replicated over the model
+ranks, a hybrid's Mamba states split by channel, whisper's cross cache
+its frames over ``"model"`` where the axis divides them.
 
 ``donate=True`` mirrors the reference's donated cache: the step writes
 into the cache it is given (the KV tensors in place; the recurrent
@@ -49,8 +49,8 @@ from ..models import ModelConfig, decode_step, forward, init_params
 from ..models import layers as L
 from ..models.tp import TensorParallel
 from ..models.transformer import (DecodeLayout, _vocab_split,
-                                  check_model_axis, mesh_extents,
-                                  param_pspecs, serving_cache_specs)
+                                  mesh_extents, param_pspecs,
+                                  serving_cache_specs)
 from .shardings import axis_size, block_index, sanitize_pspecs
 
 __all__ = ["build_cached_prefill", "build_prefill", "build_serve_step",
@@ -82,12 +82,10 @@ def _param_specs(cfg: ModelConfig, mesh) -> dict:
                            mesh_extents(mesh))
 
 
-def _check_mesh(cfg: ModelConfig, mesh, dp_axes) -> None:
-    """Raise for what the port does not serve on ``mesh``: a family
-    without tensor parallelism on a model axis above 1, data axes other
-    than the mesh's own."""
-    extents = mesh_extents(mesh)
-    check_model_axis(cfg, extents.get("model", 1))
+def _check_mesh(mesh, dp_axes) -> None:
+    """Raise for what the port does not serve on ``mesh``: a mapping of
+    extents in place of a process mesh, data axes other than the mesh's
+    own."""
     if not hasattr(mesh, "data_group"):
         raise TypeError(f"serving on a mesh runs one rank a process: pass "
                         f"a ProcessMesh, not {mesh!r}")
@@ -150,7 +148,7 @@ def build_serve_step(cfg: ModelConfig, mesh=None, *, batch: int,
         return step, {"token": None, "cache": None, "params": None,
                       "shard_seq": False}
 
-    _check_mesh(cfg, mesh, dp_axes)
+    _check_mesh(mesh, dp_axes)
     sh = serve_shardings(cfg, mesh, batch=batch, max_seq=max_seq,
                          dp_axes=dp_axes)
     sh["params"] = _param_specs(cfg, mesh)
@@ -214,14 +212,13 @@ def build_cached_prefill(cfg: ModelConfig, mesh=None, *, dp_axes=("data",),
 def build_prefill(cfg: ModelConfig, mesh, *, dp_axes=("data",)):
     """(params, batch) -> logits (B, S, V): the forward pass with the
     batch over the data ranks (which must divide it, as the reference's
-    ``P(dp)`` placement requires) and, for the decoder-only families,
-    Q's columns, the MLP's, the experts and the vocabulary over the
-    model ranks; ``params`` are this
+    ``P(dp)`` placement requires) and each family's tensor-parallel
+    blocks over the model ranks; ``params`` are this
     rank's blocks (``sh["params"]`` of :func:`build_serve_step`), and
     every rank gets the whole logits.  A MoE layer dispatches each
     rank's tokens, which is the reference's function when they fill
     whole dispatch groups (raises otherwise)."""
-    _check_mesh(cfg, mesh, dp_axes)
+    _check_mesh(mesh, dp_axes)
     tp = _tensor_parallel(mesh)
     d = mesh.data_size
 

@@ -326,6 +326,62 @@ def test_int4_quant_matches_twin(cuda):
                           ref.int4_quant_plane(planes[p]))
 
 
+class OtherRank:
+    """A model group of two ranks in one process: ``all_reduce`` combines
+    this rank's tensor with the other rank's, given; or, with none, a
+    group of one (the tensor itself)."""
+
+    def __init__(self, other=None):
+        self.other = other
+
+    def all_reduce(self, x, op="sum"):
+        if self.other is None:
+            return x.clone()
+        other = self.other.to(x.device, x.dtype)
+        return torch.maximum(x, other) if op == "max" else x + other
+
+
+#: the main path's largest leaf (qwen3-0.6B's MLP weights) and a ragged one
+GROUP_LEAVES = (88_080_384, 100_003)
+
+
+@pytest.mark.parametrize("n", GROUP_LEAVES)
+def test_int4_quant_with_the_groups_absmax_matches_twin(cuda, n):
+    """The split entry on one rank's block of a tensor-parallel leaf, the
+    other block's absmax bits (three times larger) reduced in between:
+    byte-equal to the twin's, and to the whole leaf's one-scale quant."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(2, n, generator=gen, device=cuda)
+    x[1] *= 3.0
+    other = x[1].abs().amax().reshape(1).view(torch.int32)
+    planes = ref.to_plane(x[:1])
+    before = fused.int4_quant_plane.launches
+    got = fused.int4_quant_plane(planes, group=OtherRank(other))
+    assert fused.int4_quant_plane.launches == before + 2
+    assert bits_equal(got, ref.int4_quant_plane(planes,
+                                                group=OtherRank(other)))
+    whole = ref.int4_quant_plane(ref.to_plane(x.reshape(1, -1)))
+    assert bits_equal(ref.from_plane(got, n),
+                      ref.from_plane(whole, 2 * n)[:, :n])
+
+
+@pytest.mark.parametrize("n", GROUP_LEAVES)
+def test_threshold_mask_with_the_groups_threshold_matches_twin(cuda, n):
+    """The radix select's k-th largest |x| (a group of one) equals
+    ``torch.topk``'s at top-k's fraction, and ``threshold_mask`` with it
+    on a block's planes is byte-equal to the twin."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    x = torch.randn(1, n, generator=gen, device=cuda)
+    k = max(1, int(n / 16))
+    t = fused.kth_largest(x.abs(), k, OtherRank())
+    assert bits_equal(t, torch.topk(x.abs(), k, dim=-1).values[:, -1])
+    planes = ref.to_plane(x[:, :n // 2])
+    before = fused.threshold_mask_plane.launches
+    got = fused.threshold_mask_plane(planes, t)
+    assert fused.threshold_mask_plane.launches == before + 1
+    assert bits_equal(got, ref.threshold_mask_plane(planes, t))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_threshold_mask_matches_twin(cuda, dtype):
     rng = np.random.RandomState(6)

@@ -25,9 +25,19 @@
   * one spawn of four gloo ranks as ``ProcessMesh((2, 2, 1))`` under
     registered 2 x 2 plans: aggregates and two Trainer steps (every group
     on the route, so every sum is of 2 values) equal to the virtual
-    (2 x 2) group's on the same gradients.
+    (2 x 2) group's on the same gradients;
+  * one spawn of eight gloo ranks as ``ProcessMesh((2, 2, 2))`` beside
+    the reference on eight forced host devices: a hop plan on a
+    tensor-parallel leaf (its columns over ``"model"``), each hop seeing
+    the block as its backend does (the packed vote per block, fused and
+    staged; ``vote_psum``'s gate at the whole leaf's indices; int4's
+    absmax over the model group), equal to the reference's
+    ``HierarchicalBackend`` on the GSPMD leaf.
 """
 import itertools
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -58,7 +68,7 @@ from repro_torch.fabric import (Fabric, HopPlan, HopSpec,  # noqa: E402
                                 available_codecs, get_codec, plan_presets,
                                 register_hop_plan, unregister_hop_plan)
 from test_torch_codecs import same_mean  # noqa: E402
-from test_torch_tp import spawn_ranks  # noqa: E402
+from test_torch_tp import SRC, _finish_reference, spawn_ranks  # noqa: E402
 
 FLAT_CODECS = ["fp32", "gbinary", "gternary", "int4"]
 SHAPES = {"backbone": {"w1": (40, 33), "w2": (257,), "w3": (64, 8)},
@@ -420,15 +430,6 @@ def test_hop_sizes_must_equal_the_axes():
     m = g.reshape(2, 8, 100).sum(dim=1) / 8
     want = torch.sign(torch.where(m > 0, 1.0, -1.0).sum(dim=0))
     assert _bits_equal(a["p"], want)
-
-
-def test_tensor_parallel_leaf_under_a_hop_plan_raises(plans_2x2):
-    from repro_torch.core import LeafPolicy
-    from repro_torch.fabric import AggregationContext, aggregate_leaf
-    ctx = AggregationContext(group=VirtualGroup((2, 2)), num_workers=4)
-    pol = LeafPolicy("h22_vote", "hierarchical", model_spec=(None, "model"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        aggregate_leaf(ctx, torch.ones(4, 2, 8), pol)
 
 
 def test_host_local_hier_matches_flat_backbone_and_reference():
@@ -838,3 +839,154 @@ def test_mesh_trainer_equals_the_virtual_group(world):
                 assert x.tobytes() == \
                     virtual[0][key.replace("mesh/", "virtual/")].tobytes(), \
                     key
+
+
+# ---------------------------------------------------------------------------
+# a hop plan on a tensor-parallel leaf: eight gloo ranks as (2, 2, 2)
+# ---------------------------------------------------------------------------
+
+#: the leaf (its columns over "model") and the plans run on it
+TP_LEAF, TP_SPEC = (24, 96), (None, "model")
+TP_PLANS = {k: PLANS_2X2[k] for k in ("h22_packed", "h22_vote", "h22_ter",
+                                      "h22_int4")}
+
+TP_REFERENCE = r'''
+import functools, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, os.environ["SRC"])
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.core import LeafPolicy
+from repro.fabric import HopPlan, HopSpec, register_hop_plan
+from repro.fabric.registry import AggregationContext
+from repro.fabric.session import aggregate_leaf
+
+PLANS, LEAF = %(plans)r, %(leaf)r
+for name, legs in PLANS.items():
+    register_hop_plan(HopPlan(name, tuple(HopSpec(*h) for h in legs)))
+mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                     axis_types=(AxisType.Auto,) * 3)
+grads = np.random.RandomState(5).randn(4, *LEAF).astype(np.float32)
+g = jax.device_put(jnp.asarray(grads),
+                   NamedSharding(mesh, P(("pod", "data"), None, "model")))
+out = {"grads": grads}
+for name in PLANS:
+    @functools.partial(jax.shard_map, mesh=mesh, in_specs=P(("pod", "data")),
+                       out_specs=P(), axis_names=frozenset({"pod", "data"}),
+                       check_vma=False)
+    def run(x):
+        ctx = AggregationContext(dp_axes=("pod", "data"), num_workers=4)
+        return aggregate_leaf(ctx, x[0], LeafPolicy(
+            mode=name, schedule="hierarchical",
+            model_spec=P(None, "model"), gate_phase=1))[0]
+    out[name] = np.asarray(jax.jit(run)(g))
+np.savez(os.environ["OUT_FILE"], **out)
+'''
+
+TP_RANKS = r'''
+import json, os
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+WORLD, R = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+OUT = os.environ["OUT_DIR"]
+dist.init_process_group("gloo", init_method=f"file://{OUT}/store", rank=R,
+                        world_size=WORLD, timeout=timedelta(seconds=60))
+
+from repro_torch.core import LeafPolicy, ProcessMesh
+from repro_torch.fabric import (AggregationContext, HopPlan, HopSpec,
+                                aggregate_leaf, register_hop_plan)
+from repro_torch.runtime.shardings import shard_of
+
+PLANS, LEAF, SPEC = %(plans)r, %(leaf)r, %(spec)r
+for name, legs in PLANS.items():
+    register_hop_plan(HopPlan(name, tuple(HopSpec(*h) for h in legs)))
+grads = np.random.RandomState(5).randn(4, *LEAF).astype(np.float32)
+mesh = ProcessMesh((2, 2, 2), device="cpu")
+g = torch.from_numpy(shard_of(grads[mesh.data_index], SPEC, mesh.extents,
+                              mesh.coords).copy())[None]
+arrays, info = {}, {}
+for name in PLANS:
+    for tag, fused in (("", True), ("/staged", False)):
+        if not fused and "packed" not in name:
+            continue
+        ctx = AggregationContext(group=mesh.data_group, num_workers=4,
+                                 fused_kernels=fused, mesh=mesh)
+        mesh.reset_counts()
+        u, _ = aggregate_leaf(ctx, g, LeafPolicy(
+            name, "hierarchical", model_spec=SPEC, gate_phase=1))
+        arrays[name + tag] = u.numpy()
+        info[name + tag] = {n: dict(grp.calls_by_op) for n, grp in
+                            (("model", mesh.model_group),
+                             *mesh.axis_groups.items())}
+np.savez(os.path.join(OUT, f"rank{R}.npz"), **arrays)
+with open(os.path.join(OUT, f"rank{R}.json"), "w") as f:
+    json.dump(info, f)
+dist.barrier()
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def tp_world(tmp_path_factory):
+    """The reference's aggregates (a subprocess, started first) and the
+    eight ranks' blocks."""
+    args = {"plans": TP_PLANS, "leaf": TP_LEAF, "spec": TP_SPEC}
+    ref_file = tmp_path_factory.mktemp("hier_tp_ref") / "ref.npz"
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(SRC=SRC, OUT_FILE=str(ref_file), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", TP_REFERENCE % args],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = spawn_ranks(TP_RANKS % args, 8,
+                            tmp_path_factory.mktemp("hier_tp") / "out")
+    finally:
+        ref = _finish_reference(proc, ref_file)
+    return ref, ranks
+
+
+def _tp_leaf(ranks, key):
+    """The whole leaf from the ranks' blocks; the data ranks' agree."""
+    from repro_torch.runtime.shardings import block_slices
+    out = np.full(TP_LEAF, np.nan, np.float32)
+    extents = {"pod": 2, "data": 2, "model": 2}
+    for r, (arrays, _) in enumerate(ranks):
+        coords = {"pod": r // 4, "data": r // 2 % 2, "model": r % 2}
+        sl = block_slices(TP_LEAF, TP_SPEC, extents, coords)
+        seen = ~np.isnan(out[sl])
+        assert np.array_equal(out[sl][seen], arrays[key][seen]), (key, r)
+        out[sl] = arrays[key]
+    return out
+
+
+@pytest.mark.parametrize("case", ["h22_packed", "h22_packed/staged",
+                                  "h22_vote", "h22_ter", "h22_int4"])
+def test_hop_plan_on_a_tensor_parallel_leaf_equals_the_reference(tp_world,
+                                                                 case):
+    """Hop 0 (the FP32 mean) over ``data``, hop 1 over ``pod``, on the
+    block: byte-equal to the reference (zeros of either sign as zeros:
+    the jitted gate writes +0.0), an int4 mean of the 2 pods' encodes
+    within ``same_mean``'s bound (XLA fuses the dequantize into the
+    sum).  No hop runs a collective on the model group but int4's
+    absmax."""
+    ref, ranks = tp_world
+    name = case.split("/")[0]
+    got, want = _tp_leaf(ranks, case), ref[name]
+    if name == "h22_int4":
+        g = ref["grads"].reshape(2, 2, -1)
+        means = torch.from_numpy((g[:, 0] + g[:, 1]) / np.float32(2))
+        encs = get_codec("int4").encode(None, means).numpy()
+        same_mean(torch.from_numpy(got), want, encs)
+    else:
+        np.testing.assert_array_equal(got, want)
+    for _, info in ranks:
+        model = info[case]["model"]
+        assert model == ({"all_reduce": 1} if name == "h22_int4" else {}), \
+            (case, model)
+        assert info[case]["data"]["all_reduce"] == 1, case

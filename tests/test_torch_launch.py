@@ -13,7 +13,8 @@
     model's wire bytes (the counterpart of ``tests/test_hlo_walk.py``);
   * the dry-run CLI traces qwen3-0.6B's ``decode_32k`` on the 16 x 16
     mesh, and the dry-run in this process full deepseek-moe-16b's, its
-    experts over the 16 model ranks, with its collectives by group;
+    experts over the 16 model ranks, with its collectives by group, and
+    xlstm-125m's, its projections and vocabulary over the model ranks;
   * the dry-run's trace of rank 0 of a fake (2, 2) mesh (the qwen3 SMOKE
     model, gbin_packed, AdamW with ZeRO-1) equals one step of four real
     gloo ranks: collective calls and bytes by group and op, FLOPs
@@ -407,14 +408,18 @@ def test_fake_trace_equals_four_gloo_ranks(tmp_path):
 
 
 def test_failing_family_records_its_error(tmp_path):
-    """A family without tensor parallelism fails its 16-wide cell with
-    the NotImplementedError of its model axis, recorded in the cell's
-    JSON; the skip rule writes its reason."""
+    """The recurrent family traces its 16-wide decode cell (xlstm-125m's
+    states replicated over the model ranks, its projections and
+    vocabulary split), written to the cell's JSON; the skip rule writes
+    its reason."""
     r = dryrun.run_cell("xlstm_125m", "decode_32k", False, "gbin_packed",
                         str(tmp_path), force=True)
-    assert r["error"].startswith("NotImplementedError: xlstm")
-    assert json.load(open(tmp_path / "pod_16x16" / "xlstm_125m"
-                          / "decode_32k.decode.json"))["error"] == r["error"]
+    assert "error" not in r, r.get("error")
+    assert r["num_devices"] == 256 and r["flops_per_device"] > 0
+    saved = json.load(open(tmp_path / "pod_16x16" / "xlstm_125m"
+                           / "decode_32k.decode.json"))
+    assert saved["flops_per_device"] == r["flops_per_device"]
+    assert saved["collectives"]["by_group"]["model"]["calls"]
     r = dryrun.run_cell("qwen3_0p6b", "long_500k", True, "gbin_packed",
                         str(tmp_path), force=True)
     assert r["skipped"].startswith("long_500k skipped")

@@ -415,10 +415,10 @@ CHIP_CUTS = {"L": ("gemma3_27b", 6, 2, 9, 7, 0, 0.3825361348161055,
                    3_886_618_368),
              "M": ("deepseek_moe_16b", 3, 4, 15, 12, 0, 0.27310381290117447,
                    1_681_143_808),
-             "N": ("xlstm_125m", 12, 2, 11, 8, 1, 0.4391217050767943,
-                   183_565_128),
-             "O": ("hymba_1p5b", 5, 2, 12, 9, 2, 0.3576435484125606,
-                   304_036_800),
+             "N": ("xlstm_125m", 4, 2, 7, 4, 1, 0.6954820233478944,
+                   112_700_184),
+             "O": ("hymba_1p5b", 4, 2, 12, 9, 2, 0.4075318986281921,
+                   263_710_400),
              "P": ("whisper_tiny", 4, 4, 4, 1, 0, 0.5627112239971452,
                    36_586_752)}
 

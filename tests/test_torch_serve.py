@@ -23,7 +23,9 @@ carried across by ``params_from_jax``):
     draws are bounded by the pool's capacity;
   * the reference's faults the port follows or states: batched MoE
     decode is not row-independent; the reference's layer scan cannot
-    decode a bf16 model over a float32 cache.
+    decode a bf16 model over a float32 cache;
+  * the hybrid served on two gloo ranks as ``{"data": 1, "model": 2}``
+    (its Mamba states split by channel) against one device.
 """
 import dataclasses
 import math
@@ -238,23 +240,89 @@ def test_recurrent_and_cross_attention_decode_raise(family):
                 block_size=4)
 
 
-def test_mesh_layouts_raise_for_families_without_tp():
-    """Serving on a mesh runs every family on a (D, 1) mesh and the dense
-    one on a model axis above 1 (tests/test_torch_serve_mesh.py); a
-    hybrid on a model axis of 2 raises by name, before any group is
-    touched, as its tensor parallelism is still to port."""
+SERVE_MESH_PROGRAM = r'''
+import json, os
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+WORLD, R = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+OUT = os.environ["OUT_DIR"]
+dist.init_process_group("gloo", init_method=f"file://{OUT}/store", rank=R,
+                        world_size=WORLD, timeout=timedelta(seconds=60))
+
+from repro_torch.configs import get_config
+from repro_torch.core import ProcessMesh
+from repro_torch.core import tree as T
+from repro_torch.models import init_cache, init_params
+from repro_torch.models.transformer import shard_params
+from repro_torch.runtime.serve import (build_cached_prefill, build_prefill,
+                                       build_serve_step)
+
+cfg = get_config("hymba_1p5b", smoke=True)
+mesh = ProcessMesh((1, 2), device="cpu")
+whole = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+params = T.map_leaves(torch.Tensor.clone, shard_params(
+    whole, cfg, mesh.extents, mesh.coords))
+tokens = torch.from_numpy(np.random.RandomState(0).randint(
+    0, cfg.vocab_size, (2, 8)))
+prefill = build_cached_prefill(cfg, mesh, batch=2, max_seq=8)
+step, sh = build_serve_step(cfg, mesh, batch=2, max_seq=8)
+cache = init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu", mesh=mesh)
+logits, cache = prefill(params, tokens, 5, cache)
+rows = [logits]
+for t in range(5, 8):
+    logits, cache = step(params, tokens[:, t:t + 1], cache, t)
+    rows.append(logits)
+arrays = {"decode": torch.stack(rows).numpy(),
+          "prefill": build_prefill(cfg, mesh)(params, {"tokens": tokens})
+          .numpy(), "ssm": cache["ssm"].numpy()}
+np.savez(os.path.join(OUT, f"rank{R}.npz"), **arrays)
+with open(os.path.join(OUT, f"rank{R}.json"), "w") as f:
+    json.dump({"ssm_spec": list(map(str, sh["cache"]["ssm"]))}, f)
+dist.barrier()
+dist.destroy_process_group()
+'''
+
+
+def test_mesh_layouts_raise_for_families_without_tp(tmp_path):
+    """The hybrid (hymba SMOKE, float32) served on two ranks as
+    ``{"data": 1, "model": 2}``: the cached prefill of 5 prompt tokens
+    and 3 decode steps, and the batched prefill, on every rank equal to
+    one device's to the forward pass's tolerance; each rank's Mamba
+    states are its channels' (``P(None, dp, "model", None)``)."""
+    from test_torch_tp import spawn_ranks
+    from repro_torch.models import forward, init_params
     cfg = get_config("hymba_1p5b", smoke=True)
-    mesh = {"data": 1, "model": 2}
-    for call in (lambda: build_prefill(cfg, mesh),
-                 lambda: build_serve_step(cfg, mesh, batch=2, max_seq=8),
-                 lambda: build_cached_prefill(cfg, mesh, batch=2,
-                                              max_seq=8)):
-        with pytest.raises(NotImplementedError,
-                           match="hymba.*model axis of 2"):
-            call()
-    # the layouts themselves are specs, and hold for any family
-    sh = serve_shardings(cfg, mesh, batch=2, max_seq=8)
+    sh = serve_shardings(cfg, {"data": 1, "model": 2}, batch=2, max_seq=8)
     assert sh["cache"]["k"] == (None, ("data",), "model", None, None)
+    assert sh["cache"]["ssm"] == (None, ("data",), "model", None)
+    ranks = spawn_ranks(SERVE_MESH_PROGRAM, 2, tmp_path / "out")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 8)))
+    cache = init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    rows = []
+    for t in range(8):
+        logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
+        if t >= 4:
+            rows.append(logits)
+    want = torch.stack(rows).numpy()
+    with torch.no_grad():
+        full = forward(params, cfg, {"tokens": tokens}).numpy()
+    half = cfg.d_model // 2
+    for r, (arrays, _) in enumerate(ranks):
+        np.testing.assert_allclose(arrays["decode"], want, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(arrays["prefill"], full, rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(
+            arrays["ssm"], cache["ssm"][:, :, r * half:(r + 1) * half],
+            rtol=TOL, atol=TOL)
 
 
 # ---------------------------------------------------------------------------
