@@ -29,7 +29,10 @@ Phases (any failure exits non-zero before the result line):
      unpack_ternary and vote_pipeline in float32 and bfloat16 out, and
      threshold_mask in bfloat16 and float32 beside
      ``torch.nn.functional.hardshrink`` on the same planes (its library
-     time; it drops the ties at t that threshold_mask keeps), and
+     time; it drops the ties at t that threshold_mask keeps),
+     int4_quant's two launches alone beside ``torch.linalg.vector_norm(x,
+     inf)`` and ``torch.fake_quantize_per_tensor_affine`` (yardsticks),
+     and
      apply_sign_update with its scale as a tensor on the card (the
      kernel's own time), a float scale (passed by value) beside;
   4. train the full qwen3-0.6B (28 layers, d 1024, vocab 151,936, bf16,
@@ -401,7 +404,20 @@ Phases (any failure exits non-zero before the result line):
                     group; step and decode seconds, peak memory a rank,
                     collectives a step by group, launch calls a decode
                     step and the run's seconds printed;
- 20. print the kernels line (launches summed over the runs, runs Q's, X's
+ 20. the reference's legacy surface:
+       AB. legacy   full qwen3-0.6B through ``build_train_step(cfg,
+                    VirtualGroup(4), ...)`` -> ``CompiledStep``, gbin_packed,
+                    AdamW, 16 x 128 tokens, 2 steps (``step_fn``, then the
+                    legacy ``(state, metrics)`` call): 9 buckets, 7 packed,
+                    7 launches a step each of sign_pack, vote_combine and
+                    bf16 unpack_ternary; step 0's loss and aggregates equal
+                    to ``Fabric.build_step``'s on a model from the same
+                    seed; a third batch's aggregates byte-equal to the
+                    plain twins, and ``aggregate_gradients`` on the same
+                    worker gradients byte-equal to ``Fabric.aggregate``;
+                    losses, step seconds, ``num_launches`` and peak memory
+                    printed;
+ 21. print the kernels line (launches summed over the runs, runs Q's, X's
      mesh examples', Z's, AA's and Y's from rank 0), the card, then
      ``{"ok": true, "device": {...}}`` last.
 """
@@ -932,6 +948,53 @@ def check_apply_sign_update(param, gen, scales, what: str) -> None:
                      f"scale={scale} as {type(arg).__name__})")
 
 
+def time_int4_entries(planes: torch.Tensor) -> None:
+    """int4_quant's two launches alone on W float32 planes, each beside a
+    one-call PyTorch yardstick on the same planes and its bytes bound:
+    the absmax launch beside ``torch.linalg.vector_norm(x, inf)`` (the
+    same per-plane max, checked), the quantize launch beside
+    ``torch.fake_quantize_per_tensor_affine(x, scale, 0, -7, 7)`` (one
+    scale for all planes, and it multiplies by 1 / scale where the
+    reference divides: a yardstick, not a twin)."""
+    from repro_torch.kernels import build
+
+    w, n = planes.shape[0], planes[0].numel()
+    bits = torch.zeros(w, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(planes)
+    stream = build.stream_ptr(planes.device)
+    absmax = build.bind("int4_quant", "int4_absmax_f32", 2, 2)
+    quantize = build.bind("int4_quant", "int4_quantize_f32", 3, 2, 1)
+
+    def phase1():
+        build.check(absmax(planes.data_ptr(), bits.data_ptr(), w, n,
+                           stream), "int4_quant")
+
+    def phase2():
+        build.check(quantize(planes.data_ptr(), bits.data_ptr(),
+                             out.data_ptr(), w, n, 7.0, stream), "int4_quant")
+
+    flat = planes.reshape(w, -1)
+    phase1()
+    amax = torch.linalg.vector_norm(flat, float("inf"), dim=1)
+    if not same(bits.view(torch.float32), amax):
+        fail("int4_quant's absmax differs from vector_norm(x, inf)")
+    scale = float(amax[0]) / 7.0
+    res = {"absmax": time_ms(phase1),
+           "vector_norm": time_ms(lambda: torch.linalg.vector_norm(
+               flat, float("inf"), dim=1)),
+           "quantize": time_ms(phase2),
+           "fake_quantize": time_ms(
+               lambda: torch.fake_quantize_per_tensor_affine(
+                   planes, scale, 0, -7, 7))}
+    print(f"kernel int4_quant entries (n={n} W={w} f32): absmax "
+          f"{res['absmax']:.4f} ms (vector_norm inf {res['vector_norm']:.4f}"
+          f" ms, bound {w * n * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+          f"quantize {res['quantize']:.4f} ms "
+          f"(fake_quantize_per_tensor_affine {res['fake_quantize']:.4f} ms, "
+          f"bound {2 * w * n * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms)",
+          flush=True)
+
+
 def time_slice3_kernels(gen) -> dict:
     """The four kernels of the third slice at the main path's largest
     leaf: vote_pipeline on one worker's bf16 plane (run E's shape),
@@ -975,6 +1038,7 @@ def time_slice3_kernels(gen) -> dict:
         plain_ms=time_ms(lambda: ref.int4_quant_plane(planes), 3, 1),
         bytes=w * n * 3 * f32, ops=w * n * 8,
         err=max_abs_err(q, q_plain), shape=f"n={n} W={w} f32, 2 launches")
+    time_int4_entries(planes)
     del planes, q, q_plain
 
     # threshold_mask in bf16 (run D's payload) and float32, each beside
@@ -5690,6 +5754,139 @@ def run_launch_tooling(cli: dict | None = None) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the reference's legacy surface
+# ---------------------------------------------------------------------------
+
+AB_STEPS = 2
+AB_BUCKETS = 9              # the layout's launches: 7 packed, 2 FP32
+
+
+def run_legacy() -> dict:
+    """Run AB: full qwen3-0.6B through the reference's legacy entry point,
+    ``build_train_step(cfg, VirtualGroup(4), ...)`` -> ``CompiledStep``,
+    under gbin_packed on run A's 16 x 128 tokens: 2 steps (the port's
+    ``step_fn``, then the legacy two-value call), 7 launches a step each
+    of sign_pack, vote_combine and bf16 unpack_ternary; step 0 against
+    ``Fabric.build_step``'s on a second model from the same seed (loss and
+    aggregates byte-equal); a third batch's aggregates against the plain
+    twins (``check_twin_step``) and ``aggregate_gradients`` against
+    ``Fabric.aggregate`` on the same worker gradients."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import VirtualGroup, aggregate_gradients
+    from repro_torch.core import tree as T
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.fabric import CompiledStep, Fabric, TrainState, \
+        plan_presets
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import build_train_step
+
+    cfg = get_config("qwen3_0p6b")
+    plan = plan_presets()["gbin_packed"]
+    opt = AdamW(peak_lr=3e-4, warmup_steps=2, total_steps=AB_STEPS)
+    data = SyntheticLMStream(vocab=cfg.vocab_size, seq_len=128, batch=16,
+                             seed=0, learnable=False)
+    batches = [{k: torch.as_tensor(v).cuda()
+                for k, v in data.batch_at(i).items()}
+               for i in range(AB_STEPS + 1)]
+    cs = build_train_step(cfg, VirtualGroup(MAIN_W), opt, plan,
+                          init_params(cfg, device="meta"))
+    aux = cs.aux
+    layout = aux["layout"]
+    lowbit = [b for b in layout.buckets if b.key.schedule == "packed_a2a"]
+    if not isinstance(cs, CompiledStep) or aux["num_launches"] != AB_BUCKETS \
+            or len(lowbit) != LOWBIT_BUCKETS or layout.unfused:
+        fail(f"AB: num_launches {aux['num_launches']}, {len(lowbit)} packed "
+             f"buckets, {len(layout.unfused)} unfused")
+    print(f"[AB legacy] build_train_step: {aux['fabric']!r}, num_launches "
+          f"{aux['num_launches']}, batch spec {cs.batch_sharding}", flush=True)
+
+    # the yardstick: Fabric.build_step's step 0 on a model from the same
+    # seed (the steps update their parameters in place)
+    model = Transformer(cfg, device="cuda", seed=0)
+    fabric = Fabric(num_workers=MAIN_W)
+    step = fabric.build_step(opt, plan, model.tree(), model.loss)
+    ref_state = TrainState(model=model, opt=opt.init(model.tree()),
+                           ef=fabric.init_ef(model.tree(), step.policies))
+    # the step's new state holds the yardstick's model and moments: drop it
+    ref_metrics, ref_agg = step(ref_state, batches[0])[1:]
+    ref_loss = float(ref_metrics["loss"])
+    del model, step, ref_state
+    free()
+
+    model = Transformer(cfg, device="cuda", seed=0)
+    params = model.tree()
+    state = TrainState(model=model, opt=opt.init(params, zero=aux["zero"]),
+                       ef=aux["fabric"].init_ef(params, aux["policies"]))
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    dt_before = dict(wrappers["unpack_ternary"].launches_by_dtype)
+    expect = {"sign_pack": LOWBIT_BUCKETS, "vote_combine": LOWBIT_BUCKETS,
+              "unpack_ternary_bf16": LOWBIT_BUCKETS}
+    launches, times, losses = {}, [], []
+    for k in range(AB_STEPS):
+        before = {kn: fn.launches for kn, fn in wrappers.items()}
+        by_dtype = dict(wrappers["unpack_ternary"].launches_by_dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k == 0:
+            state, metrics, agg = cs.step_fn(state, batches[k])
+        else:
+            state, metrics = cs(state, batches[k])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = _launch_deltas(wrappers, before, by_dtype)
+        if delta != {kn: expect.get(kn, 0) for kn in delta}:
+            fail(f"AB step {k}: launches {delta}, expected {expect}")
+        losses.append(float(metrics["loss"]))
+        if not np.isfinite(losses[-1]):
+            fail(f"AB step {k}: loss {losses[-1]}")
+        if k == 0:
+            if losses[0] != ref_loss:
+                fail(f"AB: step 0's loss {losses[0]!r} differs from "
+                     f"Fabric.build_step's {ref_loss!r}")
+            for (path, u), v in zip(T.flatten(agg), T.leaves(ref_agg)):
+                if not same(u, v):
+                    fail(f"AB: step 0's aggregate {path} differs from "
+                         f"Fabric.build_step's")
+            del agg, ref_agg
+        for kn, v in delta.items():
+            launches[kn] = launches.get(kn, 0) + v
+        print(f"[AB legacy] step {k}: loss {losses[-1]:.6f} time "
+              f"{times[-1]:.4f} s launches "
+              f"{ {kn: d for kn, d in delta.items() if d} }", flush=True)
+    split = wrappers["unpack_ternary"].launches_by_dtype
+    if split[torch.float32] != dt_before[torch.float32]:
+        fail("AB: a bf16 bucket decoded into float32")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    run = {"trainer": types.SimpleNamespace(last_aggregates=None,
+                                            state=state),
+           "params": params, "batch": batches[AB_STEPS], "lowbit": lowbit}
+    extra = check_twin_step("AB legacy", aux["fabric"], plan, run)
+    grads, _ = aux["fabric"].worker_grads(params, batches[AB_STEPS],
+                                          model.loss)
+    want, _ = aux["fabric"].aggregate(grads, plan)
+    got, _ = aggregate_gradients(grads, aux["policies"],
+                                 VirtualGroup(MAIN_W), MAIN_W)
+    for (path, u), v in zip(T.flatten(got), T.leaves(want)):
+        if not same(u, v):
+            fail(f"AB: aggregate_gradients' {path} differs from "
+                 f"Fabric.aggregate's")
+    print(f"[AB legacy] step 0 equal to Fabric.build_step's (loss "
+          f"{ref_loss!r}, aggregates byte-equal); aggregate_gradients "
+          f"byte-equal to Fabric.aggregate", flush=True)
+    print(f"[AB legacy] losses {losses}; step seconds {times}; num_launches "
+          f"{aux['num_launches']}; peak memory {peak:.2f} GiB{extra}",
+          flush=True)
+    return {"launches": launches}
+
+
 def timed(fn):
     """``fn()``, its wall seconds printed under its name: what each phase
     adds to the script's time limit."""
@@ -5757,7 +5954,8 @@ def main() -> None:
                run_xlstm, run_hymba, run_whisper, run_tp_on_card,
                run_hier, run_tuned, run_serve, run_decode, run_elastic,
                run_straggler, run_serve_mesh, run_examples, run_moe_mesh,
-               run_tp_families, functools.partial(run_launch_tooling, y_cli)):
+               run_tp_families, functools.partial(run_launch_tooling, y_cli),
+               run_legacy):
         run = timed(fn)
         for k, v in run.pop("launches").items():
             launches[k] += v

@@ -47,3 +47,8 @@ def get_config(arch_id: str, smoke: bool = False):
                        f"{ARCH_IDS}")
     mod = importlib.import_module(f".{name}", __package__)
     return mod.SMOKE if smoke else mod.FULL
+
+
+def all_configs(smoke: bool = False) -> dict:
+    """Every architecture's config, by id in the reference's order."""
+    return {a: get_config(a, smoke) for a in ARCH_IDS}

@@ -38,6 +38,23 @@ def _codec(mode):
     return get_codec(mode)
 
 
+def path_name(key_path) -> str:
+    """A key path -> its '/'-joined name, e.g. ``'layers/3/attn/wq'``.
+
+    The entries are ``str`` / ``int`` keys, or objects that carry one as
+    ``key``, ``idx`` or ``name`` (``jax.tree_util``'s ``DictKey``,
+    ``SequenceKey`` and ``GetAttrKey``); the names equal
+    :func:`~repro_torch.core.tree.flatten`'s paths."""
+    parts = []
+    for k in key_path:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                k = getattr(k, attr)
+                break
+        parts.append(str(k))
+    return "/".join(parts)
+
+
 def dtype_name(dtype) -> str:
     """'bfloat16', 'float32', ... for torch dtypes, numpy dtypes or names."""
     if isinstance(dtype, torch.dtype):

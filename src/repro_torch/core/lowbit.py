@@ -206,3 +206,35 @@ class LeafPolicy:
     model_spec: tuple | None = None     # the leaf's TP spec over "model"
     gate_phase: int = 0
     error_feedback: bool = False
+
+
+def _group_context(group, num_workers: int):
+    """The aggregation context of a worker group standing where the
+    reference's ``dp_axes`` stands (an ``int`` W is ``VirtualGroup(W)``);
+    ``num_workers`` must be the group's size, as ``Fabric`` requires."""
+    from ..fabric.registry import AggregationContext
+    from .collectives import VirtualGroup
+    if isinstance(group, int):
+        group = VirtualGroup(group)
+    if num_workers != group.size:
+        raise ValueError(f"num_workers={num_workers} disagrees with the "
+                         f"group's {group.size} workers")
+    return AggregationContext(group=group, num_workers=group.size)
+
+
+def aggregate_leaf(g: torch.Tensor, policy: LeafPolicy, group,
+                   num_workers: int, ef: torch.Tensor | None = None):
+    """The reference's free-function leaf shim: one gradient leaf (the
+    group's local ranks on its leading axis) through the schedule
+    registry under ``policy``, as ``Fabric.aggregate`` runs a leaf.
+
+    ``group`` stands where the reference's ``dp_axes`` stands (a
+    :class:`~repro_torch.core.collectives.VirtualGroup`, ``LocalGroup``
+    or ``DistributedGroup``; an ``int`` W is ``VirtualGroup(W)``).  There
+    is no ``interpret`` argument: the port's kernels have no interpret
+    mode, a CPU tensor runs their plain twins and a CUDA tensor the
+    kernels.  Returns ``(aggregate, new_ef)``: the FP32 mean, or the
+    ternary direction in {-1, 0, +1} for a vote codec.
+    """
+    from ..fabric.session import aggregate_leaf as dispatch
+    return dispatch(_group_context(group, num_workers), g, policy, ef=ef)

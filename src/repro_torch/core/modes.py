@@ -45,6 +45,12 @@ def bits_per_element(mode) -> float:
     return get_codec(mode).bits_per_element
 
 
+def traffic_ratio(mode) -> float:
+    """Payload ratio against the FP32 baseline of the same transport
+    (paper Section 4): ``bits_per_element(mode) / 32``."""
+    return bits_per_element(mode) / 32.0
+
+
 class Schedule(str, enum.Enum):
     """Collective schedule that carries a codec across the workers."""
     #: FP32 mean (all-reduce).

@@ -30,9 +30,9 @@ class AggregationContext:
                         the staged four-kernel chain (the session's
                         ``fused_kernels=False`` A/B switch; same bits);
     ``mesh``          — the :class:`~repro_torch.core.collectives.
-                        ProcessMesh` of a tensor-parallel session (its
-                        model group serves the schedules that see a TP
-                        leaf whole), else None.
+                        ProcessMesh` of a session on a mesh (its model
+                        group serves the schedules that see a leaf
+                        with a ``model_spec`` whole), else None.
     """
     group: Any = None
     num_workers: int = 1

@@ -25,11 +25,13 @@ cosines are the whole model's, summed over the model group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Sequence
+import math
+from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
 from ..core import tree as T
+from ..core.aggregate import init_ef_states
 from ..core.buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan,
                             BucketLayout, GroupRules, assign_groups,
                             dtype_name, group_sizes, plan_buckets,
@@ -38,6 +40,7 @@ from ..core.collectives import VirtualGroup
 from ..core.diagnostics import group_cosines_from_mean
 from ..core.lowbit import _ef_update
 from ..core.modes import codec_name, wire_schedule
+from ..optim.optimizers import _dp_entry
 from .codecs import get_codec
 from .registry import AggregationContext, get_schedule
 
@@ -250,6 +253,48 @@ class TrainState:
     step: int = 0
 
 
+class CompiledStep(NamedTuple):
+    """One built train step and its I/O contracts, the reference's
+    ``(jitted, state_shardings, batch_sharding, aux)``.
+
+    ``step_fn(state, batch)`` is the port's step, returning ``(state,
+    metrics, aggregates)``; calling the tuple returns the reference's
+    ``(state, metrics)``, so code that unpacks two values runs as it
+    is.  ``state_shardings`` is a :class:`TrainState` of partition specs
+    (tuples, :mod:`repro_torch.runtime.shardings`) and
+    ``batch_sharding`` the batch's spec, what the reference's
+    ``NamedSharding``s hold; ``aux`` carries the reference's keys.
+    """
+    step_fn: Callable
+    state_shardings: Any
+    batch_sharding: Any
+    aux: dict
+
+    def __call__(self, state, batch):
+        state, metrics, _ = self.step_fn(state, batch)
+        return state, metrics
+
+
+def dp_num_workers(mesh, dp_axes) -> int:
+    """The data-parallel worker count of a
+    :class:`~repro_torch.core.collectives.ProcessMesh`: the product of
+    the extents of ``dp_axes`` (a name or a sequence of names)."""
+    axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+    return math.prod(int(mesh.extents[a]) for a in axes)
+
+
+def _group_extents(group) -> tuple:
+    """The extents of a worker group's data-parallel axes, outermost
+    first: none for the host-local group, a virtual group's shape, a
+    distributed group's size (or its axis groups' sizes)."""
+    if getattr(group, "host_local", False):
+        return ()
+    if isinstance(group, VirtualGroup):
+        return group.shape
+    axes = getattr(group, "axis_groups", None)
+    return tuple(g.size for g in axes) if axes else (group.size,)
+
+
 class Fabric:
     """Aggregation-fabric session over one worker group.
 
@@ -276,7 +321,9 @@ class Fabric:
     sets either way.  ``Fabric(mesh=ProcessMesh(...))`` aggregates over
     the mesh's data group; with a model axis above 1 the partition specs
     passed as ``pspecs=`` reach the policies (at a model axis of 1 they
-    are dropped, so the layouts stay the data-parallel ones).
+    are dropped, so the layouts stay the data-parallel ones; the legacy
+    :func:`~repro_torch.runtime.build_train_step` resolves its policies
+    with them, as the reference's mesh step does).
     A hop plan (:mod:`repro_torch.fabric.hierarchy`) of more than one hop
     needs a group with one data axis a hop:
     ``Fabric(group=VirtualGroup((outer, inner)))`` (the reference's
@@ -356,11 +403,25 @@ class Fabric:
         return self.mesh is not None and self.mesh.model_size > 1
 
     @property
+    def dp_axes(self) -> tuple:
+        """The data axes, as the reference's ``Fabric(mesh, dp_axes)``
+        names them: the mesh's own, else ``()`` for the host-local group,
+        ``("data",)`` for a group of one axis and ``("pod", "data")`` for
+        two.  Only partition specs read them (:meth:`ef_specs`,
+        :func:`repro_torch.runtime.build_train_step`)."""
+        if self.mesh is not None:
+            return self.mesh.data_axes
+        n = len(_group_extents(self.group))
+        if n > 2:
+            raise ValueError(f"{self.group!r} has {n} data axes; partition "
+                             f"specs name at most two")
+        return ("pod", "data")[2 - n:]
+
+    @property
     def context(self) -> AggregationContext:
         return AggregationContext(
             group=self.group, num_workers=self.num_workers,
-            fused_kernels=self.fused_kernels,
-            mesh=self.mesh if self.tensor_parallel else None)
+            fused_kernels=self.fused_kernels, mesh=self.mesh)
 
     def resolve(self, params_like: Any, plan: AdmissionPlan,
                 pspecs: Any | None = None) -> dict:
@@ -383,13 +444,24 @@ class Fabric:
         """EF tree: ``(L, *shape)`` zeros where EF is on, scalar 0 else,
         one row for each of the group's L local ranks (all W workers of
         a :class:`VirtualGroup`, this process's one rank of a
-        :class:`~repro_torch.core.collectives.DistributedGroup`)."""
+        :class:`~repro_torch.core.collectives.DistributedGroup`): the
+        worker-local :func:`~repro_torch.core.aggregate.init_ef_states`
+        tree, a row for each."""
         local = len(self.group.rank())
+        return T.map_leaves(
+            lambda e: e.expand(local, *e.shape[1:]).contiguous()
+            if e.dim() else e, init_ef_states(params, policies, dtype))
 
-        def make(p, pol):
-            shape = (local, *p.shape) if pol.error_feedback else ()
-            return torch.zeros(shape, dtype=dtype, device=p.device)
-        return T.map_leaves(make, params, policies)
+    def ef_specs(self, policies: Any, pspecs: Any) -> dict:
+        """The EF tree's partition specs: the data axes (one axis as its
+        name) followed by the leaf's spec where EF is on, ``()``
+        elsewhere; the one implementation, for the legacy step's
+        ``state_shardings`` and for spec construction elsewhere."""
+        dp = _dp_entry(self.dp_axes)
+        return T.unflatten([
+            (path, (dp, *(spec or ())) if pol.error_feedback else ())
+            for (path, pol), spec in zip(T.flatten(policies),
+                                         T.leaves(pspecs))])
 
     def layout_for(self, params_like: Any, plan: AdmissionPlan | Any,
                    pspecs: Any | None = None) -> BucketLayout:
@@ -420,11 +492,14 @@ class Fabric:
         return self._layouts[key]
 
     def aggregate(self, grads: Any, plan: AdmissionPlan | Any,
-                  ef: Any | None = None, *, fused: bool | None = None):
+                  ef: Any | None = None, *, pspecs: Any | None = None,
+                  fused: bool | None = None):
         """Aggregate per-worker gradients (``(W, *shape)`` leaves) under a
-        plan or a resolved policy tree: ``(aggregates, new_ef)``."""
+        plan (resolved with ``pspecs``, see :meth:`resolve`) or a resolved
+        policy tree: ``(aggregates, new_ef)``.  ``fused`` (default: the
+        session's flag) picks the buckets or the per-leaf path."""
         like = _per_worker_like(grads)
-        policies = (self.resolve(like, plan)
+        policies = (self.resolve(like, plan, pspecs)
                     if isinstance(plan, AdmissionPlan) else plan)
         if self.fused if fused is None else fused:
             return aggregate_tree_bucketed(
@@ -569,7 +644,7 @@ class Fabric:
                    loss: Callable[[dict, dict], torch.Tensor], *,
                    with_diagnostics: bool = False,
                    grad_accum: int = 1, pspecs: Any | None = None,
-                   zero=None) -> Callable:
+                   zero=None, fused: bool | None = None) -> Callable:
         """One data-parallel train step under ``plan``.
 
         The step computes each virtual worker's loss and gradients on its
@@ -584,11 +659,15 @@ class Fabric:
         On a tensor-parallel session ``params_like`` holds this rank's
         blocks and ``pspecs`` the sanitized specs of the whole leaves;
         ``zero`` (a :class:`~repro_torch.optim.Zero1`) partitions the
-        optimizer's moments over the data group.
+        optimizer's moments over the data group.  ``fused`` (default: the
+        session's flag) aggregates through the buckets or leaf by leaf.
+        ``plan`` may also be a resolved policy tree.
         Returns ``step(state, batch) -> (state, metrics, aggregates)``.
         """
-        policies = self.resolve(params_like, plan, pspecs)
-        layout = self.layout_for(params_like, policies) if self.fused else None
+        policies = (self.resolve(params_like, plan, pspecs)
+                    if isinstance(plan, AdmissionPlan) else plan)
+        use_fused = self.fused if fused is None else fused
+        layout = self.layout_for(params_like, policies) if use_fused else None
         groups = self.groups(params_like)
         shards = self._shards(params_like, policies)
         ctx = self.context
@@ -625,29 +704,36 @@ class Fabric:
                  loss: Callable[[dict, dict], torch.Tensor], *,
                  with_diagnostics: bool = False,
                  grad_accum: int = 1, pspecs: Any | None = None,
-                 zero=None) -> Callable:
+                 zero=None, fused: bool | None = None) -> Callable:
         """Cached :meth:`build_step`: one built step per plan signature
         (the controller's mode latch), keyed as the reference keys its
-        compiled steps, also on the optimizer and the loss, the session's
-        ``fused`` and ``fused_kernels`` switches, the kernel signatures of
-        the plan's codecs, the worker count and membership epoch, the
-        partition specs and the ZeRO-1 partition."""
+        compiled steps, also on the optimizer and the loss, the ``fused``
+        switch (this call's, else the session's) and the session's
+        ``fused_kernels``, the kernel signatures of the plan's codecs,
+        the worker count and membership epoch, the partition specs and
+        the ZeRO-1 partition."""
+        use_fused = self.fused if fused is None else fused
         kern_sig = tuple(sorted(
             (codec_name(m), _codec_kernel_sig(m)) for m in plan_modes(plan)))
         specs = None if pspecs is None else tuple(T.flatten(pspecs))
         key = (plan.signature(), with_diagnostics, grad_accum, optimizer,
-               loss, self.fused, self.fused_kernels, kern_sig,
+               loss, use_fused, self.fused_kernels, kern_sig,
                self.num_workers, self.membership_epoch, specs, zero)
         if key not in self._steps:
             self._steps[key] = self.build_step(
                 optimizer, plan, params_like, loss,
                 with_diagnostics=with_diagnostics, grad_accum=grad_accum,
-                pspecs=pspecs, zero=zero)
+                pspecs=pspecs, zero=zero, fused=use_fused)
         return self._steps[key]
 
     def clear_cache(self) -> None:
         self._steps.clear()
         self._layouts.clear()
+
+    def __repr__(self) -> str:
+        return (f"Fabric(num_workers={self.num_workers}, "
+                f"group={self.group!r}, "
+                f"mesh={'set' if self.mesh is not None else None})")
 
 
 def _split_microbatches(batch: dict, grad_accum: int) -> list[dict]:

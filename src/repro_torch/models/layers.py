@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.device import resolve_device
 from .config import ModelConfig
 
 #: above this sequence length attention runs double-blocked (flash-style)
@@ -81,6 +82,12 @@ def _normal(shape, std, gen, device, dtype) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
 
 
+def init_rmsnorm(d: int, device="cuda", *, lead: tuple = ()) -> dict:
+    """A norm's float32 scale of ones, ``(*lead, d)``."""
+    return {"scale": torch.ones((*lead, d), dtype=torch.float32,
+                                device=resolve_device(device))}
+
+
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.to(torch.float32)
@@ -115,6 +122,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator | None = None,
+                   device="cuda", *, lead: tuple = ()) -> dict:
+    """An attention block's parameters (the reference's keys and shapes,
+    stacked on ``lead``): normal weights with std ``1 / sqrt(d)``, the
+    qkv biases zero, the qk-norm scales one.  ``gen`` draws wq, wk, wv,
+    wo in that order."""
+    device = resolve_device(device)
+    d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt, std = _dtype(cfg), 1.0 / math.sqrt(d)
+    p = {"wq": _normal((*lead, d, h * hd), std, gen, device, dt),
+         "wk": _normal((*lead, d, k * hd), std, gen, device, dt),
+         "wv": _normal((*lead, d, k * hd), std, gen, device, dt),
+         "wo": _normal((*lead, h * hd, d), std, gen, device, dt)}
+    if cfg.qkv_bias:
+        for name, m in (("bq", h * hd), ("bk", k * hd), ("bv", k * hd)):
+            p[name] = torch.zeros((*lead, m), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, device, lead=lead)
+        p["k_norm"] = init_rmsnorm(hd, device, lead=lead)
+    return p
+
+
+def init_cross_attention(cfg: ModelConfig,
+                         gen: torch.Generator | None = None, device="cuda",
+                         *, lead: tuple = ()) -> dict:
+    """Whisper's decoder cross-attention: an attention block's keys."""
+    return init_attention(cfg, gen, device, lead=lead)
+
 
 def attention_pspecs(cfg: ModelConfig) -> dict:
     """TP specs: Q's columns and O's rows over the model axis (whole
@@ -683,6 +719,42 @@ def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator | None = None,
+             device="cuda", d_ff: int | None = None, *,
+             lead: tuple = ()) -> dict:
+    """A dense MLP of width ``d_ff`` (the config's by default), stacked on
+    ``lead``: ``w_up`` and ``w_gate`` with std ``1 / sqrt(d)``, ``w_down``
+    ``1 / sqrt(d_ff)``, drawn w_up, w_down, then a SwiGLU's w_gate."""
+    device = resolve_device(device)
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, _dtype(cfg)
+    std = 1.0 / math.sqrt(d)
+    p = {"w_up": _normal((*lead, d, f), std, gen, device, dt),
+         "w_down": _normal((*lead, f, d), 1 / math.sqrt(f), gen, device, dt)}
+    if cfg.mlp_variant == "swiglu":
+        p["w_gate"] = _normal((*lead, d, f), std, gen, device, dt)
+    return p
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator | None = None,
+             device="cuda", *, lead: tuple = ()) -> dict:
+    """A MoE layer, stacked on ``lead``: the float32 router, the experts'
+    SwiGLU weights and, with shared experts, their MLP of width
+    ``d_expert * num_shared``."""
+    device = resolve_device(device)
+    m = cfg.moe
+    d, de, e, dt = cfg.d_model, m.d_expert, m.num_experts, _dtype(cfg)
+    std = 1.0 / math.sqrt(d)
+    p = {"router": _normal((*lead, d, e), std, gen, device, torch.float32),
+         "w_gate": _normal((*lead, e, d, de), std, gen, device, dt),
+         "w_up": _normal((*lead, e, d, de), std, gen, device, dt),
+         "w_down": _normal((*lead, e, de, d), 1 / math.sqrt(de), gen, device,
+                           dt)}
+    if m.num_shared:
+        p["shared"] = init_mlp(cfg, gen, device, de * m.num_shared,
+                               lead=lead)
+    return p
 
 
 def mlp_pspecs(cfg: ModelConfig) -> dict:

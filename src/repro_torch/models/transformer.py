@@ -92,53 +92,6 @@ def _is_slstm_block(cfg: ModelConfig, i: int) -> bool:
     return bool(e) and (i % e == e - 1)
 
 
-def _init_mlp(cfg: ModelConfig, gen, device, lead: tuple, f: int) -> dict:
-    d, dt = cfg.d_model, _dtype(cfg)
-    std = 1.0 / math.sqrt(d)
-    p = {"w_up": _normal((*lead, d, f), std, gen, device, dt),
-         "w_down": _normal((*lead, f, d), 1 / math.sqrt(f), gen, device, dt)}
-    if cfg.mlp_variant == "swiglu":
-        p["w_gate"] = _normal((*lead, d, f), std, gen, device, dt)
-    return p
-
-
-def _init_moe(cfg: ModelConfig, gen, device, lead: tuple) -> dict:
-    m = cfg.moe
-    d, de, e, dt = cfg.d_model, m.d_expert, m.num_experts, _dtype(cfg)
-    std = 1.0 / math.sqrt(d)
-    p = {"router": _normal((*lead, d, e), std, gen, device, torch.float32),
-         "w_gate": _normal((*lead, e, d, de), std, gen, device, dt),
-         "w_up": _normal((*lead, e, d, de), std, gen, device, dt),
-         "w_down": _normal((*lead, e, de, d), 1 / math.sqrt(de), gen, device,
-                           dt)}
-    if m.num_shared:
-        p["shared"] = _init_mlp(cfg, gen, device, lead, de * m.num_shared)
-    return p
-
-
-def _ones(lead: tuple, m: int, device) -> torch.Tensor:
-    return torch.ones((*lead, m), dtype=torch.float32, device=device)
-
-
-def _init_attention(cfg: ModelConfig, gen, device, lead: tuple) -> dict:
-    d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    dt, std = _dtype(cfg), 1.0 / math.sqrt(d)
-    zeros = lambda m: torch.zeros((*lead, m), dtype=dt,  # noqa: E731
-                                  device=device)
-    attn = {
-        "wq": _normal((*lead, d, h * hd), std, gen, device, dt),
-        "wk": _normal((*lead, d, k * hd), std, gen, device, dt),
-        "wv": _normal((*lead, d, k * hd), std, gen, device, dt),
-        "wo": _normal((*lead, h * hd, d), std, gen, device, dt),
-    }
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(h * hd), bk=zeros(k * hd), bv=zeros(k * hd))
-    if cfg.qk_norm:
-        attn["q_norm"] = {"scale": _ones(lead, hd, device)}
-        attn["k_norm"] = {"scale": _ones(lead, hd, device)}
-    return attn
-
-
 def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
                 dense_ffn: bool = False) -> dict:
     """Parameters of ``n`` decoder layers stacked on a leading axis, or of
@@ -146,15 +99,15 @@ def _init_layer(cfg: ModelConfig, gen, device, n: int | None,
     config's dense layer: an MLP of ``d_expert * (top_k + num_shared)``."""
     d = cfg.d_model
     lead = () if n is None else (n,)
-    p = {"norm1": {"scale": _ones(lead, d, device)},
-         "attn": _init_attention(cfg, gen, device, lead),
-         "norm2": {"scale": _ones(lead, d, device)}}
+    p = {"norm1": L.init_rmsnorm(d, device, lead=lead),
+         "attn": L.init_attention(cfg, gen, device, lead=lead),
+         "norm2": L.init_rmsnorm(d, device, lead=lead)}
     if cfg.hybrid_parallel:
         p["ssm_head"] = S.init_mamba_head(cfg, gen, device, lead)
     if cfg.moe is not None and not dense_ffn:
-        p["moe"] = _init_moe(cfg, gen, device, lead)
+        p["moe"] = L.init_moe(cfg, gen, device, lead=lead)
     elif cfg.d_ff or dense_ffn:
-        p["mlp"] = _init_mlp(cfg, gen, device, lead, _mlp_width(cfg))
+        p["mlp"] = L.init_mlp(cfg, gen, device, _mlp_width(cfg), lead=lead)
     return p
 
 
@@ -168,20 +121,20 @@ def _mlp_width(cfg: ModelConfig) -> int:
 
 def _init_encoder_layer(cfg: ModelConfig, gen, device, n: int) -> dict:
     d, lead = cfg.d_model, (n,)
-    return {"norm1": {"scale": _ones(lead, d, device)},
-            "attn": _init_attention(cfg, gen, device, lead),
-            "norm2": {"scale": _ones(lead, d, device)},
-            "mlp": _init_mlp(cfg, gen, device, lead, cfg.d_ff)}
+    return {"norm1": L.init_rmsnorm(d, device, lead=lead),
+            "attn": L.init_attention(cfg, gen, device, lead=lead),
+            "norm2": L.init_rmsnorm(d, device, lead=lead),
+            "mlp": L.init_mlp(cfg, gen, device, lead=lead)}
 
 
 def _init_decoder_xlayer(cfg: ModelConfig, gen, device, n: int) -> dict:
     d, lead = cfg.d_model, (n,)
-    return {"norm1": {"scale": _ones(lead, d, device)},
-            "attn": _init_attention(cfg, gen, device, lead),
-            "norm_x": {"scale": _ones(lead, d, device)},
-            "cross": _init_attention(cfg, gen, device, lead),
-            "norm2": {"scale": _ones(lead, d, device)},
-            "mlp": _init_mlp(cfg, gen, device, lead, cfg.d_ff)}
+    return {"norm1": L.init_rmsnorm(d, device, lead=lead),
+            "attn": L.init_attention(cfg, gen, device, lead=lead),
+            "norm_x": L.init_rmsnorm(d, device, lead=lead),
+            "cross": L.init_cross_attention(cfg, gen, device, lead=lead),
+            "norm2": L.init_rmsnorm(d, device, lead=lead),
+            "mlp": L.init_mlp(cfg, gen, device, lead=lead)}
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +237,7 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     d, v, dt = cfg.d_model, cfg.vocab_size, _dtype(cfg)
     params: dict[str, Any] = {
         "embed": {"tok": _normal((v, d), 0.02, generator, device, dt)},
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
-                                           device=device)},
+        "final_norm": L.init_rmsnorm(d, device),
     }
     if not cfg.tie_embeddings:
         params["head"] = {"w": _normal((d, v), 1 / math.sqrt(d), generator,
@@ -296,10 +248,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
             "w": _normal((f, d), 1 / math.sqrt(f), generator, device, dt)}
     if cfg.family == "ssm":      # xLSTM: unrolled heterogeneous blocks
         params["blocks"] = [
-            {"norm1": {"scale": _ones((), d, device)},
+            {"norm1": L.init_rmsnorm(d, device),
              "slstm": S.init_slstm(cfg, generator, device)}
             if _is_slstm_block(cfg, i) else
-            {"norm1": {"scale": _ones((), d, device)},
+            {"norm1": L.init_rmsnorm(d, device),
              "mlstm": S.init_mlstm(cfg, generator, device)}
             for i in range(cfg.num_layers)]
         return params

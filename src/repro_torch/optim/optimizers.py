@@ -145,10 +145,29 @@ class Optimizer:
               zero: Zero1 | None = None) -> OptState:
         raise NotImplementedError
 
+    @property
+    def has_nu(self) -> bool:
+        """Does this optimizer's state carry a second moment (nu)?  Read
+        off the state ``init`` builds (:func:`state_has_nu`), not the
+        class name, so subclasses and new adaptive optimizers answer
+        right; a subclass may override it where probing ``init`` is
+        unwanted.  A legacy step's ``state_shardings`` give ``nu`` the
+        moments' specs where it is True."""
+        return state_has_nu(self)
+
     def _lr(self, step):
         return lr_schedule(step, peak_lr=self.peak_lr,
                            warmup_steps=self.warmup_steps,
                            total_steps=self.total_steps)
+
+
+def state_has_nu(optimizer) -> bool:
+    """Probe an optimizer's ``init`` state on a one-element float32
+    tensor on the CPU for a second-moment (nu) buffer: the one
+    implementation behind :attr:`Optimizer.has_nu`, and the answer for
+    any object with ``init(params)``."""
+    state = optimizer.init(torch.zeros((1,), dtype=torch.float32))
+    return getattr(state, "nu", None) is not None
 
 
 @dataclasses.dataclass(frozen=True)

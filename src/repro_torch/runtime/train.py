@@ -34,34 +34,142 @@ param_pspecs` and runs the model tensor-parallel over its model group.
 With ``TrainerConfig.zero1`` (the default, as in the reference) the
 moments are partitioned over the data group (ZeRO-1).  The traffic ratio
 is priced on the whole leaves' sizes, and checkpoints hold whole arrays.
+
+:func:`build_train_step` is the reference's legacy step builder: a
+throwaway session's step with its partition specs, as a
+:class:`~repro_torch.fabric.CompiledStep`.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Iterator
+from typing import Any, Callable, Iterator
 
 import torch
 
 from ..checkpoint import (CheckpointManager, load_train_state,
                           train_state_arrays)
 from ..checkpoint.manager import MeshLayout
-from ..core import (AdmissionPlan, DistributedGroup, plan_traffic_ratio,
+from ..core import (AdmissionPlan, DistributedGroup, GroupRules,
+                    ProcessMesh, VirtualGroup, plan_traffic_ratio,
                     resolve_device)
 from ..core import tree as T
-from ..fabric import Fabric, TrainState
+from ..core.buckets import resolve_policies
+from ..fabric import CompiledStep, Fabric, TrainState, dp_num_workers
 from ..fabric.control import Telemetry, make_controller
-from ..models import ModelConfig, Transformer, init_params
+from ..fabric.session import _group_extents
+from ..models import ModelConfig, Transformer, init_params, loss_fn
 from ..models.tp import TensorParallel
 from ..models.transformer import param_pspecs
-from ..optim import Optimizer, Zero1, optimizer_state_pspecs
-from .shardings import sanitize_pspecs
+from ..optim import OptState, Optimizer, Zero1, optimizer_state_pspecs
+from ..optim.optimizers import _dp_entry
+from .shardings import local_shape, sanitize_pspecs
 from .fault import (FailureInjector, SimulatedFailure, StepTimer,
                     StragglerWatchdog)
 
 log = logging.getLogger("repro_torch.train")
 
-__all__ = ["Trainer", "TrainerConfig"]
+__all__ = ["TrainState", "Trainer", "TrainerConfig", "build_train_step",
+           "dp_num_workers"]
+
+
+# ---------------------------------------------------------------------------
+# step builder (the reference's legacy entry point)
+# ---------------------------------------------------------------------------
+
+def build_train_step(cfg: ModelConfig, mesh, optimizer: Optimizer,
+                     plan: AdmissionPlan, params_like: Any, *,
+                     dp_axes=("data",), rules: GroupRules | None = None,
+                     with_diagnostics: bool = False,
+                     loss: Callable | None = None, zero1: bool = True,
+                     grad_accum: int = 1,
+                     donate: bool = True) -> CompiledStep:
+    """The reference's legacy step builder: a throwaway
+    :class:`~repro_torch.fabric.Fabric`'s step under ``plan``, with its
+    I/O contracts, as a :class:`~repro_torch.fabric.CompiledStep`.
+
+    ``mesh`` is a :class:`~repro_torch.core.ProcessMesh` (the session
+    ``Fabric(mesh=mesh)``, partition specs sanitized to its extents,
+    ZeRO-1 over its data group when ``zero1`` and the data extent is
+    above 1) or a worker group (``Fabric(group=mesh)``, the specs of a
+    mesh of its data axes and a model axis of 1, the moments whole; an
+    ``int`` W is ``VirtualGroup(W)``), as ``launch/train.py`` picks
+    between them.  ``dp_axes`` must be the session's data axes
+    (:attr:`~repro_torch.fabric.Fabric.dp_axes`); anything else raises.
+    On a mesh the policies are resolved with the specs whatever the
+    model extent, as the reference's mesh step resolves them, so a
+    leaf specced over ``"model"`` keeps its own launch at a model extent
+    of 1 too; a worker group has no model axis and buckets it.
+    ``params_like`` is the whole parameter tree
+    (``init_params(cfg, device="meta")`` will do); only its paths,
+    shapes and dtypes are read.  ``loss(params, batch)`` defaults to the
+    model's cross entropy (tensor-parallel on a model axis above 1).
+    ``donate`` is accepted and has no effect: PyTorch has no buffer
+    donation, and the step updates the parameters and moments in place
+    anyway.
+
+    The step runs on a :class:`~repro_torch.fabric.TrainState` whose
+    ``model`` has ``tree()`` (a :class:`~repro_torch.models.Transformer`
+    built on the mesh's model group), its ``opt`` from
+    ``optimizer.init(model.tree(), zero=aux["zero"])`` and ``ef`` from
+    ``aux["fabric"].init_ef(model.tree(), aux["policies"])``.  ``aux``
+    holds the reference's keys (``policies``, ``groups``,
+    ``num_workers``, ``ef_specs``, ``pspecs``, ``layout``,
+    ``num_launches``) and the port's ``fabric`` and ``zero``.
+    """
+    del donate
+    if isinstance(mesh, ProcessMesh):
+        fabric = Fabric(mesh=mesh, rules=rules)
+        extents = mesh.extents
+    else:
+        group = VirtualGroup(mesh) if isinstance(mesh, int) else mesh
+        fabric = Fabric(group=group, rules=rules)
+        extents = {**dict(zip(fabric.dp_axes, _group_extents(group))),
+                   "model": 1}
+    dp = fabric.dp_axes
+    if ((dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)) != dp:
+        raise ValueError(f"dp_axes {dp_axes} are not the session's data "
+                         f"axes {dp}")
+    pspecs = sanitize_pspecs(param_pspecs(cfg), params_like, extents)
+    on_mesh = fabric.mesh is not None
+    opt_specs = optimizer_state_pspecs(
+        pspecs, params_like, dp_axes=dp, dp_size=fabric.num_workers,
+        zero1=zero1 and on_mesh and mesh.data_size > 1)
+    zero, tp, like, policies = None, None, params_like, plan
+    if on_mesh:
+        if zero1 and mesh.data_size > 1:
+            zero = Zero1.from_specs(fabric.group, opt_specs, dp)
+        if fabric.tensor_parallel:
+            tp = TensorParallel(mesh.model_group)
+            # the step plans its layout on this rank's blocks
+            like = T.unflatten([
+                (path, torch.empty(local_shape(x.shape, spec, extents),
+                                   dtype=x.dtype, device="meta"))
+                for (path, x), spec in zip(T.flatten(params_like),
+                                           T.leaves(pspecs))])
+        policies = resolve_policies(like, plan, pspecs=pspecs,
+                                    rules=fabric.rules)
+    step = fabric.build_step(
+        optimizer, policies, like,
+        loss or (lambda p, b: loss_fn(p, cfg, b, tp)),
+        with_diagnostics=with_diagnostics, grad_accum=grad_accum,
+        pspecs=pspecs if on_mesh else None, zero=zero)
+    policies = step.policies
+    ef_specs = fabric.ef_specs(policies, pspecs)
+    state_shardings = TrainState(
+        model=pspecs,
+        opt=OptState(step=(), mu=opt_specs,
+                     nu=opt_specs if optimizer.has_nu else None),
+        ef=ef_specs, step=())
+    aux = {"policies": policies, "groups": fabric.groups(params_like),
+           "num_workers": fabric.num_workers, "ef_specs": ef_specs,
+           "pspecs": pspecs, "layout": step.layout,
+           "num_launches": (step.layout.num_launches
+                            if step.layout is not None
+                            else len(T.leaves(params_like))),
+           "fabric": fabric, "zero": zero}
+    return CompiledStep(step, state_shardings,
+                        (_dp_entry(dp),) if dp else (), aux)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -62,6 +62,14 @@
         recurrent and encoder-decoder SMOKE model at (2, 2), each from
         the reference Trainer's parameters: losses within rtol 1e-5 of
         the reference's (2, 2) Trainer's, traffic ratios equal;
+      - two gbin_packed steps with EF of ``build_train_step`` on meshes
+        of (2, 2), (1, 4) and (4, 1) bit-equal to ``Fabric(mesh=...)``'s
+        step on the same blocks and batches, with the Trainer's specs and
+        ZeRO-1 partition (at (4, 1)
+        the legacy step keeps the "model"-specced leaves per leaf, as the
+        reference's mesh step does: against the session's step on the
+        plan, which buckets them, votes byte-equal and FP32 means to
+        rtol 1e-6 and 1e-6 of the leaf's largest value);
       - ``remat_policy="dots"`` against ``"full"``: the same gradients,
         and exactly one model-group all-reduce fewer a layer (the
         attention's, which the full recompute runs again; it stops before
@@ -543,6 +551,50 @@ def test_trainer_aggregates_equal_the_per_shard_twin(world):
     assert set(info["trainer/unfused"]) == {
         "layers/attn/wq", "layers/attn/wo", "layers/mlp/w_gate",
         "layers/mlp/w_up", "layers/mlp/w_down", "embed/tok", "head/w"}
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4", "4x1"])
+def test_build_train_step_on_a_mesh_is_the_sessions_step(world, mesh):
+    """Two gbin_packed steps with EF of ``build_train_step(cfg,
+    ProcessMesh(...))`` against ``Fabric(mesh=...).build_step`` on the
+    same blocks and batches, with the specs and ZeRO-1 partition built as
+    the Trainer builds them: losses, norms, parameters,
+    moments, EF rows and aggregates bit-equal on every rank.  At (4, 1)
+    the legacy step keeps the seven "model"-specced leaves on launches of
+    their own, as the reference's mesh step does; the session's step on
+    its policies gives the same bits, and the session's step on the plan
+    (which buckets those leaves) the same votes byte for byte and the
+    same FP32 means to rtol 1e-6 and 1e-6 of the leaf's largest value
+    (gloo's ring sums a bucket's elements in an order that depends on
+    their offset, and the buckets differ)."""
+    for r, (arrays, info) in enumerate(world):
+        launches, session_launches, unfused, zero = \
+            info[f"legacy/{mesh}/layout"]
+        assert zero == (mesh != "1x4"), r
+        for k in range(2):
+            got = info[f"legacy/{mesh}/legacy/{k}"]
+            want = info[f"legacy/{mesh}/session/{k}"]
+            assert got == want, (r, k, [n for n in got if got[n] != want[n]])
+            assert np.isfinite(got["loss"]), (r, k)
+        if mesh != "4x1":
+            assert launches == session_launches, r
+            continue
+        assert unfused == sorted(info["trainer/unfused"])
+        assert launches == session_launches == 9
+        assert info["legacy/4x1/bucketed/0"]["loss"] == \
+            info["legacy/4x1/legacy/0"]["loss"]
+        fp32 = set(info["legacy/4x1/fp32"])
+        assert "embed/tok" in fp32 and "layers/attn/wq" not in fp32
+        for p, _ in T.flatten(init_params(get_config("qwen3_0p6b", True),
+                                          device="meta")):
+            u = arrays[f"legacy/4x1/legacy/agg/{p}"]
+            v = arrays[f"legacy/4x1/bucketed/agg/{p}"]
+            if p in fp32:
+                np.testing.assert_allclose(
+                    u, v, rtol=1e-6, atol=1e-6 * np.abs(v).max(),
+                    err_msg=p)
+            else:
+                assert _same_bits(u, v), (r, p)
 
 
 def test_cosines_of_a_tensor_parallel_tree_are_the_whole_trees(world):
@@ -1260,6 +1312,79 @@ for policy in ("full", "dots"):
         "all_reduce"]
     for (p, _), g in zip(T.flatten(local), grads):
         arrays[f"dots/{policy}/grad/{p}"] = g.numpy()
+
+# -- the legacy build_train_step against the session's step -----------------
+import hashlib
+from repro_torch.fabric import TrainState
+from repro_torch.models import Transformer
+from repro_torch.models.transformer import param_pspecs
+from repro_torch.optim import Zero1, optimizer_state_pspecs
+from repro_torch.runtime import build_train_step
+from repro_torch.runtime.shardings import sanitize_pspecs
+
+meshes["4x1"] = ProcessMesh((4, 1), device="cpu")
+LEGACY_PLAN = plan_presets(error_feedback=True)["gbin_packed"]
+
+
+def digest(tree):
+    h = hashlib.sha256()
+    for x in T.leaves(tree):
+        h.update(x.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+for tag in ("2x2", "1x4", "4x1"):
+    m = meshes[tag]
+    cs = build_train_step(cfg, m, ADAM, LEGACY_PLAN,
+                          init_params(cfg, device="meta"))
+    tp = TensorParallel(m.model_group) if m.model_size > 1 else None
+    session = Fabric(mesh=m)
+    # the session's specs and ZeRO-1 partition, built as the Trainer builds
+    # them
+    whole = init_params(cfg, device="meta")
+    specs = sanitize_pspecs(param_pspecs(cfg), whole, m.extents)
+    own = None if m.data_size == 1 else Zero1.from_specs(
+        m.data_group, optimizer_state_pspecs(
+            specs, whole, dp_axes=m.data_axes, dp_size=m.data_size),
+        m.data_axes)
+    # at (4, 1) the session's step on the legacy step's policies, and
+    # ("bucketed") on the plan, which buckets the "model"-specced leaves
+    paths = {"legacy": cs.aux["fabric"], "session": session}
+    if tag == "4x1":
+        paths["bucketed"] = session
+    steps, states = {}, {}
+    for path, fab in paths.items():
+        model = Transformer(cfg, device="cpu", seed=0, tp=tp)
+        params = model.tree()
+        zero = cs.aux["zero"] if path == "legacy" else own
+        states[path] = TrainState(
+            model=model, opt=ADAM.init(params, zero=zero),
+            ef=fab.init_ef(params, cs.aux["policies"]))
+        steps[path] = cs.step_fn if path == "legacy" else session.build_step(
+            ADAM, cs.aux["policies"] if path == "session" and tag == "4x1"
+            else LEGACY_PLAN, params, model.loss, pspecs=specs, zero=zero)
+    info[f"legacy/{tag}/layout"] = [
+        cs.aux["num_launches"], steps["session"].layout.num_launches,
+        sorted(u.name for u in cs.aux["layout"].unfused),
+        cs.aux["zero"] is not None]
+    info[f"legacy/{tag}/fp32"] = sorted(
+        p for p, pol in T.flatten(cs.aux["policies"])
+        if str(getattr(pol.mode, "value", pol.mode)) == "fp32")
+    for k in range(2):
+        batch = {n: torch.as_tensor(v) for n, v in data.batch_at(k).items()}
+        for path in paths:
+            st, metrics, agg = steps[path](states[path], batch)
+            states[path] = st
+            info[f"legacy/{tag}/{path}/{k}"] = {
+                "loss": float(metrics["loss"]),
+                "agg_norm": float(metrics["agg_norm"]),
+                "params": digest(st.model.tree()), "agg": digest(agg),
+                "mu": digest(st.opt.mu), "nu": digest(st.opt.nu),
+                "ef": digest(st.ef)}
+            if tag == "4x1" and k == 0 and path != "session":
+                for p, u in T.flatten(agg):
+                    arrays[f"legacy/{tag}/{path}/agg/{p}"] = u.numpy()
 
 # -- the paper controller on the (2, 2) mesh ---------------------------------
 
