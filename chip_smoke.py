@@ -16,8 +16,10 @@ Phases (any failure exits non-zero before the result line):
      and columns of -0.0, NaN, +-inf and +-subnormals, decoded to
      float32 and bfloat16), G-Binary and G-Ternary gates, strided owner
      views, float32 and bfloat16 planes and decodes, +-0, NaN, +-inf,
-     operands whose exponents lie far apart, int4 .5 ties, zero / NaN /
-     inf planes and top-k ties at the threshold (also subnormals, a
+     operands whose exponents lie far apart, int4 .5 ties, +-0 and a
+     subnormal in every lane of a 16-byte vector and in a plane's last
+     vector under normal and subnormal scales, zero / NaN / inf planes
+     (NaN and inf in every lane) and top-k ties at the threshold (also subnormals, a
      negative, an infinite and a NaN threshold, and 70,000 planes;
      apply_sign_update with +-0, +-inf, NaN and subnormal parameters
      under scales 1e-3, -0.37, +-0, inf and NaN, each given as a float
@@ -813,23 +815,39 @@ def finish_rows(rows: dict, shape: str) -> None:
               flush=True)
 
 
+#: int4's special values: .5 ties under a power-of-two scale, +-0.0, 7
+#: (the plane's absmax), a value far below the scale and the subnormal
+#: 3 * 2**-149.  Thirteen, a count prime to 4: four runs in a row put
+#: each in every lane of a 16-byte vector, and the last run, ending a
+#: plane, leaves a tie, -0.0, +0.0 and the subnormal in its last vector
+INT4_RUN = (1.5, -1.5, 6.5, -6.5, 7.0, 1e-30, 2.5, -2.5, 0.5, -0.5, -0.0,
+            0.0, 3 * 2.0 ** -149)
+
+
 def int4_planes(gen) -> torch.Tensor:
-    """float32 planes, one int4 scale each: random magnitudes, exact
-    scales (absmax 7 * 2**e) holding .5 ties, +-0.0 and 1e-30, a zero
-    plane, a plane with a NaN and one with an inf."""
+    """float32 planes, one int4 scale each: random magnitudes; exact
+    scales 2**e (absmax 7 * 2**e, e = -140 a subnormal scale) holding
+    INT4_RUN; a zero plane; a NaN plane and an inf plane (each scale 1,
+    INT4_RUN with NaN, or -inf and inf, in place of 1e-30 and +0.0).
+    The runs fill each plane's first and last 52 values."""
     base = torch.randn(3 * 4096, device="cuda", generator=gen)
     planes = [base * 10.0 ** e for e in (-30, -3, 0, 4)]
-    ties = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 6.5, -6.5, 7.0,
-                         -0.0, 0.0, 1e-30], device="cuda")
-    for e in (-20, 3):
-        x = base.clamp(-6.9, 6.9) * 2.0 ** e
-        x[:ties.numel()] = ties * 2.0 ** e
-        planes.append(x)
+    run = torch.tensor(INT4_RUN, device="cuda")
+
+    def with_runs(x, r):
+        x[:4 * r.numel()] = r.repeat(4)
+        x[-4 * r.numel():] = r.repeat(4)
+        return x
+
+    for e in (-20, 3, -140):
+        r = run * 2.0 ** e
+        r[-1] = run[-1]
+        planes.append(with_runs(base.clamp(-6.9, 6.9) * 2.0 ** e, r))
     planes.append(torch.zeros_like(base))
     for special in (float("nan"), float("inf")):
-        x = base * 30
-        x[7] = special
-        planes.append(x)
+        r = run.clone()
+        r[5], r[11] = -special, special
+        planes.append(with_runs(base * 30, r))
     return torch.stack(planes)
 
 

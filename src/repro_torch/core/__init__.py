@@ -8,7 +8,7 @@ from .aggregate import aggregate_gradients, init_ef_states, make_policy_tree
 from .admission import (Commander, ControlEvent, CusumGuard, Predictor,
                         Supervisor)
 from .collectives import (DistributedGroup, LocalGroup, ProcessMesh,
-                          VirtualGroup)
+                          VirtualGroup, VirtualMesh)
 from .device import rank_device, resolve_device
 from .diagnostics import (cosines_to_host, group_cosines_from_mean,
                           group_cosines_from_workers)
@@ -30,7 +30,7 @@ __all__ = [
     "ControlEvent", "CusumGuard", "DistributedGroup", "ExposureModel",
     "GroupPolicy", "GroupRules", "IciModel", "LeafPolicy", "LocalGroup",
     "MultiHopModel", "Predictor", "ProcessMesh", "Schedule", "Supervisor",
-    "TpuDatapathModel", "UnfusedLeaf", "VirtualGroup",
+    "TpuDatapathModel", "UnfusedLeaf", "VirtualGroup", "VirtualMesh",
     "aggregate_gradients", "aggregate_leaf", "assign_groups",
     "bits_per_element", "canonical_mode", "codec_name",
     "cosines_to_host", "envelope_sweep", "fp32_allreduce",

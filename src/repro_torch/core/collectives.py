@@ -29,7 +29,8 @@ tells the schedules that no collective separates their stages.
 CPU): the reference's ``shard_map`` over its data-parallel mesh axes.
 :class:`ProcessMesh` lays ranks out on the reference's ``(data, model)``
 (or ``(pod, data, model)``) mesh and holds a data group and a model
-group for this rank.
+group for this rank; :class:`VirtualMesh` is the same mesh with a model
+axis of 1 on virtual workers in one process.
 """
 from __future__ import annotations
 
@@ -139,6 +140,11 @@ class LocalGroup(VirtualGroup):
 
     def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
         return self._local(x)[0]
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` (no leading rank axis) over the one rank: ``x`` itself
+        (the model group of a :class:`VirtualMesh`)."""
+        return x
 
     def hop_groups(self, hops: int) -> list[tuple]:
         """Every hop runs as its local round trip on this one worker."""
@@ -398,3 +404,47 @@ class ProcessMesh:
     def __repr__(self) -> str:
         dims = ", ".join(f"{n}={s}" for n, s in self.extents.items())
         return f"ProcessMesh({dims}; rank {self.rank} at {self.coords})"
+
+
+class VirtualMesh:
+    """The reference's ``(data, model)`` or ``(pod, data, model)`` mesh
+    with a model axis of 1, its data axes held by virtual workers on one
+    device (the reference's mesh of ``jax.make_mesh(shape)`` in one
+    process).
+
+    ``data_group`` is a :class:`VirtualGroup` of the data extents and
+    ``model_group`` the one-rank :class:`LocalGroup`, so a session on it
+    (``Fabric(mesh=VirtualMesh((W, 1)))``) resolves its policies with the
+    partition specs as on a :class:`ProcessMesh` of the same shape, and
+    a leaf specced over ``"model"`` keeps a launch of its own.  A model
+    axis above 1 needs one rank a process: a :class:`ProcessMesh`.
+    """
+
+    def __init__(self, shape):
+        shape = tuple(int(s) for s in shape)
+        if len(shape) not in (2, 3) or shape[-1] != 1:
+            raise ValueError(f"a virtual mesh is (data, 1) or (pod, data, "
+                             f"1), got {shape}; a model axis above 1 runs "
+                             f"one rank a process on a ProcessMesh")
+        names = ("data", "model") if len(shape) == 2 else \
+            ("pod", "data", "model")
+        self.axis_names = names
+        self.extents = dict(zip(names, shape))
+        self.coords = dict.fromkeys(names, 0)
+        self.model_size, self.model_index = 1, 0
+        self.data_axes = names[:-1]
+        self.data_group = VirtualGroup(shape[:-1])
+        self.data_size = self.data_group.size
+        self.model_group = LocalGroup()
+        self.world = self.data_group
+
+    def shard_view(self, spec, shape):
+        """The :class:`~repro_torch.runtime.shardings.ShardView` of a leaf
+        specced over the model axis: its whole, on the one model rank."""
+        from ..runtime.shardings import ShardView
+        return ShardView(spec, shape, self.extents, self.coords,
+                         self.model_group)
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{n}={s}" for n, s in self.extents.items())
+        return f"VirtualMesh({dims})"

@@ -51,8 +51,8 @@ def _shard(ctx: AggregationContext, g, policy):
     if spec is None:
         return None
     if ctx.mesh is None:
-        raise ValueError(f"a tensor-parallel leaf (spec {spec}) needs a "
-                         f"session on a ProcessMesh")
+        raise ValueError(f"a leaf specced over the model axis (spec "
+                         f"{spec}) needs a session on a mesh")
     return ctx.mesh.shard_view(spec, tuple(g.shape[1:]))
 
 

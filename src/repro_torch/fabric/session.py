@@ -319,11 +319,12 @@ class Fabric:
     the reference's A/B check, with the same bits.  The mean codecs
     (``int4``, ``topk``) have no staged kernels and run their kernel
     sets either way.  ``Fabric(mesh=ProcessMesh(...))`` aggregates over
-    the mesh's data group; with a model axis above 1 the partition specs
-    passed as ``pspecs=`` reach the policies (at a model axis of 1 they
-    are dropped, so the layouts stay the data-parallel ones; the legacy
-    :func:`~repro_torch.runtime.build_train_step` resolves its policies
-    with them, as the reference's mesh step does).
+    the mesh's data group, and ``Fabric(mesh=VirtualMesh((W, 1)))`` over
+    W virtual workers with the same layouts.  The partition specs passed
+    as ``pspecs=`` reach the policies, as on the reference's session, so
+    a leaf specced over ``"model"`` keeps a launch of its own at any
+    model extent; a worker group used directly has no specs from its
+    callers and buckets every leaf.
     A hop plan (:mod:`repro_torch.fabric.hierarchy`) of more than one hop
     needs a group with one data axis a hop:
     ``Fabric(group=VirtualGroup((outer, inner)))`` (the reference's
@@ -373,7 +374,7 @@ class Fabric:
         w, epoch = int(view.num_workers), int(view.epoch)
         if w != self.group.size:
             if type(self.group) is not VirtualGroup \
-                    or len(self.group.shape) > 1:
+                    or len(self.group.shape) > 1 or self.mesh is not None:
                 raise ValueError(
                     f"cannot bind a {w}-worker view: {self.group!r} fixes "
                     f"the data-parallel extent at {self.group.size}")
@@ -426,11 +427,9 @@ class Fabric:
     def resolve(self, params_like: Any, plan: AdmissionPlan,
                 pspecs: Any | None = None) -> dict:
         """Params tree (+ the sanitized partition specs) -> LeafPolicy
-        tree; the specs count only on a tensor-parallel session."""
-        return resolve_policies(
-            params_like, plan,
-            pspecs=pspecs if self.tensor_parallel else None,
-            rules=self.rules)
+        tree."""
+        return resolve_policies(params_like, plan, pspecs=pspecs,
+                                rules=self.rules)
 
     def group_sizes(self, params_like: Any) -> dict[str, int]:
         return group_sizes(params_like, self.rules)

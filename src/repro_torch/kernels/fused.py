@@ -323,13 +323,16 @@ def int4_quant_plane(planes: torch.Tensor, *, levels: float = 7.0,
     reduced by max over the group between the launches, as int32 (the
     bits of a non-negative float order as the float), so every rank
     quantizes with the whole leaf's absmax.  No scale is read back to
-    the host.
+    the host.  For CUDA tensors the planes must start on a 16-byte
+    boundary (the quantize launch moves 16 bytes a thread).
     """
     if build.on_cpu(planes):
         return int4_quant_plane_plain(planes, levels, group)
     if planes.dtype != torch.float32:
         raise TypeError(f"int4_quant_plane takes float32, got {planes.dtype}")
     p3 = _planes3(planes, "int4_quant_plane")
+    if p3.data_ptr() % 16:
+        raise ValueError("int4_quant_plane needs 16-byte aligned planes")
     amax_bits = torch.zeros(p3.shape[0], dtype=torch.int32,
                             device=p3.device)
     out = torch.empty_like(p3)

@@ -14,14 +14,17 @@ sizes must equal the extents, so for the built-in plans, whose intra
 hop is 8 wide and clamped to W, ``D`` is 8, or ``P`` is 1 and ``D``
 at most 8);
 ``--mesh D,M`` (or ``P,D,M``) with M > 1 adds tensor parallelism over a
-model axis of M, with ZeRO-1 moments over the data axes, and runs only
-under ``torchrun`` (one rank a process).  ``--device`` picks the device
-(``cuda`` by default).  Started by ``torchrun`` (which sets
-``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``), each process is one rank
-of a ``torch.distributed`` group — NCCL on ``cuda:LOCAL_RANK`` for
-``--device cuda``, gloo for ``--device cpu`` — and the mesh's size
-(P*D*M) must equal ``WORLD_SIZE``; otherwise the W workers are virtual,
-on the one device.  Examples, on the CPU:
+model axis of M and runs only under ``torchrun`` (one rank a process).
+``--device`` picks the device (``cuda`` by default).  Started by
+``torchrun`` (which sets ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``),
+each process is one rank of a ``torch.distributed`` group — NCCL on
+``cuda:LOCAL_RANK`` for ``--device cuda``, gloo for ``--device cpu`` —
+on a :class:`~repro_torch.core.ProcessMesh` whose size (P*D*M) must
+equal ``WORLD_SIZE``, with ZeRO-1 moments over the data axes; otherwise
+the W workers are virtual, on the one device, on a
+:class:`~repro_torch.core.VirtualMesh`.  Either way the session is on
+the mesh, as the reference's launcher's is, so the model's partition
+specs reach the policies.  Examples, on the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \\
       --smoke --device cpu --mesh 4,1 --steps 2 --plan gbin_packed
@@ -164,8 +167,7 @@ def main(argv=None):
     import torch.distributed as dist
 
     from ..configs import get_config
-    from ..core import (DistributedGroup, ProcessMesh, VirtualGroup,
-                        rank_device)
+    from ..core import ProcessMesh, VirtualMesh, rank_device
     from ..data import SyntheticLMStream
     from ..fabric import Fabric, plan_presets
     from ..optim import AdamW, SgdMomentum
@@ -192,12 +194,11 @@ def main(argv=None):
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 timeout=_GROUP_TIMEOUT)
-        fabric = (Fabric(group=DistributedGroup(device=device))
-                  if shape == (workers, 1) else
-                  Fabric(mesh=ProcessMesh(shape, device=device)))
+        mesh = ProcessMesh(shape, device=device)
     else:
         device = args.device
-        fabric = Fabric(group=VirtualGroup(shape[:-1]))
+        mesh = VirtualMesh(shape)
+    fabric = Fabric(mesh=mesh)
     plan = None
     controller = args.controller or (
         "paper" if args.plan == "adaptive" else None)

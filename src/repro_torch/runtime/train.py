@@ -34,6 +34,10 @@ param_pspecs` and runs the model tensor-parallel over its model group.
 With ``TrainerConfig.zero1`` (the default, as in the reference) the
 moments are partitioned over the data group (ZeRO-1).  The traffic ratio
 is priced on the whole leaves' sizes, and checkpoints hold whole arrays.
+On a :class:`~repro_torch.core.collectives.VirtualMesh` (the launcher's
+``--mesh W,1`` outside ``torchrun``) the W workers are virtual, in one
+process: the specs reach the policies as on a ``ProcessMesh`` of that
+shape, and the moments and EF rows stay whole.
 
 :func:`build_train_step` is the reference's legacy step builder: a
 throwaway session's step with its partition specs, as a
@@ -93,13 +97,12 @@ def build_train_step(cfg: ModelConfig, mesh, optimizer: Optimizer,
     ZeRO-1 over its data group when ``zero1`` and the data extent is
     above 1) or a worker group (``Fabric(group=mesh)``, the specs of a
     mesh of its data axes and a model axis of 1, the moments whole; an
-    ``int`` W is ``VirtualGroup(W)``), as ``launch/train.py`` picks
-    between them.  ``dp_axes`` must be the session's data axes
-    (:attr:`~repro_torch.fabric.Fabric.dp_axes`); anything else raises.
-    On a mesh the policies are resolved with the specs whatever the
-    model extent, as the reference's mesh step resolves them, so a
-    leaf specced over ``"model"`` keeps its own launch at a model extent
-    of 1 too; a worker group has no model axis and buckets it.
+    ``int`` W is ``VirtualGroup(W)``).  ``dp_axes`` must be the
+    session's data axes (:attr:`~repro_torch.fabric.Fabric.dp_axes`);
+    anything else raises.  On a mesh the policies are resolved with the
+    specs, as the reference's mesh step resolves them, so a leaf specced
+    over ``"model"`` keeps its own launch; a worker group has no model
+    axis and buckets it.
     ``params_like`` is the whole parameter tree
     (``init_params(cfg, device="meta")`` will do); only its paths,
     shapes and dtypes are read.  ``loss(params, batch)`` defaults to the
@@ -274,7 +277,8 @@ class Trainer:
             whole = init_params(self.cfg, device="meta")
             self.pspecs = sanitize_pspecs(param_pspecs(self.cfg), whole,
                                           self.mesh.extents)
-            if self.tcfg.zero1 and self.mesh.data_size > 1:
+            if self.tcfg.zero1 and self.distributed \
+                    and self.mesh.data_size > 1:
                 dp = self.mesh.data_axes
                 self.zero = Zero1.from_specs(
                     self.fabric.group, optimizer_state_pspecs(
@@ -290,7 +294,7 @@ class Trainer:
         return self.state
 
     def _layout(self) -> MeshLayout | None:
-        return (None if self.mesh is None else
+        return (None if self.mesh is None or not self.distributed else
                 MeshLayout(self.mesh, self.pspecs if self.tp else None,
                            self.zero))
 

@@ -326,6 +326,80 @@ def test_int4_quant_matches_twin(cuda):
                           ref.int4_quant_plane(planes[p]))
 
 
+#: int4's special values: .5 ties under a power-of-two scale, +-0.0, 7
+#: (the absmax), a value far below the scale, the subnormal 3 * 2**-149.
+#: Thirteen, a count prime to 4: four runs in a row put each in every
+#: lane of a 16-byte vector; the last run leaves a tie, -0.0, +0.0 and the
+#: subnormal in a plane's last vector
+INT4_RUN = np.array([1.5, -1.5, 6.5, -6.5, 7.0, 1e-30, 2.5, -2.5, 0.5, -0.5,
+                     -0.0, 0.0, 3 * 2.0 ** -149], np.float32)
+
+
+def int4_lane_planes(rng, count: int) -> torch.Tensor:
+    """``count`` planes of 3 x 4096 values, each with four runs of
+    INT4_RUN at its start and at its end, cycling through: scales 2**-140
+    (subnormal), 2**3 and 2**-20 (absmax 7 * 2**e), a NaN plane and an inf
+    plane (scale 1: the runs with NaN, or -inf and inf, in place of 1e-30
+    and +0.0)."""
+    base = rng.randn(3 * 4096).astype(np.float32)
+    kinds = []
+    for e in (-140, 3, -20):
+        r = (INT4_RUN * np.float32(2.0 ** e)).astype(np.float32)
+        r[-1] = INT4_RUN[-1]
+        kinds.append((np.clip(base, -6.9, 6.9) * np.float32(2.0 ** e), r))
+    for special in (np.nan, np.inf):
+        r = INT4_RUN.copy()
+        r[5], r[11] = -special, special
+        kinds.append((base * np.float32(30), r))
+    planes = []
+    for i in range(count):
+        x, r = kinds[i % len(kinds)]
+        x = x.copy()
+        x[:4 * r.size] = np.tile(r, 4)
+        x[-4 * r.size:] = np.tile(r, 4)
+        planes.append(x)
+    return ref.to_plane(torch.from_numpy(np.stack(planes)))
+
+
+@pytest.mark.parametrize("count", [1, 2, 5, 11])
+def test_int4_quant_special_values_in_every_lane_match_twin(cuda, count):
+    """The quantize launch's 16-byte vectors: ties, +-0, NaN, inf and a
+    subnormal in each lane of a vector and in a plane's last vector, on
+    one plane, an odd count and more planes than the kinds, byte-equal
+    to the twin (the planes together and one at a time)."""
+    planes = int4_lane_planes(np.random.RandomState(count), count).to(cuda)
+    before = fused.int4_quant_plane.launches
+    assert bits_equal(ops.int4_quant_plane(planes),
+                      ref.int4_quant_plane(planes))
+    assert fused.int4_quant_plane.launches == before + 2
+    for p in range(count):
+        assert bits_equal(ops.int4_quant_plane(planes[p]),
+                          ref.int4_quant_plane(planes[p]))
+
+
+def test_int4_quant_raises_on_misaligned_planes(cuda):
+    """Planes that do not start on a 16-byte boundary raise and launch
+    nothing, and the quantize entry refuses them itself; 16 bytes further
+    on the same values quantize as the twin does."""
+    from repro_torch.kernels import build
+    buf = torch.randn(2 * 4096 + 8, device=cuda)
+    before = fused.int4_quant_plane.launches
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.int4_quant_plane(buf[off:off + 8192].view(2, 32, 128))
+    assert fused.int4_quant_plane.launches == before
+    quantize = build.bind("int4_quant", "int4_quantize_f32", 3, 2, 1)
+    bits = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.empty(4096 + 4, device=cuda)
+    assert quantize(buf.data_ptr() + 4, bits.data_ptr(), out.data_ptr(), 1,
+                    4096, 7.0, build.stream_ptr(buf.device)) != 0
+    assert quantize(buf.data_ptr(), bits.data_ptr(), out.data_ptr() + 4, 1,
+                    4096, 7.0, build.stream_ptr(buf.device)) != 0
+    planes = buf[4:4 + 8192].view(2, 32, 128)
+    assert bits_equal(ops.int4_quant_plane(planes),
+                      ref.int4_quant_plane(planes))
+
+
 class OtherRank:
     """A model group of two ranks in one process: ``all_reduce`` combines
     this rank's tensor with the other rank's, given; or, with none, a

@@ -561,12 +561,13 @@ def test_build_train_step_on_a_mesh_is_the_sessions_step(world, mesh):
     the Trainer builds them: losses, norms, parameters,
     moments, EF rows and aggregates bit-equal on every rank.  At (4, 1)
     the legacy step keeps the seven "model"-specced leaves on launches of
-    their own, as the reference's mesh step does; the session's step on
-    its policies gives the same bits, and the session's step on the plan
-    (which buckets those leaves) the same votes byte for byte and the
-    same FP32 means to rtol 1e-6 and 1e-6 of the leaf's largest value
-    (gloo's ring sums a bucket's elements in an order that depends on
-    their offset, and the buckets differ)."""
+    their own, as the reference's mesh step does, and so does the
+    session's step, on the legacy step's policies or on the plan; a
+    session on the data group alone (a worker group, no specs) buckets
+    those leaves and gives the same votes byte for byte and the same
+    FP32 means to rtol 1e-6 and 1e-6 of the leaf's largest value (gloo's
+    ring sums a bucket's elements in an order that depends on their
+    offset, and the buckets differ)."""
     for r, (arrays, info) in enumerate(world):
         launches, session_launches, unfused, zero = \
             info[f"legacy/{mesh}/layout"]
@@ -580,7 +581,9 @@ def test_build_train_step_on_a_mesh_is_the_sessions_step(world, mesh):
             assert launches == session_launches, r
             continue
         assert unfused == sorted(info["trainer/unfused"])
-        assert launches == session_launches == 9
+        assert launches == session_launches == info["legacy/4x1/on_plan"] \
+            == 9
+        assert info["legacy/4x1/bucketed_unfused"] == 0
         assert info["legacy/4x1/bucketed/0"]["loss"] == \
             info["legacy/4x1/legacy/0"]["loss"]
         fp32 = set(info["legacy/4x1/fp32"])
@@ -1349,10 +1352,11 @@ for tag in ("2x2", "1x4", "4x1"):
             specs, whole, dp_axes=m.data_axes, dp_size=m.data_size),
         m.data_axes)
     # at (4, 1) the session's step on the legacy step's policies, and
-    # ("bucketed") on the plan, which buckets the "model"-specced leaves
+    # ("bucketed") a session on the mesh's data group alone, a worker
+    # group without specs, which buckets the "model"-specced leaves
     paths = {"legacy": cs.aux["fabric"], "session": session}
     if tag == "4x1":
-        paths["bucketed"] = session
+        paths["bucketed"] = Fabric(group=m.data_group)
     steps, states = {}, {}
     for path, fab in paths.items():
         model = Transformer(cfg, device="cpu", seed=0, tp=tp)
@@ -1361,13 +1365,21 @@ for tag in ("2x2", "1x4", "4x1"):
         states[path] = TrainState(
             model=model, opt=ADAM.init(params, zero=zero),
             ef=fab.init_ef(params, cs.aux["policies"]))
-        steps[path] = cs.step_fn if path == "legacy" else session.build_step(
+        steps[path] = cs.step_fn if path == "legacy" else fab.build_step(
             ADAM, cs.aux["policies"] if path == "session" and tag == "4x1"
-            else LEGACY_PLAN, params, model.loss, pspecs=specs, zero=zero)
+            else LEGACY_PLAN, params, model.loss,
+            pspecs=None if path == "bucketed" else specs, zero=zero)
     info[f"legacy/{tag}/layout"] = [
         cs.aux["num_launches"], steps["session"].layout.num_launches,
         sorted(u.name for u in cs.aux["layout"].unfused),
         cs.aux["zero"] is not None]
+    if tag == "4x1":
+        # the session's step on the plan resolves with the specs too
+        info["legacy/4x1/on_plan"] = session.build_step(
+            ADAM, LEGACY_PLAN, init_params(cfg, device="meta"), model.loss,
+            pspecs=specs, zero=own).layout.num_launches
+        info["legacy/4x1/bucketed_unfused"] = len(
+            steps["bucketed"].layout.unfused)
     info[f"legacy/{tag}/fp32"] = sorted(
         p for p, pol in T.flatten(cs.aux["policies"])
         if str(getattr(pol.mode, "value", pol.mode)) == "fp32")
