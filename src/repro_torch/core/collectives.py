@@ -42,8 +42,10 @@ import torch.distributed as dist
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 #: callables ``fn(group, op, x)`` told of each collective a
-#: :class:`DistributedGroup` makes, with the tensor it counts: the launch
-#: dry-run's collective inventory (:mod:`repro_torch.launch.analysis`)
+#: :class:`DistributedGroup` or :class:`VirtualGroup` makes, with the
+#: tensor it counts (one rank's input): the launch dry-run's collective
+#: inventory (:mod:`repro_torch.launch.analysis`) and the span recorder
+#: (:mod:`repro_torch.core.spans`)
 COLLECTIVE_OBSERVERS: list = []
 
 
@@ -55,7 +57,10 @@ class VirtualGroup:
     ``W = outer * inner`` workers out row-major over the axes, as the
     reference's nested ``vmap`` (``Fabric(dp_axes=("outer", "inner"))``):
     worker ``o * inner + i`` sits at ``(o, i)``.  Its collectives span
-    all W workers; :meth:`hop_groups` splits them by axis.
+    all W workers; :meth:`hop_groups` splits them by axis.  Each is told
+    to :data:`COLLECTIVE_OBSERVERS` as a :class:`DistributedGroup` rank
+    tells it (``psum`` and ``all_reduce_mean`` as an ``all_reduce``,
+    with worker 0's input), though nothing crosses a wire.
     """
 
     host_local = False
@@ -79,13 +84,19 @@ class VirtualGroup:
                              f"workers, got shape {tuple(x.shape)}")
         return x
 
+    def _notify(self, op: str, x: torch.Tensor) -> None:
+        for fn in COLLECTIVE_OBSERVERS:
+            fn(self, op, x[0])
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over workers (integer inputs sum in their own dtype)."""
-        return self._local(x).sum(dim=0, dtype=x.dtype)
+        self._notify("all_reduce", self._local(x))
+        return x.sum(dim=0, dtype=x.dtype)
 
     def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over workers, as ``pmean``: the sum divided by W."""
-        return self._local(x).sum(dim=0) / self.size
+        self._notify("all_reduce", self._local(x))
+        return x.sum(dim=0) / self.size
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """(src, dst, ...) -> (dst, src, ...): a view, no copy."""
@@ -93,11 +104,13 @@ class VirtualGroup:
         if x.shape[1] != self.size:
             raise ValueError(f"all_to_all needs {self.size} chunks per "
                              f"worker, got shape {tuple(x.shape)}")
+        self._notify("all_to_all", x)
         return x.transpose(0, 1)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(W, rows, ...) -> (W * rows, ...), concatenated in rank order."""
-        return self._local(x).reshape(-1, *x.shape[2:])
+        self._notify("all_gather", self._local(x))
+        return x.reshape(-1, *x.shape[2:])
 
     def hop_groups(self, hops: int) -> list[tuple]:
         """Each hop's groups: hop ``h`` reduces over axis ``-1 - h``, one

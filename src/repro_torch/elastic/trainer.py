@@ -42,6 +42,7 @@ from ..checkpoint import (CheckpointManager, load_train_state,
                           train_state_arrays)
 from ..core import (AdmissionPlan, GroupRules, plan_traffic_ratio,
                     resolve_device)
+from ..core import spans
 from ..core import tree as T
 from ..fabric import Fabric, TrainState
 from ..fabric.control import Telemetry, make_controller
@@ -321,6 +322,7 @@ class ElasticTrainer:
     def _run_until(self, num_steps: int) -> None:
         while self.state.step < num_steps:
             step = self.state.step
+            spans.at_step(step)
             crash = self._apply_events(step)
             if crash is not None:
                 raise ElasticFailure(crash)

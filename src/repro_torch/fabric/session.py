@@ -30,6 +30,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
+from ..core import spans
 from ..core import tree as T
 from ..core.aggregate import init_ef_states
 from ..core.buckets import (DEFAULT_BUCKET_BYTES, AdmissionPlan,
@@ -600,20 +601,25 @@ class Fabric:
         losses = []
         for k, shard in enumerate(shards[r] for r in ranks):
             if not accum:
-                lval = loss(params, shard)
-                for buf, g in zip(grads, _grad(lval, leaves)):
-                    buf[k].copy_(g)
+                lval, gs = _loss_and_grads(loss, params, shard, leaves)
+                with spans.span("fabric.grad_stack"):
+                    for buf, g in zip(grads, gs):
+                        buf[k].copy_(g)
+                del gs          # a model's worth, gone before the next worker
                 losses.append(lval.detach())
                 continue
             lacc = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             for mb in _split_microbatches(shard, grad_accum):
-                lval = loss(params, mb)
-                for buf, g in zip(grads, _grad(lval, leaves)):
-                    buf[k].add_(g.to(torch.float32))
+                lval, gs = _loss_and_grads(loss, params, mb, leaves)
+                with spans.span("fabric.grad_stack"):
+                    for buf, g in zip(grads, gs):
+                        buf[k].add_(g.to(torch.float32))
+                del gs
                 lacc = lacc + lval.detach()
-            for buf in grads:
-                buf[k].div_(grad_accum)
+            with spans.span("fabric.grad_stack"):
+                for buf in grads:
+                    buf[k].div_(grad_accum)
             losses.append(lacc / grad_accum)
         gtree = T.unflatten([(p, g) for (p, _), g in zip(items, grads)])
         return gtree, self.group.all_reduce_mean(torch.stack(losses))
@@ -674,21 +680,24 @@ class Fabric:
         def step(state: TrainState, batch: dict):
             params = state.model.tree()
             gtree, lval = self.worker_grads(params, batch, loss, grad_accum)
-            if layout is not None:
-                agg, new_ef = aggregate_tree_bucketed(
-                    ctx, gtree, policies, ef_states=state.ef, layout=layout)
-            else:
-                agg, new_ef = aggregate_tree(ctx, gtree, policies,
-                                             ef_states=state.ef)
+            with spans.span("fabric.aggregate"):
+                if layout is not None:
+                    agg, new_ef = aggregate_tree_bucketed(
+                        ctx, gtree, policies, ef_states=state.ef,
+                        layout=layout)
+                else:
+                    agg, new_ef = aggregate_tree(ctx, gtree, policies,
+                                                 ef_states=state.ef)
             del gtree
             metrics = {"loss": lval}
-            if with_diagnostics:
-                cos = group_cosines_from_mean(agg, groups, shards=shards)
-                for g, d in sorted(cos.items()):
-                    metrics[f"cos/{g}/gbinary"] = d["gbinary"]
-                    metrics[f"cos/{g}/gternary"] = d["gternary"]
-            metrics["agg_norm"] = self._norm(agg, shards)
-            with torch.no_grad():
+            with spans.span("fabric.agg_norm"):
+                if with_diagnostics:
+                    cos = group_cosines_from_mean(agg, groups, shards=shards)
+                    for g, d in sorted(cos.items()):
+                        metrics[f"cos/{g}/gbinary"] = d["gbinary"]
+                        metrics[f"cos/{g}/gternary"] = d["gternary"]
+                metrics["agg_norm"] = self._norm(agg, shards)
+            with torch.no_grad(), spans.span("optim.apply"):
                 opt = (optimizer.apply(params, agg, state.opt)
                        if zero is None else
                        optimizer.apply(params, agg, state.opt, zero=zero))
@@ -751,6 +760,17 @@ def _split_microbatches(batch: dict, grad_accum: int) -> list[dict]:
     n = next(iter(batch.values())).shape[0] // grad_accum
     return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             for i in range(grad_accum)]
+
+
+def _loss_and_grads(loss: Callable, params: dict, batch: dict,
+                    leaves: list) -> tuple:
+    """One worker's loss on ``batch`` and its gradients for every leaf,
+    under the recorder's ``fabric.forward`` and ``fabric.backward``
+    spans."""
+    with spans.span("fabric.forward"):
+        lval = loss(params, batch)
+    with spans.span("fabric.backward"):
+        return lval, _grad(lval, leaves)
 
 
 def _grad(lval: torch.Tensor, leaves: list) -> tuple:

@@ -302,6 +302,8 @@ class StepTrace:
         self._outputs = ()
 
     def _observe(self, group, op: str, x: torch.Tensor) -> None:
+        if not hasattr(group, "process_group"):
+            return                  # a virtual group crosses no wire
         ranks = self._ranks.get(id(group))
         if ranks is None:
             ranks = self._ranks[id(group)] = _group_ranks(group)

@@ -8,11 +8,13 @@ Builds the same run as the launcher (random weights from ``--seed``,
 ``SyntheticLMStream(learnable=False)``; an encoder-decoder's batches
 also carry seeded ``frames``, :class:`~repro_torch.data.FramesStream`),
 takes ``--warmup`` steps, then
-traces ``--steps`` steps with ``torch.profiler`` and prints: the card's
-name and power limit, each traced step's wall time, the host's kernel
-launch calls (``cudaLaunchKernel`` and its variants) a step, the device
-busy share (kernel time over wall time), the kernel time of the three
-aggregation kernels and of the rest, and the top kernels by device time.
+traces ``--steps`` steps with ``torch.profiler`` and the span recorder
+(:mod:`repro_torch.core.spans`) on, and prints: the card's name and
+power limit, each traced step's wall time, the host's kernel launch
+calls (``cudaLaunchKernel`` and its variants) a step, the device busy
+share (the union of the device's intervals over the wall time, so
+overlapping work counts once), each span's count and host time a step,
+and the top kernels by device time and host operators by self time.
 Writes a Chrome trace to the path ``--trace`` names, when given.
 """
 import argparse
@@ -43,6 +45,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from ..configs import get_config
+    from ..core import spans
     from ..data import FramesStream, SyntheticLMStream
     from ..fabric import Fabric, plan_presets
     from ..optim import AdamW
@@ -71,12 +74,15 @@ def main(argv=None):
                       fabric=Fabric(num_workers=workers), seed=args.seed)
     trainer.run(args.warmup)
     torch.cuda.synchronize()
+    spans.enable()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.run(args.warmup + args.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    spans.disable()
+    rec = spans.take()
     steps = [h["step_time_s"] for h in trainer.history[args.warmup:]]
     print(f"traced steps: {steps} s, wall {wall:.4f} s")
 
@@ -95,12 +101,15 @@ def main(argv=None):
     print(f"kernel launch calls {launch_calls} in {len(steps)} steps: "
           f"{launch_calls / len(steps):.0f} a step")
     total_us = sum(t for t, _ in dev.values())
-    ours = {"sign_pack_kernel", "vote_combine_kernel",
-            "unpack_ternary_kernel"}
-    agg_us = sum(t for k, (t, _) in dev.items() if any(o in k for o in ours))
+    busy_ns = union_ns([(e.start_ns(), e.end_ns())
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type().name == "CUDA"])
     print(f"device kernel time {total_us / 1e3:.3f} ms over {len(steps)} "
-          f"steps; busy share {total_us / 1e6 / wall:.4f}; aggregation "
-          f"kernels {agg_us / 1e3:.3f} ms")
+          f"steps; busy share {busy_ns / 1e9 / wall:.4f}")
+    print("spans a step: count, host ms")
+    for name, (n, ns) in sorted(span_totals(rec).items()):
+        print(f"  {n / len(steps):8.1f}  {ns / 1e6 / len(steps):10.3f} ms  "
+              f"{name}")
     for key, (t, n) in sorted(dev.items(), key=lambda x: -x[1][0])[:args.top]:
         print(f"  {t / 1e3:10.3f} ms  {n:6d}x  {key[:110]}")
     print("top host ops by self CPU time:")
@@ -109,6 +118,29 @@ def main(argv=None):
         print(f"  {t / 1e3:10.3f} ms  {n:6d}x  {key[:110]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
+
+
+def union_ns(intervals) -> int:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, reach = 0, None
+    for a, b in sorted(intervals):
+        if reach is None or a > reach:
+            total += b - a
+            reach = b
+        elif b > reach:
+            total += b - reach
+            reach = b
+    return total
+
+
+def span_totals(rec) -> dict:
+    """Each closed span name's count and summed host nanoseconds."""
+    out = {}
+    for sp in rec.spans:
+        if sp.end_ns is not None:
+            n, ns = out.get(sp.name, (0, 0))
+            out[sp.name] = (n + 1, ns + sp.end_ns - sp.start_ns)
+    return out
 
 
 if __name__ == "__main__":

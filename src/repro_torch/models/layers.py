@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core import spans
 from ..core.device import resolve_device
 from .config import ModelConfig
 
@@ -359,17 +360,18 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             is_global: bool) -> torch.Tensor:
     """q (B, S, H, hd), k and v (B, T, K, hd) -> (B, S, H * hd): the full
     float32 scores up to ``FLASH_SEQ_THRESHOLD`` tokens, the blocked
-    path above."""
+    path above; the recorder's ``model.attention`` span."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    if s > FLASH_SEQ_THRESHOLD:
-        out = _flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v,
-                               causal=causal, window=cfg.sliding_window,
-                               is_global=is_global,
-                               scale=1.0 / math.sqrt(hd))
-        return out.reshape(b, s, h * hd)
-    return _full_attention(q, k, v, causal=causal, window=cfg.sliding_window,
-                           is_global=is_global)
+    with spans.span("model.attention"):
+        if s > FLASH_SEQ_THRESHOLD:
+            out = _flash_attention(q.reshape(b, s, kv, h // kv, hd), k, v,
+                                   causal=causal, window=cfg.sliding_window,
+                                   is_global=is_global,
+                                   scale=1.0 / math.sqrt(hd))
+            return out.reshape(b, s, h * hd)
+        return _full_attention(q, k, v, causal=causal,
+                               window=cfg.sliding_window, is_global=is_global)
 
 
 def _attn_columns(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
@@ -819,7 +821,20 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     experts on their slots and combines them with its experts' slice of
     ``combine``, and the routed output is summed over the group; the
     shared experts run column- then row-parallel (:func:`mlp_forward`).
-    Experts the axis does not divide are replicated and run whole."""
+    Experts the axis does not divide are replicated and run whole.
+
+    The recorder's ``model.moe`` span covers the call, its child
+    ``model.moe.experts`` the experts' own products (routed and shared),
+    so the parent's self time is the routing, the capacity assignment,
+    the dispatch and the combine.  While the recorder is on, the device
+    counter ``moe.slots_filled`` adds the capacity slots taken (each
+    expert's kept choices a group, ``min(counts, cap)``) and the host
+    counter ``moe.slots`` the slots there are, ``g * e_loc * cap``."""
+    with spans.span("model.moe"):
+        return _moe(p, x, cfg, tp)
+
+
+def _moe(p: dict, x: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
     m = cfg.moe
     dt = _dtype(cfg)
     b, s, d = x.shape
@@ -859,20 +874,27 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
             topv[..., i, None, None] * onehot[..., None].to(dt))
     if split:                                   # this rank's experts
         combine = combine[:, :, tp.index * e_loc:(tp.index + 1) * e_loc]
+        counts = counts[:, tp.index * e_loc:(tp.index + 1) * e_loc]
+    if spans.enabled():
+        spans.count_device("moe.slots_filled",
+                           torch.clamp(counts, max=cap).sum())
+        spans.count("moe.slots", g * e_loc * cap)
     dispatch = (combine > 0).to(dt)
 
     expert_in = _einsum("gsec,gsd->gecd", dispatch, xg)
-    if "w_gate" in p:
-        h = (F.silu(_einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
-             * _einsum("gecd,edf->gecf", expert_in, p["w_up"]))
-    else:
-        h = _gelu(_einsum("gecd,edf->gecf", expert_in, p["w_up"]))
-    expert_out = _einsum("gecf,efd->gecd", h, p["w_down"])
+    with spans.span("model.moe.experts"):
+        if "w_gate" in p:
+            h = (F.silu(_einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
+                 * _einsum("gecd,edf->gecf", expert_in, p["w_up"]))
+        else:
+            h = _gelu(_einsum("gecd,edf->gecf", expert_in, p["w_up"]))
+        expert_out = _einsum("gecf,efd->gecd", h, p["w_down"])
     y = _einsum("gsec,gecd->gsd", combine, expert_out)
     y = y.reshape(t + pad, d)[:t].reshape(b, s, d)
     if split:
         y = tp.reduce(y)
     if "shared" in p:
-        y = y + mlp_forward(p["shared"], x, cfg, tp=tp,
-                            d_ff=m.d_expert * m.num_shared)
+        with spans.span("model.moe.experts"):
+            y = y + mlp_forward(p["shared"], x, cfg, tp=tp,
+                                d_ff=m.d_expert * m.num_shared)
     return y

@@ -20,6 +20,8 @@ import dataclasses
 import time
 from typing import Callable, Optional, Sequence
 
+from ..core import spans
+
 
 class SimulatedFailure(RuntimeError):
     """Stands in for a node crash / collective abort."""
@@ -82,11 +84,17 @@ class StragglerWatchdog:
 
 
 class StepTimer:
-    """Host wall time of a ``with`` block, in ``duration`` (seconds)."""
+    """Host wall time of a ``with`` block, in ``duration`` (seconds),
+    and the recorder's ``trainer.step`` span while it is on: both from
+    the same two ``time.perf_counter_ns()`` stamps
+    (:mod:`repro_torch.core.spans`)."""
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        self.t0 = time.perf_counter_ns()
+        self._span = spans.begin("trainer.step", self.t0)
         return self
 
     def __exit__(self, *exc):
-        self.duration = time.perf_counter() - self.t0
+        t1 = time.perf_counter_ns()
+        spans.end(self._span, t1)
+        self.duration = (t1 - self.t0) * 1e-9

@@ -57,6 +57,7 @@ from ..checkpoint.manager import MeshLayout
 from ..core import (AdmissionPlan, DistributedGroup, GroupRules,
                     ProcessMesh, VirtualGroup, plan_traffic_ratio,
                     resolve_device)
+from ..core import spans
 from ..core import tree as T
 from ..core.buckets import resolve_policies
 from ..fabric import CompiledStep, Fabric, TrainState, dp_num_workers
@@ -322,9 +323,11 @@ class Trainer:
         return True
 
     def _batch(self, step: int, it) -> dict:
-        batch = self.data.batch_at(step) if hasattr(self.data, "batch_at") \
-            else next(it)
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        with spans.span("trainer.batch"):
+            batch = self.data.batch_at(step) \
+                if hasattr(self.data, "batch_at") else next(it)
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in batch.items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -390,6 +393,7 @@ class Trainer:
     def _run_until(self, num_steps: int, it) -> None:
         while self.state.step < num_steps:
             step = self.state.step
+            spans.at_step(step)
             if self.failure_injector is not None:
                 self.failure_injector.check(step)
             plan = self._current_plan()
